@@ -6,29 +6,59 @@
 Phases (any failure raises, so the run exits non-zero):
   1. device: require CUDA; print the card's name and power limit; turn TF32
      off for matmuls and cuDNN;
-  2. build K1 (csrc/contrast_infonce.cu) from the checkout with nvcc;
-  3. each K1 kernel against its plain torch version at the headline shape
-     (M=1024 anchors, D=256, K=190,000 bank rows, tau=tau_b=0.07), at a
-     ragged K=190,037, and at the main path's anchor count (M=38 for batch
+  2. build K1 (csrc/contrast_infonce.cu), K2 (csrc/conv3x3.cu) and K3
+     (csrc/fused_block.cu) from the checkout, one nvcc each, all at once;
+  3. K1 against its plain version at M=1024 anchors, D=256, K=190,000 bank
+     rows (tau 0.07), at a ragged K=190,037 and at the main path's M=38 (batch
      2); the loss through K1 against the plain loss, value and gradient;
-     median times of kernel and plain version;
-  4. the slice: 3 train steps of ``cityscapes_hrnet_w48_mem`` at full
-     HRNet-W48 width, 19 classes, the full 190k-row bank, batch 2 of
-     512x1024 synthetic scenes, contrast live from step 0, through the same
-     code as ``tools/train_torch.py``; asserts finite losses, a positive
-     contrast term, >= 3 launches of each K1 kernel, advanced bank pointers
-     and changed parameters; then, on the trained model's anchors and bank,
-     the contrast loss and its gradient through K1 against the plain
-     version;
-  5. a JSON line of the kernels, the card line, and the result line.
+  4. K2 (forward, dX, dW) against its plain version at the main path's
+     branch-0 shape [2, 48, 128, 256] and at a ragged width of 40; K3
+     against its plain version at [8, 48, 128, 256] in fp32 and bf16 (the
+     bench shape);
+  5. the flag-off slice: 3 train steps of ``cityscapes_hrnet_w48_mem`` at full
+     HRNet-W48 width, 19 classes, the full 190k-row bank, batch 2 of 512x1024
+     synthetic scenes, contrast live from step 0, through the same code as
+     ``tools/train_torch.py``; finite losses, a positive contrast term,
+     >= 3 launches of each K1 kernel, advanced bank pointers, changed
+     parameters; then the trained model's contrast loss and gradient through
+     K1 against the plain version;
+  6. the same slice with ``network.pallas_conv=true``: 3 steps, validation
+     after step 3 and checkpoints; K2a >= 2*64*3 and K2b >= 64*3 launches;
+     the checkpoint restored into a new trainer equals the trained state;
+  7. flag on equals flag off: step 1 of both from the same seed, batch and
+     anchor scores; losses within rtol 1e-4, each branch-0 conv weight
+     gradient within 2e-2 in relative norm (``GRAD_REL_NORM``);
+  8. K3's path, ``tools/bench_block_torch.py``, in bf16 and fp32;
+  9. a JSON line of the six kernels, the card line, and the result line.
+
+Each path's launch counts are set to 0 just before it and read just after;
+the kernel-vs-plain launches of phases 3-4 are not counted.  Kernel times
+are CUDA-event medians of 5 runs of 10 back-to-back calls; ``bound_ms`` is
+max(FLOPs / peak, bytes / 3.35 TB/s) from this run's shapes, with the H100
+SXM peaks: 67 TFLOP/s fp32 (SIMT), 989 TFLOP/s bf16 (tensor cores).
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12
+# Flag on against flag off, branch-0 conv weight gradients: each tensor's
+# relative norm error.  An elementwise atol 1e-4 / rtol 1e-3 cannot hold:
+# the two paths round dX and dW differently in their last bits, and the BN
+# backward of a randomly initialised HRNet cancels about three digits of
+# every weight gradient (tests/test_torch_port_slice.py); measured on the
+# CPU at 64x128 the two paths differ by 2.3e-3 to 7.4e-3 in relative norm.
+# A wrong dX or dW (unflipped, untransposed, missing) is off by order 1.
+GRAD_REL_NORM = 2e-2
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]", "train.batch_size=2",
+         "contrast.warmup_iters=0", "solver.max_iters=3"]
 
 
 def card_line() -> str:
@@ -38,27 +68,41 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 5, inner: int = 10) -> float:
+    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float, dtype: str = "fp32") -> tuple[float, str]:
+    """(least time in ms, "operations" or "bytes")."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
 
 
 def close(name: str, got, want, rtol: float, atol: float) -> float:
     import torch
 
-    err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
     if not torch.isfinite(got).all() or bool(bad.any()):
         raise AssertionError(
             f"{name}: kernel disagrees with the plain version "
@@ -88,6 +132,8 @@ def k1_inputs(M: int, K: int, D: int, seed: int, device):
 
 
 def check_k1(device, tau: float = 0.07) -> dict:
+    """Errors over three shapes; rows (times and bounds) at M=38 (the main
+    path) and M=1024."""
     import torch
 
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
@@ -97,7 +143,7 @@ def check_k1(device, tau: float = 0.07) -> dict:
     )
 
     errs = {name: 0.0 for name in k1.KERNELS}
-    times = {}
+    rows = {}
     cases = [("headline", 1024, 190_000), ("ragged", 1024, 190_037),
              ("main_path", 38, 190_000)]
     for case, M, K in cases:
@@ -138,35 +184,153 @@ def check_k1(device, tau: float = 0.07) -> dict:
 
         if case == "ragged":
             continue
+        flops = 2 * M * K * 256
+        ins = nbytes(a, a_l, c, c_l, c_v)
         t_case = {
             "infonce_pass1": (
                 time_ms(lambda: k1.infonce_pass1(a, a_l, c, c_l, c_v, tau)),
-                time_ms(lambda: k1.stream_pass1(a, a_l, c, c_l, c_v, tau))),
+                time_ms(lambda: k1.stream_pass1(a, a_l, c, c_l, c_v, tau)),
+                bound(flops, ins + 3 * 4 * M)),
             "infonce_pass2": (
                 time_ms(lambda: k1.infonce_pass2(a, a_l, c, c_l, c_v, m, ns, tau)),
-                time_ms(lambda: k1.stream_pass2(a, a_l, c, c_l, c_v, m, ns, tau))),
+                time_ms(lambda: k1.stream_pass2(a, a_l, c, c_l, c_v, m, ns, tau)),
+                bound(flops, ins + 4 * 4 * M)),
             "infonce_bwd": (
                 time_ms(lambda: k1.infonce_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau)),
-                time_ms(lambda: k1.stream_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau))),
+                time_ms(lambda: k1.stream_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau)),
+                bound(2 * flops, ins + 4 * 4 * M + 4 * M * 256)),
         }
-        for name, (ms, plain_ms) in t_case.items():
-            print(f"K1 time {case} M={M} K={K} {name}: kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms (median of 5, CUDA events)")
-        times[case] = t_case
-    return {"errs": errs, "times": times}
+        for name, (ms, plain_ms, (b_ms, by)) in t_case.items():
+            print(f"K1 time {case} M={M} K={K} {name}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        rows[case] = t_case
+    return {"errs": errs, "rows": rows}
+
+
+def check_k2(device) -> dict:
+    import torch
+
+    from contrastiveseg_tpu_torch.ops import conv_cuda as k2
+    from contrastiveseg_tpu_torch.ops.conv import conv3x3_dw_plain, conv3x3_plain
+
+    errs = {name: 0.0 for name in k2.KERNELS}
+    rows = {}
+    g = torch.Generator().manual_seed(2)
+    for case, (B, C, H, W) in (("main_path", (2, 48, 128, 256)), ("ragged", (2, 48, 128, 40))):
+        x = torch.randn(B, C, H, W, generator=g).to(device)
+        w = (torch.randn(C, C, 3, 3, generator=g) / (3 * C ** 0.5)).to(device)
+        gy = torch.randn(B, C, H, W, generator=g).to(device)
+        y = k2.conv3x3_fwd(x, w)
+        dx = k2.conv3x3_fwd(gy, w, True)
+        dw = k2.conv3x3_dw(x, gy)
+        torch.cuda.synchronize()
+        errs["conv3x3_fwd"] = max(
+            errs["conv3x3_fwd"], close(f"K2 {case} forward", y, conv3x3_plain(x, w), 1e-4, 1e-4),
+            close(f"K2 {case} dX", dx, conv3x3_plain(gy, w, True), 1e-4, 1e-4))
+        want_dw = conv3x3_dw_plain(x, gy)
+        errs["conv3x3_dw"] = max(errs["conv3x3_dw"], close(
+            f"K2 {case} dW", dw, want_dw, 1e-4, 4e-6 * float(want_dw.abs().max())))
+        print(f"K2 {case} {[B, C, H, W]}: forward, dX and dW match the plain versions")
+        if case != "main_path":
+            continue
+        flops = 2 * 9 * C * C * B * H * W
+        rows = {
+            "conv3x3_fwd": (
+                time_ms(lambda: k2.conv3x3_fwd(x, w)),
+                time_ms(lambda: conv3x3_plain(x, w)),
+                time_ms(lambda: torch.nn.functional.conv2d(x, w, padding=1)),
+                bound(flops, nbytes(x, w, y))),
+            "conv3x3_dw": (
+                time_ms(lambda: k2.conv3x3_dw(x, gy)),
+                time_ms(lambda: conv3x3_dw_plain(x, gy)),
+                time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1)),
+                bound(flops, nbytes(x, gy, dw))),
+        }
+        for name, (ms, plain_ms, lib_ms, (b_ms, by)) in rows.items():
+            print(f"K2 time {[B, C, H, W]} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return {"errs": errs, "rows": rows}
+
+
+def check_k3(device) -> dict:
+    import torch
+
+    from contrastiveseg_tpu_torch.ops.block import reference_block_eval
+    from contrastiveseg_tpu_torch.ops.block_cuda import fused_basic_block_eval
+    from tools.bench_block_torch import make_inputs
+
+    errs = {}
+    for fp32 in (True, False):
+        args = make_inputs(8, 128, 256, 48, fp32, device)
+        got = fused_basic_block_eval(*args)
+        want = reference_block_eval(*args)
+        torch.cuda.synchronize()
+        if fp32:
+            e = close("K3 fp32", got, want, 1e-4, 1e-4)
+        else:  # within 2 bf16 steps of the output's magnitude
+            step = 2.0 ** -7 * want.float().abs().clamp(min=1.0)
+            diff = (got.float() - want.float()).abs()
+            if not torch.isfinite(got.float()).all() or bool((diff > 2 * step).any()):
+                raise AssertionError(f"K3 bf16 disagrees: max abs err {float(diff.max()):.3e}")
+            e = float(diff.max())
+        errs["fp32" if fp32 else "bf16"] = e
+        print(f"K3 {'fp32' if fp32 else 'bf16'} [8, 48, 128, 256]: max abs err {e:.3e}")
+    return {"errs": errs}
+
+
+def slice_config(extra: list[str]):
+    from tools.train_torch import build_config
+
+    return build_config("cityscapes_hrnet_w48_mem", None, SLICE + extra)
+
+
+def check_history(history, launches: dict, want: dict, what: str) -> None:
+    import torch
+
+    for i, row in enumerate(history):
+        print(f"{what} step {i + 1}: loss {row['loss']:.6f} seg "
+              f"{row['loss_seg']:.6f} contrast {row['loss_contrast']:.6f} "
+              f"time {row['seconds'] * 1e3:.1f} ms")
+    for row in history:
+        for key in ("loss", "loss_seg", "loss_contrast"):
+            if not torch.isfinite(torch.tensor(row[key])):
+                raise AssertionError(f"{what}: non-finite {key}: {row}")
+        if not row["loss_contrast"] > 0:
+            raise AssertionError(f"{what}: contrast term is not positive: {row}")
+    for name, n in want.items():
+        if launches.get(name, 0) < n:
+            raise AssertionError(f"{what}: {name} launched {launches.get(name, 0)} times, "
+                                 f"expected >= {n}: {launches}")
+    print(f"{what} launches {json.dumps(launches)}")
+
+
+def reset_counts() -> None:
+    from contrastiveseg_tpu_torch.ops import block_cuda, contrast_cuda, conv_cuda
+
+    for mod in (contrast_cuda, conv_cuda, block_cuda):
+        mod.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from contrastiveseg_tpu_torch.ops import block_cuda, contrast_cuda, conv_cuda
+
+    counts = {}
+    for mod in (contrast_cuda, conv_cuda, block_cuda):
+        counts.update(mod.launch_counts())
+    return counts
 
 
 def run_slice(device) -> dict:
+    """The slice with network.pallas_conv off; returns its launches and step
+    times."""
     import torch
 
-    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
-    from tools.train_torch import build_config
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
 
-    cfg = build_config("cityscapes_hrnet_w48_mem", None, [
-        "data.synthetic=true", "data.synthetic_size=[512,1024]",
-        "train.batch_size=2", "contrast.warmup_iters=0", "solver.max_iters=3",
-    ])
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    cfg = slice_config(["solver.test_interval=0", "checkpoints.save_iters=0",
+                        f"checkpoints.checkpoints_dir={ckpt_dir / 'off'}"])
     trainer = Trainer(cfg, device)
     state = trainer.state
     C, M = state.bank.num_classes, state.bank.memory_size
@@ -178,31 +342,19 @@ def run_slice(device) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    k1.reset_launch_counts()
+    reset_counts()
     history = trainer.train()
     torch.cuda.synchronize()
-    launches = k1.launch_counts()
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated(device)
-
-    for i, row in enumerate(history):
-        print(f"slice step {i + 1}: loss {row['loss']:.6f} seg "
-              f"{row['loss_seg']:.6f} contrast {row['loss_contrast']:.6f} "
-              f"time {row['seconds'] * 1e3:.1f} ms")
-    for row in history:
-        for key in ("loss", "loss_seg", "loss_contrast"):
-            if not torch.isfinite(torch.tensor(row[key])):
-                raise AssertionError(f"non-finite {key}: {row}")
-        if not row["loss_contrast"] > 0:
-            raise AssertionError(f"contrast term is not positive: {row}")
-    for name, n in launches.items():
-        if n < 3:
-            raise AssertionError(f"{name} launched {n} times in 3 steps: {launches}")
+    check_history(history, launches, {n: 3 for n in k1.KERNELS}, "slice")
+    if any(launches[n] for n in ("conv3x3_fwd", "conv3x3_dw", "fused_block")):
+        raise AssertionError(f"the flag-off slice launched K2 or K3: {launches}")
     if bool((state.bank.segment_ptr == seg_ptr0).all()) or bool(
             (state.bank.pixel_ptr == pix_ptr0).all()):
         raise AssertionError("the bank pointers did not advance")
     if all(torch.equal(a, b) for a, b in zip(params0, state.model.parameters())):
         raise AssertionError("the parameters did not change")
-    print(f"slice launches {json.dumps(launches)}")
     print(f"slice step time steps 2-3: "
           f"{[round(r['seconds'] * 1e3, 1) for r in history[1:]]} ms; "
           f"peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
@@ -248,6 +400,125 @@ def run_slice(device) -> dict:
     return {"launches": launches, "history": history, "peak": peak}
 
 
+def run_flagged_slice(device) -> dict:
+    """The slice with network.pallas_conv=true, validation and checkpoints."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt" / "on"
+    cfg = slice_config(["network.pallas_conv=true", "solver.test_interval=3",
+                        "checkpoints.save_iters=0", "data.synthetic_length=4",
+                        "val.batch_size=2", f"checkpoints.checkpoints_dir={ckpt_dir}"])
+    trainer = Trainer(cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    want = {n: 3 for n in k1.KERNELS}
+    want.update(conv3x3_fwd=2 * 64 * 3, conv3x3_dw=64 * 3)
+    check_history(history, launches, want, "flag-on slice")
+    scores = trainer.last_scores
+    if not (0.0 <= scores.get("miou", -1.0) <= 1.0):
+        raise AssertionError(f"validation gave no mIoU in [0, 1]: {scores}")
+    print(f"flag-on slice validation (4 scenes, 512x1024): mIoU {scores['miou']:.4f} "
+          f"pixel_acc {scores['pixel_acc']:.4f}, {scores['images_per_sec']:.2f} img/s")
+    print(f"flag-on slice step time steps 2-3: "
+          f"{[round(r['seconds'] * 1e3, 1) for r in history[1:]]} ms; "
+          f"peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+
+    # Checkpoint round trip: a new trainer resumed from the latest checkpoint
+    # holds the trained state exactly.
+    if not (trainer.ckpt.has("latest") and trainer.ckpt.has("max_performance")):
+        raise AssertionError("the flag-on slice wrote no latest/max_performance checkpoint")
+    path = trainer.ckpt._path("latest")
+    resumed = Trainer(cfg.updated("network.resume", path), device)
+    a, b = trainer.state, resumed.state
+    same = (a.step == b.step == 3
+            and all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(),
+                                                      b.model.state_dict().values()))
+            and torch.equal(a.bank.storage, b.bank.storage)
+            and torch.equal(a.bank.segment_ptr, b.bank.segment_ptr)
+            and torch.equal(a.bank.pixel_ptr, b.bank.pixel_ptr)
+            and torch.equal(a.generator.get_state(), b.generator.get_state())
+            and a.optimizer.param_groups[0]["lr"] == b.optimizer.param_groups[0]["lr"])
+    if not same:
+        raise AssertionError("the restored checkpoint differs from the trained state")
+    print(f"checkpoint round trip: {Path(path).name} "
+          f"({Path(path).stat().st_size / 2**20:.1f} MiB) restored at step {b.step}, equal")
+    del resumed
+    return {"launches": launches, "history": history, "peak": peak, "scores": scores}
+
+
+def flag_on_equals_off(device) -> None:
+    """Step 1 with network.pallas_conv on and off, from the same seed, batch
+    and anchor and enqueue scores."""
+    import torch
+
+    from contrastiveseg_tpu_torch.data.synthetic import synthetic_batches
+    from contrastiveseg_tpu_torch.engine.state import create_train_state
+    from contrastiveseg_tpu_torch.engine.train_step import Draws, make_train_step
+    from contrastiveseg_tpu_torch.losses.contrast import AnchorScores
+    from contrastiveseg_tpu_torch.losses.manager import build_loss
+    from contrastiveseg_tpu_torch.models.nets import build_model
+
+    results = {}
+    for flag in (False, True):
+        cfg = slice_config([f"network.pallas_conv={flag}"])
+        batch = {k: v.to(device) for k, v in next(synthetic_batches(cfg, 2)).items()}
+        h, w = cfg.get("data.synthetic_size")
+        C, n = cfg.get("data.num_classes"), (h // 4) * (w // 4)
+        g = torch.Generator(device=device).manual_seed(11)
+        draws = Draws(AnchorScores(torch.rand((2, C, n), generator=g, device=device),
+                                   torch.rand((2, C, n), generator=g, device=device)),
+                      torch.rand((2, C, n), generator=g, device=device))
+        state = create_train_state(cfg, build_model(cfg), device)
+        step = make_train_step(build_loss(cfg), warmup_iters=0, network_stride=4,
+                               pixel_update_freq=cfg.get("contrast.pixel_update_freq"))
+        metrics = step(state, batch, draws)
+        grads = {name: p.grad.detach().clone()
+                 for name, p in state.model.backbone.named_parameters()
+                 if ".branches.0." in name and name.endswith(("conv1.weight", "conv2.weight"))}
+        results[flag] = ({k: float(v) for k, v in metrics.items()}, grads)
+        del state
+        torch.cuda.empty_cache()
+    (m_off, g_off), (m_on, g_on) = results[False], results[True]
+    for key in ("loss", "loss_seg", "loss_contrast"):
+        if abs(m_on[key] - m_off[key]) > 1e-4 * abs(m_off[key]):
+            raise AssertionError(f"flag on/off {key}: {m_on[key]} vs {m_off[key]}")
+    if len(g_on) != 64 or g_on.keys() != g_off.keys():
+        raise AssertionError(f"expected 64 branch-0 conv weights, got {len(g_on)}")
+    rel = {k: float((g_on[k] - g_off[k]).norm() / g_off[k].norm()) for k in g_on}
+    worst = max(rel, key=rel.get)
+    err = max(float((g_on[k] - g_off[k]).abs().max()) for k in g_on)
+    if rel[worst] > GRAD_REL_NORM:
+        raise AssertionError(f"flag on/off gradient of {worst}: relative norm error "
+                             f"{rel[worst]:.3e} > {GRAD_REL_NORM}")
+    print(f"flag on equals flag off at step 1: loss {m_on['loss']:.6f} vs "
+          f"{m_off['loss']:.6f}; 64 branch-0 conv weight gradients: relative norm "
+          f"error at most {rel[worst]:.3e} ({worst}), max abs err {err:.3e}")
+
+
+def run_block_bench() -> dict:
+    """K3's path: tools/bench_block_torch.py, bf16 (its default) and fp32."""
+    from tools.bench_block_torch import bench
+
+    out = {}
+    for fp32 in (False, True):
+        reset_counts()
+        res = bench(8, 128, 256, 48, fp32=fp32, reps=5, chain=10)
+        res["launches"] = read_counts()["fused_block"]
+        if res["launches"] < 1:
+            raise AssertionError("the bench did not launch K3")
+        print(f"bench_block_torch {json.dumps(res)}")
+        out["fp32" if fp32 else "bf16"] = res
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -261,30 +532,78 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t_start = time.perf_counter()
 
-    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from contrastiveseg_tpu_torch.ops import block_cuda, contrast_cuda, conv_cuda, cuda_lib
 
-    path, seconds = k1.build(force=True)
-    print(f"built {path.name} in {seconds:.2f} s")
-    print(k1.library_path().with_suffix(".ptxas.txt").read_text().strip())
+    libraries = [contrast_cuda.LIBRARY, conv_cuda.LIBRARY, block_cuda.LIBRARY]
+    t0 = time.perf_counter()
+    built = cuda_lib.build_all(libraries, force=True)
+    print(f"built {[(p.name, round(s, 2)) for p, s in built]} in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+    for lib in libraries:
+        for line in lib.ptxas_report().splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(line.strip())
 
     t0 = time.perf_counter()
-    kernels = check_k1(device)
-    print(f"K1 checks passed in {time.perf_counter() - t0:.1f} s")
+    k1 = check_k1(device)
+    k2 = check_k2(device)
+    k3 = check_k3(device)
+    print(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
     sl = run_slice(device)
+    on = run_flagged_slice(device)
+    shutil.rmtree(Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt",
+                  ignore_errors=True)
+    flag_on_equals_off(device)
+    blk = run_block_bench()
+    print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
+          f" ms, peak {sl['peak'] / 2**30:.3f} GiB; flag-on slice: steps 2-3 "
+          f"{[round(r['seconds'] * 1e3, 1) for r in on['history'][1:]]} ms, peak "
+          f"{on['peak'] / 2**30:.3f} GiB (same call, same card)")
 
     rows = []
-    for name, (_, _, replaces) in k1.KERNELS.items():
-        ms, plain_ms = kernels["times"]["headline"][name]
-        mp_ms, mp_plain_ms = kernels["times"]["main_path"][name]
+    for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
+        ms, plain_ms, (b_ms, by) = k1["rows"]["main_path"][name]
+        ms_h, plain_h, (b_h, by_h) = k1["rows"]["headline"][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": "contrastiveseg_tpu_torch/csrc/contrast_infonce.cu",
             "replaces": replaces, "launches": sl["launches"][name],
-            "max_abs_err": kernels["errs"][name], "ms": ms, "plain_ms": plain_ms,
-            "shape": "M=1024 K=190000 D=256",
-            "main_path_ms": mp_ms, "main_path_plain_ms": mp_plain_ms,
+            "max_abs_err": k1["errs"][name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "shape": "M=38 K=190000 D=256",
+            "ms_m1024": ms_h, "plain_ms_m1024": plain_h, "bound_ms_m1024": b_h,
+            "bound_by_m1024": by_h,
         })
+    for name, (_, _, replaces) in conv_cuda.KERNELS.items():
+        ms, plain_ms, lib_ms, (b_ms, by) = k2["rows"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "contrastiveseg_tpu_torch/csrc/conv3x3.cu",
+            "replaces": replaces, "launches": on["launches"][name],
+            "max_abs_err": k2["errs"][name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "shape": "x [2,48,128,256] fp32, w [48,48,3,3]",
+        })
+    _, _, replaces = block_cuda.KERNELS["fused_block"]
+    b16, f32 = blk["bf16"], blk["fp32"]
+    B, H, W, C = b16["shape"]
+    flops = 2 * (2 * 9 * C * C) * B * H * W
+    x_elems = B * C * H * W
+    b_ms, by = bound(flops, 2 * 2 * x_elems + 2 * 4 * 9 * C * C + 4 * 4 * C, "bf16")
+    b32, by32 = bound(flops, 2 * 4 * x_elems + 2 * 4 * 9 * C * C + 4 * 4 * C, "fp32")
+    rows.append({
+        "name": "fused_block", "route": "cuda",
+        "source": "contrastiveseg_tpu_torch/csrc/fused_block.cu",
+        "replaces": replaces, "launches": b16["launches"],
+        "max_abs_err": k3["errs"]["bf16"], "ms": b16["block_us_fused"] / 1e3,
+        "plain_ms": b16["block_us_plain"] / 1e3, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": None, "shape": "x [8,48,128,256] bf16 (the bench default)",
+        "ms_fp32": f32["block_us_fused"] / 1e3, "plain_ms_fp32": f32["block_us_plain"] / 1e3,
+        "bound_ms_fp32": b32, "bound_by_fp32": by32, "max_abs_err_fp32": k3["errs"]["fp32"],
+    })
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

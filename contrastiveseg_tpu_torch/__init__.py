@@ -6,13 +6,16 @@ mirrors its counterpart's name and path (``ops/``, ``models/``,
 the ``tests/test_torch_port_*.py`` parity tests.
 
 Rules of the port:
-  * torch and numpy only -- no jax, flax or optax, not even indirectly.
-    The only modules reused from the JAX package are the JAX-free
-    ``contrastiveseg_tpu.presets`` and ``contrastiveseg_tpu.utils.config``;
-  * every Pallas kernel on the train-step path is a hand-written CUDA
-    kernel under ``csrc/`` (today: the anchor x memory-bank InfoNCE,
-    ``ops/contrast_cuda.py``).  Its wrapper takes the plain torch version
-    only for CPU tensors; for CUDA tensors it launches the kernel or raises;
+  * torch and numpy only -- no jax, flax or optax, and nothing of the JAX
+    package, not even its JAX-free modules: the port carries its own
+    copies (``presets.py``, ``utils/config.py``);
+  * every Pallas kernel of the JAX package is a hand-written CUDA kernel
+    under ``csrc/``, built by ``ops/cuda_lib.py``: K1, the anchor x
+    memory-bank InfoNCE (``ops/contrast_cuda.py``); K2, the small-channel
+    3x3 conv of ``network.pallas_conv`` (``ops/conv_cuda.py``); K3, the
+    fused inference BasicBlock (``ops/block_cuda.py``).  A wrapper takes
+    its plain torch version only for CPU tensors; for CUDA tensors it
+    launches the kernel or raises;
   * public functions keep the JAX package's layouts (NHWC for ``seg`` and
     ``embed``, ``[B, N, D]`` for the sampler and the enqueue); the model
     runs NCHW inside and permutes once at the ``HRNetSeg`` boundary.

@@ -5,8 +5,9 @@ Counterpart of ``SyntheticSegDataset`` (``contrastiveseg_tpu/data/datasets.py``
 carried here because ``contrastiveseg_tpu.data`` imports jax.  Scenes are
 Voronoi class regions with per-class colours plus noise, made from a seed
 with numpy, sample for sample the same as the JAX package's.  Train-time
-augmentation is not ported yet (ROADMAP 9, data pipeline): the synthetic
-size is the model's input size.
+augmentation and the val transforms are not ported yet (ROADMAP 9, data
+pipeline): the synthetic size is the model's input size, for training and
+validation alike.
 """
 
 from __future__ import annotations
@@ -66,14 +67,29 @@ def collate(samples: list[dict], normalize_cfg: dict | None = None) -> dict:
     return {"image": torch.from_numpy(images), "label": torch.from_numpy(labels)}
 
 
-def synthetic_batches(cfg, batch_size: int):
-    """Endless batches of ``data.synthetic_size`` scenes, in index order."""
+def synthetic_dataset(cfg) -> SyntheticSegDataset:
     h, w = cfg.get("data.synthetic_size", default=[512, 1024])
-    ds = SyntheticSegDataset(num_classes=cfg.get("data.num_classes"),
-                             size_hw=(h, w),
-                             length=cfg.get("data.synthetic_length", default=64))
+    return SyntheticSegDataset(num_classes=cfg.get("data.num_classes"),
+                               size_hw=(h, w),
+                               length=cfg.get("data.synthetic_length", default=64))
+
+
+def synthetic_batches(cfg, batch_size: int, start: int = 0):
+    """Endless batches of ``data.synthetic_size`` scenes, in index order from
+    sample ``start`` (a resumed run starts where the saved one stopped)."""
+    ds = synthetic_dataset(cfg)
     norm = cfg.get("normalize", default={})
-    i = 0
+    i = start
     while True:
         yield collate([ds[(i + b) % len(ds)] for b in range(batch_size)], norm)
         i += batch_size
+
+
+def synthetic_val_batches(cfg):
+    """One pass over the synthetic scenes in ``val.batch_size`` batches, the
+    last one short if need be (the JAX val pipeline keeps it too)."""
+    ds = synthetic_dataset(cfg)
+    norm = cfg.get("normalize", default={})
+    bs = cfg.get("val.batch_size", default=1)
+    for i in range(0, len(ds), bs):
+        yield collate([ds[j] for j in range(i, min(i + bs, len(ds)))], norm)

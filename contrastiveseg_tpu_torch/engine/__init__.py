@@ -1,1 +1,2 @@
-"""Training engine of the port: optimizer, state, train step, trainer."""
+"""Training engine of the port: optimizer, state, train step, evaluator,
+checkpoints, trainer."""

@@ -1,15 +1,20 @@
-"""Trainer of the port, cut to what the train-step slice uses.
+"""Trainer of the port: train steps, validation and checkpoints on one device.
 
 Counterpart of ``Trainer`` in ``contrastiveseg_tpu/engine/trainer.py``
-(``__init__`` :31-135, ``train`` :245-): build the model, loss, optimizer
-and bank from the ``Config``, then loop for ``max_iters`` steps on one
-device, logging the losses at each step.
+(``__init__`` :31-172, ``train`` :245-343, ``validate`` :384-401): build the
+model, loss, optimizer, bank, evaluator and checkpoint manager from the
+``Config``; resume from ``network.resume`` (a path) or, with
+``network.resume_continue``, from the latest checkpoint; then loop to
+``solver.max_iters``, validating every ``solver.test_interval`` steps (and
+saving by performance), saving ``latest`` every ``checkpoints.save_iters``
+steps and at the end.
 
-Not ported yet, and refused with ``NotImplementedError`` when a config
-needs them: the mesh and multi-GPU (ROADMAP 10), the evaluator, checkpoints
-and the data pipeline (ROADMAP 9), SWA, gradient accumulation, the momentum
-encoder and freeze-BN (ROADMAP 12).  The JAX trainer writes a final
-checkpoint; this one writes none until checkpoints are ported.
+Data is synthetic (``data.synthetic=true``): train batches in index order,
+resumed at the saved step's offset, and the same scenes, in order, for
+validation.  Not ported yet, and refused with ``NotImplementedError`` when a
+config needs them: the data pipeline (ROADMAP 9), multi-GPU (ROADMAP 10),
+pretrained-weight import, SWA, gradient accumulation, the momentum encoder
+and freeze-BN (ROADMAP 12).
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from typing import Optional
 
 import torch
 
-from contrastiveseg_tpu_torch.data.synthetic import synthetic_batches
+from contrastiveseg_tpu_torch.data.synthetic import synthetic_batches, synthetic_val_batches
+from contrastiveseg_tpu_torch.engine.checkpoint import CheckpointManager
+from contrastiveseg_tpu_torch.engine.evaluator import build_evaluator
 from contrastiveseg_tpu_torch.engine.state import create_train_state
 from contrastiveseg_tpu_torch.engine.train_step import make_train_step
 from contrastiveseg_tpu_torch.losses.manager import build_loss
@@ -29,12 +36,10 @@ from contrastiveseg_tpu_torch.models.nets import build_model
 log = logging.getLogger(__name__)
 
 
-def check_supported(cfg, max_iters: int) -> None:
+def check_supported(cfg) -> None:
     """Raise NotImplementedError for what the port cannot run yet."""
     for key, item in (
-        ("network.resume", "ROADMAP 9 (checkpoints)"),
-        ("network.resume_continue", "ROADMAP 9 (checkpoints)"),
-        ("network.pretrained", "ROADMAP 9 (checkpoints)"),
+        ("network.pretrained", "ROADMAP 12 (pretrained-weight import)"),
         ("network.freeze_bn", "ROADMAP 12 (training extras)"),
         ("contrast.momentum_encoder", "ROADMAP 12 (training extras)"),
     ):
@@ -49,25 +54,14 @@ def check_supported(cfg, max_iters: int) -> None:
     if not cfg.get("contrast.with_memory", default=False):
         raise NotImplementedError(
             "contrast without the memory bank is not ported yet: ROADMAP 5")
-    test_interval = cfg.get("solver.test_interval", default=2000)
-    if test_interval and max_iters >= test_interval:
-        raise NotImplementedError(
-            f"validation every {test_interval} iters needs the evaluator "
-            f"(ROADMAP 9); run fewer than {test_interval} iters or set "
-            "solver.test_interval=0")
-    save_iters = cfg.get("checkpoints.save_iters", default=1000)
-    if save_iters and max_iters >= save_iters:
-        raise NotImplementedError(
-            f"a checkpoint every {save_iters} iters needs checkpoints "
-            "(ROADMAP 9); run fewer iters or set checkpoints.save_iters=0")
 
 
 class Trainer:
     def __init__(self, cfg, device: torch.device | str = "cuda"):
+        check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.max_iters = cfg.get("solver.max_iters", default=40000)
-        check_supported(cfg, self.max_iters)
         self.loss_fn = build_loss(cfg)
         self.state = create_train_state(cfg, build_model(cfg), self.device)
         self.train_step = make_train_step(
@@ -77,12 +71,29 @@ class Trainer:
             pixel_update_freq=cfg.get("contrast.pixel_update_freq", default=10),
             queue_include_class0=cfg.get("contrast.include_class0", default=True),
         )
+        self.evaluator = build_evaluator(cfg, self.state.model)
+        self.ckpt = CheckpointManager(
+            cfg.get("checkpoints.checkpoints_dir", default="./checkpoints"),
+            cfg.get("checkpoints.checkpoints_name", default="seg"),
+            config_dict=cfg.to_dict(),
+        )
+        self.last_scores: dict = {}
+        resume = cfg.get("network.resume", default=None)
+        if resume:
+            self.ckpt.restore(self.state, path=resume)
+            log.info("resumed from %s at step %d", resume, self.state.step)
+        elif cfg.get("network.resume_continue", default=False) and self.ckpt.has():
+            self.ckpt.restore(self.state)
+            log.info("resumed latest at step %d", self.state.step)
 
     def train(self, max_iters: Optional[int] = None) -> list[dict[str, float]]:
         """Run the steps; returns each step's losses and its wall time."""
+        cfg = self.cfg
         max_iters = max_iters or self.max_iters
-        batch_size = self.cfg.get("train.batch_size", default=8)
-        batches = synthetic_batches(self.cfg, batch_size)
+        test_interval = cfg.get("solver.test_interval", default=2000)
+        save_iters = cfg.get("checkpoints.save_iters", default=1000)
+        batch_size = cfg.get("train.batch_size", default=8)
+        batches = synthetic_batches(cfg, batch_size, start=self.state.step * batch_size)
         history = []
         for it in range(self.state.step, max_iters):
             batch = {k: v.to(self.device, non_blocking=True)
@@ -96,4 +107,18 @@ class Trainer:
                 "iter %d/%d loss %.4f seg %.4f contrast %.4f (%.3f s)",
                 it + 1, max_iters, row["loss"], row["loss_seg"],
                 row["loss_contrast"], row["seconds"])
+            if save_iters and (it + 1) % save_iters == 0:
+                self.ckpt.save(self.state, "latest")
+            if test_interval and (it + 1) % test_interval == 0:
+                self.validate()
+        self.ckpt.save(self.state, "latest")
         return history
+
+    def validate(self) -> dict:
+        """Scores on the synthetic validation scenes; saves by performance."""
+        scores = self.evaluator.run(synthetic_val_batches(self.cfg), self.device)
+        log.info("val: mIoU %.4f pixel_acc %.4f (%.2f img/s)", scores["miou"],
+                 scores["pixel_acc"], scores["images_per_sec"])
+        self.ckpt.save_by_mode(self.state, "performance", performance=scores["miou"])
+        self.last_scores = scores
+        return scores

@@ -15,16 +15,19 @@ from contrastiveseg_tpu_torch.models.layers import TorchBatchNorm, conv
 
 
 class ClsHead(nn.Sequential):
-    """3x3 conv -> BNReLU -> Dropout2d -> 1x1 conv (no bias) -> logits
+    """3x3 conv -> BNReLU -> Dropout -> 1x1 conv (no bias) -> logits
     (reference HRNet_W48 cls_head, lib/models/nets/hrnet.py:37-42).  The 3x3
-    conv has no bias, like the JAX ConvBN (the upstream bias folds into BN)."""
+    conv has no bias, like the JAX ConvBN (the upstream bias folds into BN).
+    The dropout is element-wise, as in the JAX ``ClsHead``
+    (``contrastiveseg_tpu/models/heads.py:29``), not the upstream's
+    channel-wise ``Dropout2d``."""
 
     def __init__(self, in_channels: int, num_classes: int, mid_channels: int,
                  dropout: float = 0.10):
         super().__init__(
             conv(in_channels, mid_channels, 3),
             nn.Sequential(TorchBatchNorm(mid_channels), nn.ReLU()),
-            nn.Dropout2d(dropout),
+            nn.Dropout(dropout),
             conv(mid_channels, num_classes, 1),
         )
 

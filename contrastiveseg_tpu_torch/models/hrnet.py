@@ -5,8 +5,10 @@ HighResolutionNet, hrnet_backbone.py:108-801): stem of two stride-2 3x3
 convs, layer1 = 4 Bottlenecks, then stages 2/3/4 of HighResolutionModules
 with full cross-resolution fusion (1x1 conv + BN + bilinear align_corners
 upsample for coarser->finer, chains of stride-2 3x3 conv+BN for
-finer->coarser).  The TPU-only ``lane_pad``, the ``remat_*`` flags,
-``pallas_conv`` (ROADMAP K2) and ``HRNetNext`` are not ported.
+finer->coarser).  The TPU-only ``lane_pad``, the ``remat_*`` flags and
+``HRNetNext`` are not ported.  ``pallas_conv`` routes the branch
+BasicBlocks' eligible 3x3 convs through K2 (``models/layers.PallasConv3x3``),
+as the JAX flag does; at W48 that is branch 0 (C=48), 64 convs a forward.
 
 Module names are the upstream torch ``state_dict`` keys: ``conv1``/``bn1``,
 ``layer1.{k}``, ``transition{1,2,3}.{i}``, ``stage{2,3,4}.{m}.branches`` and
@@ -75,7 +77,8 @@ class HighResolutionModule(nn.Module):
     """Parallel branches of BasicBlocks + full fusion."""
 
     def __init__(self, in_channels: tuple[int, ...],
-                 num_channels: tuple[int, ...], num_blocks: int):
+                 num_channels: tuple[int, ...], num_blocks: int,
+                 pallas_conv: bool = False):
         super().__init__()
         nb = len(num_channels)
         self.branches = nn.ModuleList()
@@ -85,7 +88,8 @@ class HighResolutionModule(nn.Module):
             for k in range(num_blocks):
                 blocks.append(BasicBlock(
                     inplanes, num_channels[i],
-                    downsample=(k == 0 and inplanes != num_channels[i])))
+                    downsample=(k == 0 and inplanes != num_channels[i]),
+                    pallas=pallas_conv))
                 inplanes = num_channels[i]
             self.branches.append(nn.Sequential(*blocks))
         self.fuse_layers = nn.ModuleList()
@@ -132,7 +136,7 @@ class HighResolutionModule(nn.Module):
 class HRNet(nn.Module):
     """Returns the four multi-resolution NCHW feature maps (strides 4/8/16/32)."""
 
-    def __init__(self, spec: HRNetSpec):
+    def __init__(self, spec: HRNetSpec, pallas_conv: bool = False):
         super().__init__()
         s = spec
         self.conv1 = conv(3, s.stem_width, 3, 2)
@@ -159,7 +163,7 @@ class HRNet(nn.Module):
             setattr(self, f"transition{idx - 1}", trans)
             setattr(self, f"stage{idx}", nn.Sequential(*(
                 HighResolutionModule(stage.num_channels, stage.num_channels,
-                                     stage.num_blocks)
+                                     stage.num_blocks, pallas_conv)
                 for _ in range(stage.num_modules))))
             pre = stage.num_channels
 

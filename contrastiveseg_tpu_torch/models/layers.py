@@ -6,37 +6,78 @@ follow the upstream torch ``state_dict`` keys (``conv1``/``bn1``,
 names that ``contrastiveseg_tpu.utils.torch_import`` maps.
 
 BatchNorm uses torch's defaults (eps 1e-5, momentum 0.1), as the JAX
-package does.  One documented divergence: torch updates ``running_var``
-with the *unbiased* batch variance, flax with the biased one; the port
-keeps torch's (and the upstream's) semantics.  Normalization in train mode
-uses the biased variance on both sides, so outputs agree; only the running
-variance differs, by n/(n-1) on the batch term.
+package does, and updates ``running_var`` with the *biased* batch variance,
+as flax does (torch's own BatchNorm uses the unbiased one).
+
+``pallas=True`` routes the eligible 3x3 convs (``ops/conv.supported``)
+through K2, the CUDA counterpart of the JAX package's Pallas conv, under
+the same parameter names, so weights carry over unchanged.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from contrastiveseg_tpu_torch.ops.conv import supported
+from contrastiveseg_tpu_torch.ops.conv_cuda import conv3x3
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
-def TorchBatchNorm(channels: int) -> nn.BatchNorm2d:  # noqa: N802 (mirrors the JAX class)
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance takes the biased batch
+    variance, as flax's does.
+
+    cuDNN's batch norm updates ``running_var`` with the unbiased variance
+    n/(n-1)·v, n = B·H·W.  Scaling the buffer by n/(n-1) before the call and
+    by (n-1)/n after gives (1-m)·rv + m·v exactly: two in-place multiplies
+    of a C-length buffer, no extra pass over the activations.  They go
+    through ``.data``: the op records ``running_var`` for its backward,
+    which in train mode never reads it, and a version bump would fail it.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        self.running_var.data.mul_(n / (n - 1))
+        out = super().forward(x)
+        self.running_var.data.mul_((n - 1) / n)
+        return out
+
+
+def TorchBatchNorm(channels: int) -> BatchNorm2d:  # noqa: N802 (mirrors the JAX class)
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class PallasConv3x3(nn.Conv2d):
+    """Counterpart of the JAX ``PallasConv3x3``: a bias-free conv whose
+    forward goes through K2 (``ops/conv_cuda.conv3x3``) when
+    ``supported()`` holds for its input, the JAX package's predicate (3x3,
+    stride 1, undilated, C <= 64, H % 8 == 0), and through cuDNN otherwise.
+    The parameter is the usual ``weight``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if supported(x.shape, self.kernel_size[0], self.stride[0], self.dilation[0]):
+            return conv3x3(x.contiguous(), self.weight)
+        return super().forward(x)
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-         bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                     padding=(kernel_size - 1) // 2, bias=bias)
+         bias: bool = False, pallas: bool = False) -> nn.Conv2d:
+    cls = PallasConv3x3 if pallas and not bias else nn.Conv2d
+    return cls(in_ch, out_ch, kernel_size, stride=stride,
+               padding=(kernel_size - 1) // 2, bias=bias)
 
 
 class ConvBN(nn.Sequential):
     """Conv2d (no bias) -> BN [-> ReLU]; state_dict slots ``0`` and ``1``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 1, use_relu: bool = True):
-        layers = [conv(in_ch, out_ch, kernel_size, stride),
+                 stride: int = 1, use_relu: bool = True, pallas: bool = False):
+        layers = [conv(in_ch, out_ch, kernel_size, stride, pallas=pallas),
                   TorchBatchNorm(out_ch)]
         if use_relu:
             layers.append(nn.ReLU())
@@ -48,11 +89,11 @@ class BasicBlock(nn.Module):
     (hrnet_backbone.py:35-66)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, pallas: bool = False):
         super().__init__()
-        self.conv1 = conv(inplanes, planes, 3, stride)
+        self.conv1 = conv(inplanes, planes, 3, stride, pallas=pallas)
         self.bn1 = TorchBatchNorm(planes)
-        self.conv2 = conv(planes, planes, 3)
+        self.conv2 = conv(planes, planes, 3, pallas=pallas)
         self.bn2 = TorchBatchNorm(planes)
         self.relu = nn.ReLU()
         self.downsample = (ConvBN(inplanes, planes, 1, stride, use_relu=False)

@@ -5,7 +5,9 @@ Counterpart of ``HRNetSeg`` in ``contrastiveseg_tpu/models/nets.py``
 The contrast nets return ``{"seg": stride-4 logits, "embed": L2-normalized
 stride-4 projections}`` in NHWC, like the JAX package; inside, the model
 runs NCHW and permutes once, here.  ``hrnet_w48_mem`` is the same module as
-``hrnet_w48_contrast``: the memory bank lives in the train state.
+``hrnet_w48_contrast``: the memory bank lives in the train state.  The
+registry mirrors the JAX package's HRNet contrast names at every width
+(``hrnet_w{18,32,48,64}_{contrast,mem}``).
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ class HRNetSeg(nn.Module):
     """HRNet-W* contrast segmentor: backbone, 4-branch fuse, cls + proj heads."""
 
     def __init__(self, num_classes: int, arch: str = "hrnet48",
-                 proj_dim: int = 256, head_dropout: float = 0.10):
+                 proj_dim: int = 256, head_dropout: float = 0.10,
+                 pallas_conv: bool = False):
         super().__init__()
         spec = HRNET_SPECS[arch]
         width = sum(spec.out_channels)  # 720 for hrnet48
-        self.backbone = HRNet(spec)
+        self.backbone = HRNet(spec, pallas_conv=pallas_conv)
         self.cls_head = ClsHead(width, num_classes, width, head_dropout)
         self.proj_head = ProjectionHead(width, proj_dim)
 
@@ -43,25 +46,26 @@ class HRNetSeg(nn.Module):
                 "embed": embed.permute(0, 2, 3, 1)}
 
 
-def _hrnet_contrast(cfg) -> HRNetSeg:
-    return HRNetSeg(
-        num_classes=cfg.get("data.num_classes"),
-        arch="hrnet48",
-        proj_dim=cfg.get("contrast.proj_dim", default=256),
-        head_dropout=cfg.get("network.head_dropout", default=0.10),
-    )
+def _hrnet_contrast(arch: str):
+    def build(cfg) -> HRNetSeg:
+        return HRNetSeg(
+            num_classes=cfg.get("data.num_classes"),
+            arch=arch,
+            proj_dim=cfg.get("contrast.proj_dim", default=256),
+            head_dropout=cfg.get("network.head_dropout", default=0.10),
+            pallas_conv=cfg.get("network.pallas_conv", default=False),
+        )
+
+    return build
 
 
-MODELS = {
-    "hrnet_w48_contrast": _hrnet_contrast,
-    "hrnet_w48_mem": _hrnet_contrast,
-}
+MODELS = {f"hrnet_w{w}_{kind}": _hrnet_contrast(f"hrnet{w}")
+          for w in (18, 32, 48, 64) for kind in ("contrast", "mem")}
 
 # Config switches of the JAX HRNetSeg that the port does not have yet; a
 # config that turns one on is refused rather than silently ignored.
 _NOT_PORTED = {
     "network.bf16": "bf16 compute",
-    "network.pallas_conv": "ROADMAP K2 (conv_pallas)",
     "network.lane_pad": "a TPU layout variant",
     "network.full_res_stem": "ROADMAP 13 (other models)",
     "network.drop_stage4": "ROADMAP 13 (other models)",

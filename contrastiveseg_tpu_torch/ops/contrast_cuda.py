@@ -4,10 +4,8 @@ Replaces the Pallas kernels of ``contrastiveseg_tpu/ops/contrast_pallas.py``
 (``_pass1_kernel`` :50, ``_pass2_kernel`` :75, ``_bwd_kernel`` :98); the
 kernels and their design notes are in ``csrc/contrast_infonce.cu``.
 
-Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` into a
-shared library with a plain C interface under ``build/kernels/`` (named by
-the source's hash, so an edit rebuilds), loaded with ``ctypes`` and
-initialised once per device.  A build failure raises.
+Build: ``ops/cuda_lib.py`` (nvcc for ``sm_90a`` at first use into
+``build/kernels/``, ctypes); ``infonce_init`` runs once per device.
 
 Each wrapper (``infonce_pass1``, ``infonce_pass2``, ``infonce_bwd``):
   * takes the plain version in ``ops/contrast_stream.py`` for CPU tensors,
@@ -22,16 +20,9 @@ Each wrapper (``infonce_pass1``, ``infonce_pass2``, ``infonce_bwd``):
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
+from contrastiveseg_tpu_torch.ops import cuda_lib
 from contrastiveseg_tpu_torch.ops.contrast_stream import (
     InfoNCE,
     Passes,
@@ -39,140 +30,42 @@ from contrastiveseg_tpu_torch.ops.contrast_stream import (
     stream_pass1,
     stream_pass2,
 )
+from contrastiveseg_tpu_torch.ops.cuda_lib import P, I, F, check, ptrs, stream
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "contrast_infonce.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIBRARY = cuda_lib.CudaLibrary(
+    "contrast_infonce.cu",
+    {name: [P] * 11 + [I, I, I, I, F, P]
+     for name in ("infonce_pass1", "infonce_pass2", "infonce_bwd")},
+    error_string="infonce_error_string", init="infonce_init")
 _BM = 64  # anchor rows per block (csrc BM)
 _BN = 64  # contrast rows per tile (csrc BN)
 _MAX_D = 256  # largest feature width (csrc MAX_D)
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME): cannot build K1")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libcontrast_infonce_{digest}.so"
-
-
-def build(force: bool = False) -> tuple[Path, float]:
-    """Compile the kernels if their library is not built yet (or always,
-    with ``force``).
-
-    Returns (library path, seconds spent compiling; 0.0 if it was built).
-    The ``-Xptxas -v`` report (registers, shared memory, spills) is kept
-    beside the library as ``<name>.ptxas.txt``.
-    """
-    out = library_path()
-    if out.exists() and not force:
-        return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, out)
-    return out, seconds
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.infonce_pass1.argtypes = [p] * 11 + [i, i, i, i, f, p]
-    lib.infonce_pass2.argtypes = [p] * 11 + [i, i, i, i, f, p]
-    lib.infonce_bwd.argtypes = [p] * 11 + [i, i, i, i, f, p]
-    for name in ("infonce_pass1", "infonce_pass2", "infonce_bwd", "infonce_init"):
-        getattr(lib, name).restype = i
-    lib.infonce_error_string.argtypes = [i]
-    lib.infonce_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _ready(index: int) -> ctypes.CDLL:
-    """The library, initialised on CUDA device ``index`` (once per device)."""
-    lib = _library()
-    with torch.cuda.device(index):
-        err = lib.infonce_init()
-    if err != 0:
-        msg = lib.infonce_error_string(err).decode()
-        raise RuntimeError(f"infonce_init failed on cuda:{index}: CUDA error {err} ({msg})")
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_inputs(a_f, a_l, c_f, c_l, c_v, **rows):
-    dev = a_f.device
-    if dev.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
+    dev = cuda_lib.require_cuda("K1", a_f)
     M, D = a_f.shape
     K = c_f.shape[0]
     if D > _MAX_D:
         raise ValueError(f"K1 supports D <= {_MAX_D}, got {D}")
     if M == 0 or K == 0:
         raise ValueError(f"K1 needs non-empty inputs, got M={M} K={K}")
-    _check("a_f", a_f, torch.float32, (M, D), dev)
-    _check("a_l", a_l, torch.int32, (M,), dev)
-    _check("c_f", c_f, torch.float32, (K, D), dev)
-    _check("c_l", c_l, torch.int32, (K,), dev)
-    _check("c_v", c_v, torch.bool, (K,), dev)
+    check("a_f", a_f, torch.float32, (M, D), dev)
+    check("a_l", a_l, torch.int32, (M,), dev)
+    check("c_f", c_f, torch.float32, (K, D), dev)
+    check("c_l", c_l, torch.int32, (K,), dev)
+    check("c_v", c_v, torch.bool, (K,), dev)
     for name, x in rows.items():
-        _check(name, x, torch.float32, (M,), dev)
+        check(name, x, torch.float32, (M,), dev)
     return M, K, D
 
 
 def num_splits(M: int, K: int, device: torch.device) -> int:
     """K splits so that (anchor tiles x splits) fills the card about twice."""
-    sms = _sm_count(device.index)
+    sms = cuda_lib.sm_count(device.index)
     m_tiles = -(-M // _BM)
     n_tiles = -(-K // _BN)
     return max(1, min(n_tiles, -(-2 * sms // m_tiles)))
-
-
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = _ready(device.index)
-    err = getattr(lib, fn_name)(*args)
-    if err != 0:
-        msg = lib.infonce_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err} ({msg})")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptrs(*xs):
-    return [ctypes.c_void_p(x.data_ptr()) for x in xs]
 
 
 def infonce_pass1(a_f, a_l, c_f, c_l, c_v, temperature):
@@ -183,10 +76,10 @@ def infonce_pass1(a_f, a_l, c_f, c_l, c_v, temperature):
     S = num_splits(M, K, a_f.device)
     part = torch.empty((3, S, M), dtype=torch.float32, device=a_f.device)
     out = torch.empty((3, M), dtype=torch.float32, device=a_f.device)
-    _launch("infonce_pass1", a_f.device,
-            *_ptrs(a_f, a_l, c_f, c_l, c_v, part[0], part[1], part[2],
-                   out[0], out[1], out[2]),
-            M, K, D, S, 1.0 / temperature, _stream(a_f.device))
+    LIBRARY.launch("infonce_pass1", a_f.device,
+                   *ptrs(a_f, a_l, c_f, c_l, c_v, part[0], part[1], part[2],
+                         out[0], out[1], out[2]),
+                   M, K, D, S, 1.0 / temperature, stream(a_f.device))
     infonce_pass1.launches += 1
     return out[0], out[1], out[2]
 
@@ -199,10 +92,10 @@ def infonce_pass2(a_f, a_l, c_f, c_l, c_v, m, ns, temperature):
     S = num_splits(M, K, a_f.device)
     part = torch.empty((2, S, M), dtype=torch.float32, device=a_f.device)
     out = torch.empty((2, M), dtype=torch.float32, device=a_f.device)
-    _launch("infonce_pass2", a_f.device,
-            *_ptrs(a_f, a_l, c_f, c_l, c_v, m, ns, part[0], part[1],
-                   out[0], out[1]),
-            M, K, D, S, 1.0 / temperature, _stream(a_f.device))
+    LIBRARY.launch("infonce_pass2", a_f.device,
+                   *ptrs(a_f, a_l, c_f, c_l, c_v, m, ns, part[0], part[1],
+                         out[0], out[1]),
+                   M, K, D, S, 1.0 / temperature, stream(a_f.device))
     infonce_pass2.launches += 1
     return out[0], out[1]
 
@@ -215,9 +108,9 @@ def infonce_bwd(a_f, a_l, c_f, c_l, c_v, m, ns, t, w, temperature):
     S = num_splits(M, K, a_f.device)
     part = torch.empty((S, M, D), dtype=torch.float32, device=a_f.device)
     da = torch.empty((M, D), dtype=torch.float32, device=a_f.device)
-    _launch("infonce_bwd", a_f.device,
-            *_ptrs(a_f, a_l, c_f, c_l, c_v, m, ns, t, w, part, da),
-            M, K, D, S, 1.0 / temperature, _stream(a_f.device))
+    LIBRARY.launch("infonce_bwd", a_f.device,
+                   *ptrs(a_f, a_l, c_f, c_l, c_v, m, ns, t, w, part, da),
+                   M, K, D, S, 1.0 / temperature, stream(a_f.device))
     infonce_bwd.launches += 1
     return da
 

@@ -1,1 +1,2 @@
-"""Utilities of the port (the weights bridge from the JAX package)."""
+"""Utilities of the port: the config tree and the weights bridge from the
+JAX package."""

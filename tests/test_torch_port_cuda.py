@@ -1,12 +1,16 @@
-"""K1's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3) against their plain versions, on the card.
 
 Marked ``cuda``: they skip without an NVIDIA GPU.  This file imports no
 JAX, so it also runs on a machine that has none:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
-Tolerance: rtol 1e-4, atol 1e-5 (fp32 sums in another order; the kernel's
-logits are sequential FMAs, the plain version's are cuBLAS SGEMM).
+Tolerances: K1 rtol 1e-4, atol 1e-5 (fp32 sums in another order; the
+kernel's logits are sequential FMAs, the plain version's are cuBLAS SGEMM).
+K2 and K3 in fp32 with cuDNN's TF32 off: rtol 1e-4, atol 1e-4 (sums of up
+to 9·64 products; dW sums B·H·W of them, so atol scales with its size); K3
+in bf16 within 2 bf16 steps of the output (both round y1 and the output at
+the same places; a value near a rounding boundary may land one step apart).
 """
 
 from __future__ import annotations
@@ -15,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from contrastiveseg_tpu_torch.ops import block_cuda, conv_cuda
 from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+from contrastiveseg_tpu_torch.ops.block import reference_block_eval
+from contrastiveseg_tpu_torch.ops.conv import conv3x3_dw_plain, conv3x3_plain
 
 
 def _setup(M, K, D, C=19, seed=0):
@@ -73,3 +80,60 @@ def test_k1_wrapper_rejects_bad_inputs_on_card(cuda_device):
         k1.infonce_pass1(a, a_l, c.t().contiguous().t(), c_l, c_v, 0.07)
     with pytest.raises(ValueError, match="on"):
         k1.infonce_pass1(a, a_l, c.cpu(), c_l, c_v, 0.07)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Co,H,W", [(2, 48, 48, 32, 256), (2, 48, 48, 16, 40),
+                                        (1, 3, 18, 8, 16), (2, 12, 70, 16, 24)])
+def test_k2_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(B + C + W)
+    x = torch.randn(B, C, H, W, generator=g).to(cuda_device)
+    w = (torch.randn(Co, C, 3, 3, generator=g) * 0.1).to(cuda_device)
+    gy = torch.randn(B, Co, H, W, generator=g).to(cuda_device)
+    conv_cuda.reset_launch_counts()
+    torch.testing.assert_close(conv_cuda.conv3x3_fwd(x, w), conv3x3_plain(x, w),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(conv_cuda.conv3x3_fwd(gy, w, True), conv3x3_plain(gy, w, True),
+                               rtol=1e-4, atol=1e-4)
+    dw = conv3x3_dw_plain(x, gy)
+    torch.testing.assert_close(conv_cuda.conv3x3_dw(x, gy), dw, rtol=1e-4,
+                               atol=1e-6 * float(dw.abs().max()) + 1e-4)
+    assert conv_cuda.launch_counts() == {"conv3x3_fwd": 2, "conv3x3_dw": 1}
+
+
+@pytest.mark.cuda
+def test_k2_autograd_and_checks_on_card(cuda_device):
+    x = torch.randn(2, 8, 16, 20, device=cuda_device, requires_grad=True)
+    w = torch.randn(8, 8, 3, 3, device=cuda_device, requires_grad=True)
+    conv_cuda.conv3x3(x, w).square().sum().backward()
+    xr, wr = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    torch.nn.functional.conv2d(xr, wr, padding=1).square().sum().backward()
+    torch.testing.assert_close(x.grad, xr.grad, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(w.grad, wr.grad, rtol=1e-4, atol=1e-2)
+    with pytest.raises(ValueError, match="dtype"):
+        conv_cuda.conv3x3_fwd(x.detach().double(), w.detach())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_cuda.conv3x3_fwd(x.detach().transpose(2, 3), w.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,W", [(2, 48, 32, 40), (1, 5, 8, 9), (1, 64, 24, 70)])
+def test_k3_kernel_matches_plain_on_card(cuda_device, dtype, B, C, H, W):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(C + H)
+    x = torch.randn(B, C, H, W, generator=g).to(cuda_device, dtype)
+    args = [(torch.randn(C, C, 3, 3, generator=g) * 0.1), torch.rand(C, generator=g) + 0.5,
+            torch.randn(C, generator=g) * 0.1, (torch.randn(C, C, 3, 3, generator=g) * 0.1),
+            torch.rand(C, generator=g) + 0.5, torch.randn(C, generator=g) * 0.1]
+    args = [a.to(cuda_device) for a in args]
+    block_cuda.reset_launch_counts()
+    got = block_cuda.fused_basic_block_eval(x, *args).float()
+    want = reference_block_eval(x, *args).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        step = 2.0 ** -7 * want.abs().clamp(min=1.0)
+        assert bool(((got - want).abs() <= 2 * step).all())
+    assert block_cuda.launch_counts() == {"fused_block": 1}

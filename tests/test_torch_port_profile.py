@@ -21,6 +21,10 @@ _spec.loader.exec_module(prof)
 @pytest.mark.parametrize("name,want", [
     ("_ZN52_GLOBAL__N__contrast_infonce_cu9bwd_tilesEPKf", "K1"),
     ("_ZN52_GLOBAL__N__contrast_infonce_cu10sum_splitsEPKfPfii", "K1"),
+    ("_ZN43_GLOBAL__N__conv3x3_cu17conv3x3_fwd_tilesILi12EEEvPKfS2_Pfiiiiii", "K2"),
+    ("_ZN43_GLOBAL__N__conv3x3_cu16conv3x3_dw_tilesILi12EEEvPKfS2_Pfiiiiii", "K2"),
+    ("_ZN43_GLOBAL__N__conv3x3_cu13dw_sum_splitsEPKfPfii", "K2"),
+    ("_ZN47_GLOBAL__N__fused_block_cu17fused_block_tilesIfLi12EEEvPKT_", "K3"),
     ("sm90_xmma_dgrad_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "convolution"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>", "convolution"),
     ("void cudnn::batchnorm_bwtr_nhwc_semiPersist<float, float, float>", "batchnorm"),

@@ -55,21 +55,22 @@ from contrastiveseg_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
 
-from torch_port_helpers import exact_fp32_reference, random_variables
+from torch_port_helpers import compiled_pallas_conv, exact_fp32_reference, random_variables
 
 H, W, B = 64, 128, 2
 
 
-def _config():
+def _config(pallas_conv=False):
     cfg = get_preset("smoke_hrnet_w18")
     cfg = cfg.updated("network.head_dropout", 0.0)
+    cfg = cfg.updated("network.pallas_conv", pallas_conv)
     return cfg.updated("contrast.exact_sampling", True)
 
 
-def _batch(cfg):
-    ds = SyntheticSegDataset(num_classes=5, size_hw=(H, W), length=8)
+def _batch(cfg, h=H, w=W):
+    ds = SyntheticSegDataset(num_classes=5, size_hw=(h, w), length=8)
     samples = [ds[i] for i in range(B)]
-    jds = JSynthetic(num_classes=5, size_hw=(H, W), length=8)
+    jds = JSynthetic(num_classes=5, size_hw=(h, w), length=8)
     for i, s in enumerate(samples):  # the port's scenes are the JAX package's
         np.testing.assert_array_equal(s["image"], jds[i]["image"])
         np.testing.assert_array_equal(s["label"], jds[i]["label"])
@@ -88,16 +89,15 @@ def _bank(cfg, seed=3):
         0, M, C).astype(np.int32)
 
 
-def test_one_train_step_matches_jax(monkeypatch):
-    exact_fp32_reference(monkeypatch)
-    cfg = _config()
-    batch = _batch(cfg)
+def _step_against_jax(pallas_conv, h, w):
+    cfg = _config(pallas_conv)
+    batch = _batch(cfg, h, w)
     C = cfg.get("data.num_classes")
     seg_q, seg_p, pix_q, pix_p = _bank(cfg)
 
     # --- JAX reference step.
     jmodel = jbuild_model(cfg)
-    variables = random_variables(jmodel, (1, H, W, 3), seed=2)
+    variables = random_variables(jmodel, (1, h, w, 3), seed=2)
     tx = jbuild_optimizer(cfg, variables["params"])
     rng = jax.random.key(7)
     s0 = JTrainState(
@@ -118,7 +118,7 @@ def test_one_train_step_matches_jax(monkeypatch):
     # --- the JAX step's draws.
     _, _, r_sample, r_queue = jax.random.split(rng, 4)
     khard, keasy = jax.random.split(r_sample)
-    n_embed = (H // 4) * (W // 4)
+    n_embed = (h // 4) * (w // 4)
     draws = Draws(
         anchor=AnchorScores(
             torch.from_numpy(np.asarray(jax.random.uniform(khard, (B, C, n_embed)))),
@@ -126,7 +126,8 @@ def test_one_train_step_matches_jax(monkeypatch):
         queue=torch.from_numpy(np.asarray(jax.random.uniform(r_queue, (B, C, n_embed)))))
 
     # --- the port's step on the same weights, bank, batch and draws.
-    state = create_train_state(cfg, HRNetSeg(C, "hrnet18", head_dropout=0.0), "cpu")
+    model = HRNetSeg(C, "hrnet18", head_dropout=0.0, pallas_conv=pallas_conv)
+    state = create_train_state(cfg, model, "cpu")
     load_jax_variables(state.model, variables)
     state.bank = bank_from_queues(*(torch.from_numpy(a) for a in (seg_q, seg_p, pix_q, pix_p)))
     step = make_train_step(build_loss(cfg), warmup_iters=0, network_stride=4,
@@ -166,6 +167,20 @@ def test_one_train_step_matches_jax(monkeypatch):
                                np.asarray(s1.bank.pixel_queue), atol=5e-5)
 
 
+def test_one_train_step_matches_jax(monkeypatch):
+    exact_fp32_reference(monkeypatch)
+    _step_against_jax(False, H, W)
+
+
+def test_one_train_step_with_pallas_conv_matches_jax(monkeypatch):
+    """``network.pallas_conv`` on both sides, hrnet18 at 64x64: branches 0
+    and 1 (C=18, 36) run the JAX Pallas conv (interpret mode, compiled per
+    shape) and the port's K2 wrappers, forward, dX and dW; same tolerances."""
+    exact_fp32_reference(monkeypatch)
+    compiled_pallas_conv(monkeypatch)
+    _step_against_jax(True, 64, 64)
+
+
 def test_lr_schedule_matches_optax_count():
     """LambdaLR stepped after each optimizer step reads the same count as
     the optax schedule: lr_k = base * (1 - k/max_iters)^0.9."""
@@ -192,10 +207,11 @@ def test_trainer_refuses_what_is_not_ported():
     from contrastiveseg_tpu_torch.engine.trainer import check_supported
 
     cfg = _config()
-    check_supported(cfg, 2)
+    check_supported(cfg)
+    check_supported(cfg.updated("solver.test_interval", 2))  # the evaluator is ported
     with pytest.raises(NotImplementedError, match="ROADMAP 9"):
-        check_supported(cfg.updated("data.synthetic", False), 2)
-    with pytest.raises(NotImplementedError, match="evaluator"):
-        check_supported(cfg.updated("solver.test_interval", 2), 2)
+        check_supported(cfg.updated("data.synthetic", False))
     with pytest.raises(NotImplementedError, match="ROADMAP 12"):
-        check_supported(cfg.updated("solver.grad_accum_steps", 2), 2)
+        check_supported(cfg.updated("network.freeze_bn", True))
+    with pytest.raises(NotImplementedError, match="ROADMAP 12"):
+        check_supported(cfg.updated("solver.grad_accum_steps", 2))

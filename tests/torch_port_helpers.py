@@ -6,6 +6,8 @@ JAX package and its PyTorch port.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,3 +94,50 @@ def bn_counts(torch_model, x):
         for h in hooks:
             h.remove()
     return counts
+
+
+def compiled_pallas_conv(monkeypatch) -> None:
+    """Run the JAX package's Pallas conv (``ops/conv_pallas.py``) compiled,
+    in interpret mode, even inside ``jax.disable_jit()``.
+
+    The parity tests run the JAX model eagerly under ``jax.disable_jit`` so
+    that no HRNet compile enters them; the Pallas conv's interpret mode then
+    evaluates its kernel body op by op, minutes for an hrnet18 forward.
+    This re-enables jit for the two kernel calls only (a test-time patch; the
+    JAX package is unchanged), so each conv shape compiles once.
+    """
+    import contrastiveseg_tpu.ops.conv_pallas as jconv
+
+    fwd = jconv.conv3x3_small_c
+    dw = jax.jit(jconv._conv3x3_dw, static_argnames=("block_h", "sub_h", "interpret"))
+
+    def conv3x3_small_c(x, w, block_h=32, sub_h=8, interpret=False):
+        with jax.disable_jit(False):
+            return fwd(x, w, block_h=block_h, sub_h=sub_h, interpret=interpret)
+
+    def conv3x3_dw(x, g, block_h, sub_h, interpret=False):
+        with jax.disable_jit(False):
+            return dw(x, g, block_h=block_h, sub_h=sub_h, interpret=interpret)
+
+    monkeypatch.setattr(jconv, "conv3x3_small_c", conv3x3_small_c)
+    monkeypatch.setattr(jconv, "_conv3x3_dw", conv3x3_dw)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run torch on one intra-op thread inside the block.
+
+    The suite runs in several worker processes on a few cores, and torch's
+    thread pool in each of them oversubscribes the cores and stalls at its
+    barriers: the checkpoint test, 7 s alone, took 238 s beside five busy
+    workers.  Only for tests whose checks do not depend on the summation
+    order that the thread count sets (the slice test's tolerances do).
+    """
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

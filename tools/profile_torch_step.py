@@ -38,7 +38,10 @@ SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]",
 
 # Kernel-name substrings per category, tested in this order.
 K1_KERNELS = ("pass1_tiles", "pass1_merge", "pass2_tiles", "bwd_tiles", "sum_splits")
-CATEGORIES = (
+K2_KERNELS = ("conv3x3_fwd_tiles", "conv3x3_dw_tiles", "dw_sum_splits")
+CATEGORIES = (  # K2 before K1 and the convolutions: its names hold theirs
+    ("K2", K2_KERNELS),
+    ("K3", ("fused_block_tiles",)),
     ("K1", K1_KERNELS),
     ("convolution (cuDNN, with its layout transforms)",
      ("conv", "dgrad", "wgrad", "fprop", "nhwctonchw", "nchwtonhwc")),

@@ -23,8 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def build_config(preset: str | None, config: str | None, overrides: list[str]):
-    from contrastiveseg_tpu.presets import get_preset
-    from contrastiveseg_tpu.utils.config import Config
+    from contrastiveseg_tpu_torch.presets import get_preset
+    from contrastiveseg_tpu_torch.utils.config import Config
 
     if preset:
         cfg = get_preset(preset)
