@@ -9,8 +9,11 @@ Phases (any failure raises, so the run exits non-zero):
   2. build K1 (csrc/contrast_infonce.cu), K2 (csrc/conv3x3.cu) and K3
      (csrc/fused_block.cu) from the checkout, one nvcc each, all at once;
   3. K1 against its plain version at M=1024 anchors, D=256, K=190,000 bank
-     rows (tau 0.07), at a ragged K=190,037 and at the main path's M=38 (batch
-     2); the loss through K1 against the plain loss, value and gradient;
+     rows (tau 0.07), at a ragged K=190,037, at the recipe's M=152 (batch 8)
+     and at the main path's M=38 (batch 2); the loss through K1 against the
+     plain loss, value and gradient; times at M=38, 152 and 1024, with
+     K1a/K1b and K1c/K1b time ratios (K1b keeps the SIMT design that K1a
+     and K1c had, so the ratios are a yardstick from the same run);
   4. K2 (forward, dX, dW) against its plain version at the main path's
      branch-0 shape [2, 48, 128, 256] and at a ragged width of 40; K3
      against its plain version at [8, 48, 128, 256] in fp32 and bf16 (the
@@ -35,7 +38,11 @@ Each path's launch counts are set to 0 just before it and read just after;
 the kernel-vs-plain launches of phases 3-4 are not counted.  Kernel times
 are CUDA-event medians of 5 runs of 10 back-to-back calls; ``bound_ms`` is
 max(FLOPs / peak, bytes / 3.35 TB/s) from this run's shapes, with the H100
-SXM peaks: 67 TFLOP/s fp32 (SIMT), 989 TFLOP/s bf16 (tensor cores).
+SXM peaks (``PEAK_FLOPS``).  An fp32 product's peak is that of its fastest
+route at fp32 accuracy on the card: three TF32 tensor-core products per
+product (3xTF32, 495 / 3 TFLOP/s), the route of K1a and K1c.  The fp32 rows
+add ``bound_ms_fp32_simt``: the same at the 67 TFLOP/s of the SIMT cores,
+the bound that PRs 1-2 reported.
 """
 
 from __future__ import annotations
@@ -56,7 +63,9 @@ HBM_BYTES_PER_S = 3.35e12
 # CPU at 64x128 the two paths differ by 2.3e-3 to 7.4e-3 in relative norm.
 # A wrong dX or dW (unflipped, untransposed, missing) is off by order 1.
 GRAD_REL_NORM = 2e-2
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+# 3xTF32 keeps ~2^-20 relative error per product, inside the rtol 1e-4 that
+# every fp32 kernel here is held to (tests/test_torch_port_k1.py emulates it).
+PEAK_FLOPS = {"fp32": 495e12 / 3, "fp32_simt": 67e12, "bf16": 989e12}
 SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]", "train.batch_size=2",
          "contrast.warmup_iters=0", "solver.max_iters=3"]
 
@@ -132,8 +141,8 @@ def k1_inputs(M: int, K: int, D: int, seed: int, device):
 
 
 def check_k1(device, tau: float = 0.07) -> dict:
-    """Errors over three shapes; rows (times and bounds) at M=38 (the main
-    path) and M=1024."""
+    """Errors over four shapes; rows (times, the bound and the fp32-SIMT
+    bound) at M=38 (the main path), M=152 (the recipe's batch 8) and M=1024."""
     import torch
 
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
@@ -145,7 +154,7 @@ def check_k1(device, tau: float = 0.07) -> dict:
     errs = {name: 0.0 for name in k1.KERNELS}
     rows = {}
     cases = [("headline", 1024, 190_000), ("ragged", 1024, 190_037),
-             ("main_path", 38, 190_000)]
+             ("recipe_b8", 152, 190_000), ("main_path", 38, 190_000)]
     for case, M, K in cases:
         a, a_l, a_v, c, c_l, c_v = k1_inputs(M, K, 256, seed=M + K, device=device)
         plain1 = k1.stream_pass1(a, a_l, c, c_l, c_v, tau)
@@ -186,23 +195,29 @@ def check_k1(device, tau: float = 0.07) -> dict:
             continue
         flops = 2 * M * K * 256
         ins = nbytes(a, a_l, c, c_l, c_v)
-        t_case = {
-            "infonce_pass1": (
-                time_ms(lambda: k1.infonce_pass1(a, a_l, c, c_l, c_v, tau)),
-                time_ms(lambda: k1.stream_pass1(a, a_l, c, c_l, c_v, tau)),
-                bound(flops, ins + 3 * 4 * M)),
-            "infonce_pass2": (
-                time_ms(lambda: k1.infonce_pass2(a, a_l, c, c_l, c_v, m, ns, tau)),
-                time_ms(lambda: k1.stream_pass2(a, a_l, c, c_l, c_v, m, ns, tau)),
-                bound(flops, ins + 4 * 4 * M)),
-            "infonce_bwd": (
-                time_ms(lambda: k1.infonce_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau)),
-                time_ms(lambda: k1.stream_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau)),
-                bound(2 * flops, ins + 4 * 4 * M + 4 * M * 256)),
+        work = {"infonce_pass1": (flops, ins + 3 * 4 * M),
+                "infonce_pass2": (flops, ins + 4 * 4 * M),
+                "infonce_bwd": (2 * flops, ins + 4 * 4 * M + 4 * M * 256)}
+        calls = {
+            "infonce_pass1": (lambda: k1.infonce_pass1(a, a_l, c, c_l, c_v, tau),
+                              lambda: k1.stream_pass1(a, a_l, c, c_l, c_v, tau)),
+            "infonce_pass2": (lambda: k1.infonce_pass2(a, a_l, c, c_l, c_v, m, ns, tau),
+                              lambda: k1.stream_pass2(a, a_l, c, c_l, c_v, m, ns, tau)),
+            "infonce_bwd": (lambda: k1.infonce_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau),
+                            lambda: k1.stream_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau)),
         }
-        for name, (ms, plain_ms, (b_ms, by)) in t_case.items():
+        t_case = {}
+        for name, (kernel, plain) in calls.items():
+            f, b = work[name]
+            t_case[name] = (time_ms(kernel), time_ms(plain), bound(f, b),
+                            bound(f, b, "fp32_simt"))
+            ms, plain_ms, (b_ms, by), (bs, bys) = t_case[name]
             print(f"K1 time {case} M={M} K={K} {name}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                  f"fp32-SIMT bound {bs:.4f} ms ({bys})")
+        yard = t_case["infonce_pass2"][0]
+        print(f"K1 ratios {case} M={M}: K1a/K1b {t_case['infonce_pass1'][0] / yard:.3f}, "
+              f"K1c/K1b {t_case['infonce_bwd'][0] / yard:.3f}")
         rows[case] = t_case
     return {"errs": errs, "rows": rows}
 
@@ -239,16 +254,17 @@ def check_k2(device) -> dict:
                 time_ms(lambda: k2.conv3x3_fwd(x, w)),
                 time_ms(lambda: conv3x3_plain(x, w)),
                 time_ms(lambda: torch.nn.functional.conv2d(x, w, padding=1)),
-                bound(flops, nbytes(x, w, y))),
+                bound(flops, nbytes(x, w, y)), bound(flops, nbytes(x, w, y), "fp32_simt")),
             "conv3x3_dw": (
                 time_ms(lambda: k2.conv3x3_dw(x, gy)),
                 time_ms(lambda: conv3x3_dw_plain(x, gy)),
                 time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1)),
-                bound(flops, nbytes(x, gy, dw))),
+                bound(flops, nbytes(x, gy, dw)), bound(flops, nbytes(x, gy, dw), "fp32_simt")),
         }
-        for name, (ms, plain_ms, lib_ms, (b_ms, by)) in rows.items():
+        for name, (ms, plain_ms, lib_ms, (b_ms, by), (bs, _)) in rows.items():
             print(f"K2 time {[B, C, H, W]} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+                  f"ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                  f"fp32-SIMT bound {bs:.4f} ms")
     return {"errs": errs, "rows": rows}
 
 
@@ -564,26 +580,24 @@ def main() -> None:
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
-        ms, plain_ms, (b_ms, by) = k1["rows"]["main_path"][name]
-        ms_h, plain_h, (b_h, by_h) = k1["rows"]["headline"][name]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "contrastiveseg_tpu_torch/csrc/contrast_infonce.cu",
-            "replaces": replaces, "launches": sl["launches"][name],
-            "max_abs_err": k1["errs"][name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "shape": "M=38 K=190000 D=256",
-            "ms_m1024": ms_h, "plain_ms_m1024": plain_h, "bound_ms_m1024": b_h,
-            "bound_by_m1024": by_h,
-        })
+        row = {"name": name, "route": "cuda",
+               "source": "contrastiveseg_tpu_torch/csrc/contrast_infonce.cu",
+               "replaces": replaces, "launches": sl["launches"][name],
+               "max_abs_err": k1["errs"][name], "library_ms": None,
+               "shape": "M=38 K=190000 D=256"}
+        for case, sfx in (("main_path", ""), ("recipe_b8", "_m152"), ("headline", "_m1024")):
+            ms, plain_ms, (b_ms, by), (bs, _) = k1["rows"][case][name]
+            row.update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": b_ms,
+                        f"bound_by{sfx}": by, f"bound_ms_fp32_simt{sfx}": bs})
+        rows.append(row)
     for name, (_, _, replaces) in conv_cuda.KERNELS.items():
-        ms, plain_ms, lib_ms, (b_ms, by) = k2["rows"][name]
+        ms, plain_ms, lib_ms, (b_ms, by), (bs, _) = k2["rows"][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": "contrastiveseg_tpu_torch/csrc/conv3x3.cu",
             "replaces": replaces, "launches": on["launches"][name],
             "max_abs_err": k2["errs"][name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": by, "bound_ms_fp32_simt": bs, "library_ms": lib_ms,
             "shape": "x [2,48,128,256] fp32, w [48,48,3,3]",
         })
     _, _, replaces = block_cuda.KERNELS["fused_block"]
@@ -592,7 +606,9 @@ def main() -> None:
     flops = 2 * (2 * 9 * C * C) * B * H * W
     x_elems = B * C * H * W
     b_ms, by = bound(flops, 2 * 2 * x_elems + 2 * 4 * 9 * C * C + 4 * 4 * C, "bf16")
-    b32, by32 = bound(flops, 2 * 4 * x_elems + 2 * 4 * 9 * C * C + 4 * 4 * C, "fp32")
+    f32_bytes = 2 * 4 * x_elems + 2 * 4 * 9 * C * C + 4 * 4 * C
+    b32, by32 = bound(flops, f32_bytes)
+    b32s, _ = bound(flops, f32_bytes, "fp32_simt")
     rows.append({
         "name": "fused_block", "route": "cuda",
         "source": "contrastiveseg_tpu_torch/csrc/fused_block.cu",
@@ -601,7 +617,8 @@ def main() -> None:
         "plain_ms": b16["block_us_plain"] / 1e3, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None, "shape": "x [8,48,128,256] bf16 (the bench default)",
         "ms_fp32": f32["block_us_fused"] / 1e3, "plain_ms_fp32": f32["block_us_plain"] / 1e3,
-        "bound_ms_fp32": b32, "bound_by_fp32": by32, "max_abs_err_fp32": k3["errs"]["fp32"],
+        "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
+        "max_abs_err_fp32": k3["errs"]["fp32"],
     })
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,9 @@
 
 Replaces the Pallas kernels of ``contrastiveseg_tpu/ops/contrast_pallas.py``
 (``_pass1_kernel`` :50, ``_pass2_kernel`` :75, ``_bwd_kernel`` :98); the
-kernels and their design notes are in ``csrc/contrast_infonce.cu``.
+kernels and their design notes are in ``csrc/contrast_infonce.cu``.  K1a
+and K1c run 3xTF32 tensor-core products over anchor chunks of at most 64
+columns (``chunk_splits``); K1b runs fp32 SIMT tiles (``num_splits``).
 
 Build: ``ops/cuda_lib.py`` (nvcc for ``sm_90a`` at first use into
 ``build/kernels/``, ctypes); ``infonce_init`` runs once per device.
@@ -37,8 +39,9 @@ LIBRARY = cuda_lib.CudaLibrary(
     {name: [P] * 11 + [I, I, I, I, F, P]
      for name in ("infonce_pass1", "infonce_pass2", "infonce_bwd")},
     error_string="infonce_error_string", init="infonce_init")
-_BM = 64  # anchor rows per block (csrc BM)
-_BN = 64  # contrast rows per tile (csrc BN)
+_BM = 64  # anchor rows per block of K1b (csrc BM)
+_BN = 64  # contrast rows per tile (csrc BN, ROWS)
+_MAX_MC = 64  # anchors per chunk of K1a and K1c (csrc MAX_MC)
 _MAX_D = 256  # largest feature width (csrc MAX_D)
 
 
@@ -61,11 +64,20 @@ def _check_inputs(a_f, a_l, c_f, c_l, c_v, **rows):
 
 
 def num_splits(M: int, K: int, device: torch.device) -> int:
-    """K splits so that (anchor tiles x splits) fills the card about twice."""
+    """K1b's K splits: (anchor tiles x splits) fills the card about twice."""
     sms = cuda_lib.sm_count(device.index)
     m_tiles = -(-M // _BM)
     n_tiles = -(-K // _BN)
     return max(1, min(n_tiles, -(-2 * sms // m_tiles)))
+
+
+def chunk_splits(M: int, K: int, device: torch.device) -> int:
+    """K1a's and K1c's K splits: (anchor chunks x splits) is one wave of one
+    block per SM (each block takes ~200 KB of shared memory at D=256)."""
+    sms = cuda_lib.sm_count(device.index)
+    chunks = -(-M // _MAX_MC)
+    n_tiles = -(-K // _BN)
+    return max(1, min(n_tiles, sms // chunks))
 
 
 def infonce_pass1(a_f, a_l, c_f, c_l, c_v, temperature):
@@ -73,7 +85,7 @@ def infonce_pass1(a_f, a_l, c_f, c_l, c_v, temperature):
     if a_f.device.type == "cpu":
         return stream_pass1(a_f, a_l, c_f, c_l, c_v, temperature)
     M, K, D = _check_inputs(a_f, a_l, c_f, c_l, c_v)
-    S = num_splits(M, K, a_f.device)
+    S = chunk_splits(M, K, a_f.device)
     part = torch.empty((3, S, M), dtype=torch.float32, device=a_f.device)
     out = torch.empty((3, M), dtype=torch.float32, device=a_f.device)
     LIBRARY.launch("infonce_pass1", a_f.device,
@@ -105,7 +117,7 @@ def infonce_bwd(a_f, a_l, c_f, c_l, c_v, m, ns, t, w, temperature):
     if a_f.device.type == "cpu":
         return stream_bwd(a_f, a_l, c_f, c_l, c_v, m, ns, t, w, temperature)
     M, K, D = _check_inputs(a_f, a_l, c_f, c_l, c_v, m=m, ns=ns, t=t, w=w)
-    S = num_splits(M, K, a_f.device)
+    S = chunk_splits(M, K, a_f.device)
     part = torch.empty((S, M, D), dtype=torch.float32, device=a_f.device)
     da = torch.empty((M, D), dtype=torch.float32, device=a_f.device)
     LIBRARY.launch("infonce_bwd", a_f.device,

@@ -44,19 +44,24 @@ def _nvcc() -> str:
 class CudaLibrary:
     """One ``csrc/<source>`` library: its entry points' ctypes signatures
     (``{name: argtypes}``, each returning an int error code), an optional
-    init entry point run once per device, and its error-string function."""
+    init entry point run once per device, its error-string function, and
+    the ``-D`` macros it is built with (none for the port's kernels; a
+    diagnostic variant of a source sets its switch here)."""
 
     def __init__(self, source: str, signatures: dict[str, list],
-                 error_string: str, init: str | None = None):
+                 error_string: str, init: str | None = None,
+                 defines: tuple[str, ...] = ()):
         self.source = CSRC / source
         self.signatures = signatures
         self.error_string = error_string
         self.init = init
+        self.defines = tuple(defines)
         self._lib: ctypes.CDLL | None = None
         self._ready: set[int] = set()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        key = self.source.read_bytes() + "".join(f" -D{d}" for d in self.defines).encode()
+        digest = hashlib.sha256(key).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
 
     def ptxas_report(self) -> str:
@@ -69,7 +74,8 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines),
+                                 "-o", str(tmp), str(self.source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         return proc, tmp, out, time.perf_counter()
 

@@ -5,10 +5,14 @@ JAX, so it also runs on a machine that has none:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
-Tolerances: K1 rtol 1e-4, atol 1e-5 (fp32 sums in another order; the
-kernel's logits are sequential FMAs, the plain version's are cuBLAS SGEMM).
+Tolerances: K1 rtol 1e-4, atol 1e-5 (fp32 sums in another order; K1a's
+and K1c's products are 3xTF32 on the tensor cores, at worst ~2^-19
+relative per product, K1b's sequential FMAs, the plain version's cuBLAS
+SGEMM).
 K2 and K3 in fp32 with cuDNN's TF32 off: rtol 1e-4, atol 1e-4 (sums of up
-to 9·64 products; dW sums B·H·W of them, so atol scales with its size); K3
+to 9·64 products; dW sums B·H·W of them, so atol scales with its size, and
+K2's dW is held against the plain formula evaluated in fp64: cuDNN's fp32
+``conv2d_weight`` itself rounds past that tolerance at some shapes); K3
 in bf16 within 2 bf16 steps of the output (both round y1 and the output at
 the same places; a value near a rounding boundary may land one step apart).
 """
@@ -22,7 +26,7 @@ import torch
 from contrastiveseg_tpu_torch.ops import block_cuda, conv_cuda
 from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
 from contrastiveseg_tpu_torch.ops.block import reference_block_eval
-from contrastiveseg_tpu_torch.ops.conv import conv3x3_dw_plain, conv3x3_plain
+from contrastiveseg_tpu_torch.ops.conv import conv3x3_plain
 
 
 def _setup(M, K, D, C=19, seed=0):
@@ -47,7 +51,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,D", [(16, 48, 8), (70, 1000, 256), (38, 19037, 256)])
+@pytest.mark.parametrize("M,K,D", [
+    (16, 48, 8), (70, 1000, 256), (38, 19037, 256),
+    # the recipe's batch 8; anchor chunks of 64 (300 = 5 x 60); K not a
+    # multiple of the 64-row bank tile; D=8; D=6 (4-byte bank copies)
+    (152, 19037, 256), (300, 5003, 256), (300, 777, 8), (20, 1001, 6)])
 def test_k1_kernels_match_plain_on_card(cuda_device, M, K, D):
     torch.backends.cuda.matmul.allow_tf32 = False
     arrs = [torch.from_numpy(x).to(cuda_device) for x in _setup(M, K, D, seed=M)]
@@ -69,6 +77,21 @@ def test_k1_kernels_match_plain_on_card(cuda_device, M, K, D):
         rtol=1e-4, atol=1e-5)
     assert k1.launch_counts() == {"infonce_pass1": 1, "infonce_pass2": 1,
                                   "infonce_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_k1_kernels_are_deterministic_on_card(cuda_device):
+    """Partials merge in a fixed split order, with no float atomics."""
+    a, a_l, a_v, c, c_l, c_v = [torch.from_numpy(x).to(cuda_device)
+                                for x in _setup(152, 19037, 256, seed=3)]
+    runs = [k1.infonce_pass1(a, a_l, c, c_l, c_v, 0.07) for _ in range(2)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    m, ns, p = runs[0]
+    t = k1.infonce_pass2(a, a_l, c, c_l, c_v, m, ns, 0.07)[1]
+    w = torch.where(a_v & (p > 0), -1.0 / p.clamp(min=1), 0.0)
+    assert torch.equal(k1.infonce_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, 0.07),
+                       k1.infonce_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, 0.07))
 
 
 @pytest.mark.cuda
@@ -96,8 +119,8 @@ def test_k2_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
                                rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(conv_cuda.conv3x3_fwd(gy, w, True), conv3x3_plain(gy, w, True),
                                rtol=1e-4, atol=1e-4)
-    dw = conv3x3_dw_plain(x, gy)
-    torch.testing.assert_close(conv_cuda.conv3x3_dw(x, gy), dw, rtol=1e-4,
+    dw = torch.nn.grad.conv2d_weight(x.double(), w.shape, gy.double(), padding=1)
+    torch.testing.assert_close(conv_cuda.conv3x3_dw(x, gy).double(), dw, rtol=1e-4,
                                atol=1e-6 * float(dw.abs().max()) + 1e-4)
     assert conv_cuda.launch_counts() == {"conv3x3_fwd": 2, "conv3x3_dw": 1}
 

@@ -36,12 +36,23 @@ from contrastiveseg_tpu_torch.ops.confusion import confusion_matrix
 from contrastiveseg_tpu_torch.presets import get_preset
 from contrastiveseg_tpu_torch.utils.jax_weights import hrnet_seg_key, load_jax_variables
 
-from torch_port_helpers import exact_fp32_reference, one_torch_thread, random_variables
+from torch_port_helpers import (
+    exact_fp32_reference,
+    one_torch_thread,
+    random_variables,
+    shared_jax_compiles,
+)
 
 
 @pytest.fixture(autouse=True)
 def _one_thread():
     with one_torch_thread():
+        yield
+
+
+@pytest.fixture(autouse=True)
+def _shared_compiles():
+    with shared_jax_compiles():
         yield
 
 

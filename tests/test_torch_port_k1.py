@@ -22,8 +22,16 @@ from contrastiveseg_tpu.ops.contrast import ContrastSpec as JSpec
 from contrastiveseg_tpu.ops.contrast import contrastive_loss as jdense
 from contrastiveseg_tpu.ops.contrast_pallas import pallas_contrastive_loss
 from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+from contrastiveseg_tpu_torch.ops import contrast_stream
 from contrastiveseg_tpu_torch.ops.contrast import AnchorSet, ContrastSpec, contrastive_loss
-from contrastiveseg_tpu_torch.ops.contrast_stream import streaming_contrastive_loss
+from contrastiveseg_tpu_torch.ops.contrast_stream import (
+    InfoNCE,
+    Passes,
+    stream_bwd,
+    stream_pass1,
+    stream_pass2,
+    streaming_contrastive_loss,
+)
 
 
 def _setup(M=16, K=48, D=8, C=5, seed=0, no_pos_row=True):
@@ -88,3 +96,110 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert p[3] == 0  # the row with no positive
     assert k1.launch_counts() == {"infonce_pass1": 0, "infonce_pass2": 0,
                                   "infonce_bwd": 0}
+
+
+def _tf32(x):
+    """The tensor cores' view of an fp32 operand: its 13 low mantissa bits
+    dropped."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_tf32(x, y, split):
+    """x @ y.T as the K1a/K1c kernels compute it: with ``split``, 3xTF32 (x =
+    hi + lo with hi = tf32(x), lo = x - hi read as tf32; hi.hi + hi.lo +
+    lo.hi in fp32); without, one TF32 product."""
+    xh, yh = _tf32(x), _tf32(y)
+    if not split:
+        return xh @ yh.T
+    xl, yl = _tf32(x - xh), _tf32(y - yh)
+    return xh @ yh.T + (xh @ yl.T + xl @ yh.T)
+
+
+def _emulated_passes(split):
+    """K1a and K1c with their products emulated in TF32; K1b stays the fp32
+    plain pass, as its kernel is fp32."""
+
+    def pass1(a_f, a_l, c_f, c_l, c_v, temperature):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(contrast_stream, "_logits",
+                       lambda a, cf, tau: _mm_tf32(a, cf, split) * (1.0 / tau))
+            return stream_pass1(a_f, a_l, c_f, c_l, c_v, temperature)
+
+    def bwd(a_f, a_l, c_f, c_l, c_v, m, ns, t, w, temperature):
+        dA = torch.zeros_like(a_f)
+        for k0 in range(0, c_f.shape[0], 8192):
+            cf, cl, cv = c_f[k0:k0 + 8192], c_l[k0:k0 + 8192], c_v[k0:k0 + 8192]
+            e = torch.exp(_mm_tf32(a_f, cf, split) * (1.0 / temperature) - m[:, None])
+            same = a_l[:, None] == cl[None, :]
+            ok = cv[None, :]
+            denom = e + ns[:, None] + 1e-30
+            dl = torch.where(same & ok, w[:, None] * (1.0 - e / denom), 0.0)
+            dl = dl + torch.where(~same & ok, -w[:, None] * t[:, None] * e, 0.0)
+            dA = dA + _mm_tf32(dl / temperature, cf.T, split)
+        return dA
+
+    return Passes(pass1, stream_pass2, bwd)
+
+
+def test_3xtf32_products_keep_k1s_tolerance():
+    """The numerics of the Hopper K1a/K1c, emulated on the CPU at the main
+    path's shape (M=38 anchors, D=256, tau 0.07) against a 4,000-row bank:
+    pass 1's (m, ns, p), dA and the loss's value and gradient stay within
+    K1's rtol 1e-4 / atol 1e-5 of the fp32 plain passes.  A single TF32
+    product does not: its logit error, scaled by 1/tau = 14.3, moves ns
+    by more than 1e-4 relative."""
+    tau = 0.07
+    a, a_l, a_v, c, c_l, c_v = [torch.from_numpy(x) for x in _setup(
+        M=38, K=4000, D=256, C=19, seed=38)]
+    want = stream_pass1(a, a_l, c, c_l, c_v, tau)
+    got = _emulated_passes(True).pass1(a, a_l, c, c_l, c_v, tau)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    one = _emulated_passes(False).pass1(a, a_l, c, c_l, c_v, tau)
+    assert not torch.allclose(one[1], want[1], rtol=1e-4, atol=1e-5)
+
+    m, ns, p = want
+    t = stream_pass2(a, a_l, c, c_l, c_v, m, ns, tau)[1]
+    w = torch.where(a_v & (p > 0), -1.0 / (38 * p.clamp(min=1)), 0.0)
+    torch.testing.assert_close(_emulated_passes(True).bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau),
+                               stream_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, tau),
+                               rtol=1e-4, atol=1e-5)
+
+    x1 = a.clone().requires_grad_(True)
+    x2 = a.clone().requires_grad_(True)
+    emulated = InfoNCE.apply(x1, a_l, a_v, c, c_l, c_v, tau, tau, _emulated_passes(True))
+    plain = streaming_contrastive_loss(x2, a_l, a_v, c, c_l, c_v, tau, tau)
+    emulated.backward()
+    plain.backward()
+    torch.testing.assert_close(emulated.detach(), plain.detach(), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-4, atol=1e-5)
+
+
+def test_k1_build_variants_get_their_own_library(monkeypatch, tmp_path):
+    """``tools/bench_k1_variants.py`` builds K1's source with ``-DK1_PRODUCTS``
+    into a library of its own; the port's library, built with no macro, keeps
+    its name and its nvcc command."""
+    from contrastiveseg_tpu_torch.ops import cuda_lib
+
+    lib = k1.LIBRARY
+    assert lib.defines == ()
+    variant = cuda_lib.CudaLibrary(lib.source.name, lib.signatures, lib.error_string,
+                                   lib.init, defines=("K1_PRODUCTS=1",))
+    assert variant.library_path() != lib.library_path()
+    assert variant.library_path().parent == lib.library_path().parent
+    assert "K1_PRODUCTS" in lib.source.read_text()
+
+    argv = []
+
+    class Popen:
+        def __init__(self, cmd, **kwargs):
+            argv.append(cmd)
+
+    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_lib.subprocess, "Popen", Popen)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path)
+    for x in (lib, variant):
+        x._start(force=True)
+    assert not any(a.startswith("-D") for a in argv[0])
+    assert "-DK1_PRODUCTS=1" in argv[1]
+    assert argv[0][-1] == argv[1][-1] == str(lib.source)

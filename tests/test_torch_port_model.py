@@ -31,9 +31,28 @@ from contrastiveseg_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
 
-from torch_port_helpers import bn_counts, exact_fp32_reference, random_variables
+from torch_port_helpers import (
+    bn_counts,
+    exact_fp32_reference,
+    one_torch_thread,
+    random_variables,
+    shared_jax_compiles,
+)
 
 SHAPE = (2, 64, 64, 3)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Tolerances here (1e-3) are far above any summation-order effect."""
+    with one_torch_thread():
+        yield
+
+
+@pytest.fixture(autouse=True)
+def _shared_compiles():
+    with shared_jax_compiles():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -73,11 +92,18 @@ def _calibrated(variables, x):
             "batch_stats": fill(variables["batch_stats"])}
 
 
-def test_eval_forward_matches_jax(weights, monkeypatch):
-    exact_fp32_reference(monkeypatch)
-    jm, variables = weights
+@pytest.fixture(scope="module")
+def calibrated(weights):
+    """The eval tests' images and calibrated weights, made once."""
     x = _images()
-    variables = _calibrated(variables, x)
+    with one_torch_thread():
+        return x, _calibrated(weights[1], x)
+
+
+def test_eval_forward_matches_jax(weights, calibrated, monkeypatch):
+    exact_fp32_reference(monkeypatch)
+    jm, _ = weights
+    x, variables = calibrated
     with jax.disable_jit():
         want = jm.apply(variables, jnp.asarray(x), train=False)
     pm = _port(variables).eval()
@@ -89,15 +115,14 @@ def test_eval_forward_matches_jax(weights, monkeypatch):
                                    atol=1e-3, rtol=1e-3, err_msg=k)
 
 
-def test_eval_forward_against_the_bf16_fuse_of_jax(weights):
+def test_eval_forward_against_the_bf16_fuse_of_jax(weights, calibrated):
     """The JAX model as it runs, unpatched: its fuse upsamples round the
     interpolation matrix and the intermediate to bf16 (ops/resize.py:77),
     the port's stay fp32.  Measured on these inputs: relative norm error
     8.6e-3 (seg) and 9.5e-3 (embed), max abs error 1.0% (seg) and 1.3%
     (embed) of the output's largest magnitude.  Bounds: about twice that."""
-    jm, variables = weights
-    x = _images()
-    variables = _calibrated(variables, x)
+    jm, _ = weights
+    x, variables = calibrated
     with jax.disable_jit():
         want = jm.apply(variables, jnp.asarray(x), train=False)
     with torch.no_grad():

@@ -21,6 +21,8 @@ _spec.loader.exec_module(prof)
 @pytest.mark.parametrize("name,want", [
     ("_ZN52_GLOBAL__N__contrast_infonce_cu9bwd_tilesEPKf", "K1"),
     ("_ZN52_GLOBAL__N__contrast_infonce_cu10sum_splitsEPKfPfii", "K1"),
+    ("_ZN52_GLOBAL__N__54bb903d_19_contrast_infonce_cu_e9da0ee08pass1_tcILi5EEEvPKf", "K1"),
+    ("_ZN52_GLOBAL__N__54bb903d_19_contrast_infonce_cu_e9da0ee06bwd_tcILi5EEEvPKf", "K1"),
     ("_ZN43_GLOBAL__N__conv3x3_cu17conv3x3_fwd_tilesILi12EEEvPKfS2_Pfiiiiii", "K2"),
     ("_ZN43_GLOBAL__N__conv3x3_cu16conv3x3_dw_tilesILi12EEEvPKfS2_Pfiiiiii", "K2"),
     ("_ZN43_GLOBAL__N__conv3x3_cu13dw_sum_splitsEPKfPfii", "K2"),

@@ -2,28 +2,29 @@
 
 The ``smoke_hrnet_w18`` preset (hrnet18, 5 classes, memory bank of 50 rows
 per class and queue, 64 anchors, warmup 0 so the contrast term and its
-gradient are live), batch 2 of 64x128 synthetic scenes, dropout 0, exact
-top-k sampling.  Both packages start from the same numpy weights and bank
+gradient are live), batch 2 of 64x64 synthetic scenes, dropout 0, exact
+top-k sampling.  Both steps (``network.pallas_conv`` off and on) run at the
+same size, so the second reuses the JAX primitives the first compiled.
+Both packages start from the same numpy weights and bank
 and get the same random draws: the test re-derives the JAX step's draws
 (``train_step.py:74``, ``contrast.py:101-103``, ``queue.py:127``) and hands
 them to the port.  The JAX step runs eagerly (``jax.disable_jit``), so no
 train-step compile enters the test.
 
-Tolerances: losses rtol 1e-4; bank pointers exactly equal and rows atol
-5e-5 (the enqueued rows are the two forwards' unit embeddings, which differ
-by up to 1.3e-5 after ~100 convs in another summation order);
-post-step parameters atol 5e-4, and each tensor's update (new - old)
-within 6.5e-2 of the JAX update in relative norm (twice the measured
-3.2e-2).  These two are fp32's bounds for this network, not the port's: at
-random init the CE gradient is mostly a per-class constant that every BN
-backward subtracts out, so weight gradients lose about three digits to
-cancellation.  Against an fp64 run of
-the port, the fp32 port's gradients are off by up to 3e-3 in relative norm
-and the fp32 JAX step's by more; between the two packages the update
-differs by at most 3.2e-2 in relative norm and 3.5e-4 in absolute value
-(stem weights, |w| ~ 0.6, lr 0.01).  A wrong term in the update (sign,
-weight decay, momentum, a missing gradient path) moves the relative error
-to order 1.
+Tolerances, against readings at 64x64 with torch on 1, 3 and 8 threads
+(flag off and on alike): losses rtol 1e-4; bank pointers exactly equal and
+rows atol 3.5e-5 (the enqueued rows are the two forwards' unit embeddings,
+which differ by up to 1.6e-5 after ~100 convs in another summation order);
+post-step parameters atol 5e-4 (read: 2.0e-4 to 4.0e-4, stem weights,
+|w| ~ 0.6, lr 0.01), and each tensor's update (new - old) within 4e-2 of
+the JAX update in relative norm (read: 1.86e-2 to 1.92e-2).  These two are
+fp32's bounds for this network, not the port's: at random init the CE
+gradient is mostly a per-class constant that every BN backward subtracts
+out, so weight gradients lose about three digits to cancellation: at
+64x128, against an fp64 run of the port, the fp32 port's gradients were
+off by up to 3e-3 in relative norm and the fp32 JAX step's by more.  A wrong term in the
+update (sign, weight decay, momentum, a missing gradient path) moves the
+relative error to order 1.
 """
 
 from __future__ import annotations
@@ -55,9 +56,20 @@ from contrastiveseg_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
 
-from torch_port_helpers import compiled_pallas_conv, exact_fp32_reference, random_variables
+from torch_port_helpers import (
+    compiled_pallas_conv,
+    exact_fp32_reference,
+    random_variables,
+    shared_jax_compiles,
+)
 
-H, W, B = 64, 128, 2
+H, W, B = 64, 64, 2
+
+
+@pytest.fixture(autouse=True)
+def _shared_compiles():
+    with shared_jax_compiles():
+        yield
 
 
 def _config(pallas_conv=False):
@@ -154,7 +166,7 @@ def _step_against_jax(pallas_conv, h, w):
         d_want, d_got = want - before[path], got - before[path]
         worst_update = max(worst_update, float(
             np.linalg.norm(d_got - d_want) / np.linalg.norm(d_want)))
-    assert worst_update < 0.065, worst_update
+    assert worst_update < 0.04, worst_update
     moved = max(np.abs(w - before[p]).max() for p, w in after.items())
     assert moved > 1e-3  # the step really changed the weights
 
@@ -162,9 +174,9 @@ def _step_against_jax(pallas_conv, h, w):
     np.testing.assert_array_equal(state.bank.pixel_ptr.numpy(), np.asarray(s1.bank.pixel_ptr))
     assert not np.array_equal(np.asarray(s1.bank.segment_ptr), seg_p)
     np.testing.assert_allclose(state.bank.segment_queue.numpy(),
-                               np.asarray(s1.bank.segment_queue), atol=5e-5)
+                               np.asarray(s1.bank.segment_queue), atol=3.5e-5)
     np.testing.assert_allclose(state.bank.pixel_queue.numpy(),
-                               np.asarray(s1.bank.pixel_queue), atol=5e-5)
+                               np.asarray(s1.bank.pixel_queue), atol=3.5e-5)
 
 
 def test_one_train_step_matches_jax(monkeypatch):
@@ -173,12 +185,12 @@ def test_one_train_step_matches_jax(monkeypatch):
 
 
 def test_one_train_step_with_pallas_conv_matches_jax(monkeypatch):
-    """``network.pallas_conv`` on both sides, hrnet18 at 64x64: branches 0
-    and 1 (C=18, 36) run the JAX Pallas conv (interpret mode, compiled per
-    shape) and the port's K2 wrappers, forward, dX and dW; same tolerances."""
+    """``network.pallas_conv`` on both sides: branches 0 and 1 (C=18, 36) run
+    the JAX Pallas conv (interpret mode, compiled per shape) and the port's
+    K2 wrappers, forward, dX and dW; same tolerances."""
     exact_fp32_reference(monkeypatch)
     compiled_pallas_conv(monkeypatch)
-    _step_against_jax(True, 64, 64)
+    _step_against_jax(True, H, W)
 
 
 def test_lr_schedule_matches_optax_count():

@@ -124,6 +124,27 @@ def compiled_pallas_conv(monkeypatch) -> None:
 
 
 @contextlib.contextmanager
+def shared_jax_compiles():
+    """Send every JAX compile inside the block to the persistent compilation
+    cache that ``tests/conftest.py`` sets up, down to the single primitives
+    that an eager (``jax.disable_jit``) HRNet compiles one by one.
+
+    The eager JAX sides of the port's parity tests spend most of their time
+    on those compiles, and several test files compile the same hrnet18
+    primitives at the same shapes in different worker processes; from the
+    cache the later ones load them instead.  The JAX computations and what
+    the tests compare are unchanged.
+    """
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, 0.0)
+    try:
+        yield
+    finally:
+        jax.config.update(key, old)
+
+
+@contextlib.contextmanager
 def one_torch_thread():
     """Run torch on one intra-op thread inside the block.
 

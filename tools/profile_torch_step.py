@@ -16,8 +16,8 @@ Batches are put on the device before any timing.  After ``--warmup`` steps:
 
 From the profiled window it reports the device busy time (the union of
 kernel, memcpy and memset intervals), the idle share of that window
-(1 - busy / wall), and the kernel time per step by category, with K1's
-kernels by name.  The last line of stdout is one JSON object of these
+(1 - busy / wall), and the kernel time per step by category, with each
+category's three longest kernels and K1's kernels by name.  The last line of stdout is one JSON object of these
 numbers.  TF32 is off for matmuls and cuDNN, as in ``tools/train_torch.py``.
 """
 
@@ -36,13 +36,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]",
          "train.batch_size=2", "contrast.warmup_iters=0", "solver.max_iters=100"]
 
-# Kernel-name substrings per category, tested in this order.
-K1_KERNELS = ("pass1_tiles", "pass1_merge", "pass2_tiles", "bwd_tiles", "sum_splits")
+# Kernel-name substrings per category, tested in this order.  The trace has
+# K1's kernels by their names (K1_KERNELS, also the breakdown's keys); a
+# mangled name holds the source's, csrc/contrast_infonce.cu.
+K1_KERNELS = ("pass1_tc", "pass1_merge", "pass2_tiles", "bwd_tc", "sum_splits")
 K2_KERNELS = ("conv3x3_fwd_tiles", "conv3x3_dw_tiles", "dw_sum_splits")
 CATEGORIES = (  # K2 before K1 and the convolutions: its names hold theirs
     ("K2", K2_KERNELS),
     ("K3", ("fused_block_tiles",)),
-    ("K1", K1_KERNELS),
+    ("K1", ("contrast_infonce",) + K1_KERNELS),
     ("convolution (cuDNN, with its layout transforms)",
      ("conv", "dgrad", "wgrad", "fprop", "nhwctonchw", "nchwtonhwc")),
     ("batchnorm", ("batchnorm", "batch_norm", "bn_fw", "bn_bw")),
@@ -137,11 +139,13 @@ def main() -> None:
     ivs = device_intervals(prof)
     busy_ms = busy_us(ivs) / 1e3
     cats, k1 = collections.Counter(), collections.Counter()
+    by_name = collections.defaultdict(collections.Counter)
     for name, s, t in ivs:
         cat = category(name)
         cats[cat] += (t - s) / 1e3
+        by_name[cat][name] += (t - s) / 1e3
         if cat == "K1":
-            k1[next(k for k in K1_KERNELS if k in name)] += (t - s) / 1e3
+            k1[next((k for k in K1_KERNELS if k in name), name)] += (t - s) / 1e3
     total = sum(cats.values())
     n = args.steps
 
@@ -152,6 +156,8 @@ def main() -> None:
           f"({busy_ms / n:.3f} ms/step), idle share {1 - busy_ms / wall_ms:.4f}")
     for cat, ms in cats.most_common():
         print(f"  {cat}: {ms / n:.3f} ms/step ({ms / total:.4f} of device time)")
+        for name, kms in by_name[cat].most_common(3):
+            print(f"      {kms / n:.3f} ms/step {name[:110]}")
     for name, ms in k1.most_common():
         print(f"    K1 {name}: {ms / n:.3f} ms/step")
     print(f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
