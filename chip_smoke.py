@@ -11,13 +11,13 @@ Phases (any failure raises, so the run exits non-zero):
   3. K1 against its plain version at M=1024 anchors, D=256, K=190,000 bank
      rows (tau 0.07), at a ragged K=190,037, at the recipe's M=152 (batch 8)
      and at the main path's M=38 (batch 2); the loss through K1 against the
-     plain loss, value and gradient; times at M=38, 152 and 1024, with
-     K1a/K1b and K1c/K1b time ratios (K1b keeps the SIMT design that K1a
-     and K1c had, so the ratios are a yardstick from the same run);
+     plain loss, value and gradient; times at M=38, 152 and 1024, each
+     kernel's share of its bound;
   4. K2 (forward, dX, dW) against its plain version at the main path's
-     branch-0 shape [2, 48, 128, 256] and at a ragged width of 40; K3
-     against its plain version at [8, 48, 128, 256] in fp32 and bf16 (the
-     bench shape);
+     branch-0 shape [2, 48, 128, 256] and at a ragged width of 40; dW and
+     cuDNN's ``conv2d_weight`` also timed at the recipe's batch 8, [8, 48,
+     128, 256]; K3 against its plain version at [8, 48, 128, 256] in fp32
+     and bf16 (the bench shape);
   5. the flag-off slice: 3 train steps of ``cityscapes_hrnet_w48_mem`` at full
      HRNet-W48 width, 19 classes, the full 190k-row bank, batch 2 of 512x1024
      synthetic scenes, contrast live from step 0, through the same code as
@@ -40,7 +40,7 @@ are CUDA-event medians of 5 runs of 10 back-to-back calls; ``bound_ms`` is
 max(FLOPs / peak, bytes / 3.35 TB/s) from this run's shapes, with the H100
 SXM peaks (``PEAK_FLOPS``).  An fp32 product's peak is that of its fastest
 route at fp32 accuracy on the card: three TF32 tensor-core products per
-product (3xTF32, 495 / 3 TFLOP/s), the route of K1a and K1c.  The fp32 rows
+product (3xTF32, 495 / 3 TFLOP/s), the route of K1 and K2b.  The fp32 rows
 add ``bound_ms_fp32_simt``: the same at the 67 TFLOP/s of the SIMT cores,
 the bound that PRs 1-2 reported.
 """
@@ -48,6 +48,7 @@ the bound that PRs 1-2 reported.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -214,10 +215,8 @@ def check_k1(device, tau: float = 0.07) -> dict:
             ms, plain_ms, (b_ms, by), (bs, bys) = t_case[name]
             print(f"K1 time {case} M={M} K={K} {name}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                  f"share of the bound {b_ms / ms:.3f}, "
                   f"fp32-SIMT bound {bs:.4f} ms ({bys})")
-        yard = t_case["infonce_pass2"][0]
-        print(f"K1 ratios {case} M={M}: K1a/K1b {t_case['infonce_pass1'][0] / yard:.3f}, "
-              f"K1c/K1b {t_case['infonce_bwd'][0] / yard:.3f}")
         rows[case] = t_case
     return {"errs": errs, "rows": rows}
 
@@ -264,8 +263,30 @@ def check_k2(device) -> dict:
         for name, (ms, plain_ms, lib_ms, (b_ms, by), (bs, _)) in rows.items():
             print(f"K2 time {[B, C, H, W]} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
                   f"ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
-                  f"fp32-SIMT bound {bs:.4f} ms")
-    return {"errs": errs, "rows": rows}
+                  f"share of the bound {b_ms / ms:.3f}, fp32-SIMT bound {bs:.4f} ms")
+
+    # dW at the recipe's batch 8 (262,144 pixels a sum), against the formula in
+    # fp64 at the card test's tolerance: cuDNN's fp32 dW, printed beside it,
+    # strays from fp64 itself at this depth.
+    B, C, H, W = 8, 48, 128, 256
+    x = torch.randn(B, C, H, W, generator=g).to(device)
+    gy = torch.randn(B, C, H, W, generator=g).to(device)
+    dw = k2.conv3x3_dw(x, gy)
+    torch.cuda.synchronize()
+    want_dw = torch.nn.grad.conv2d_weight(x.double(), (C, C, 3, 3), gy.double(), padding=1)
+    atol = 1e-6 * float(want_dw.abs().max()) + 1e-4
+    err = close("K2 batch 8 dW against fp64", dw.double(), want_dw, 1e-4, atol)
+    lib_err = float((conv3x3_dw_plain(x, gy).double() - want_dw).abs().max())
+    print(f"K2 batch 8 dW: max abs err against fp64 {err:.3e} (cuDNN fp32 "
+          f"conv2d_weight {lib_err:.3e}; atol {atol:.3e}, rtol 1e-4)")
+    flops = 2 * 9 * C * C * B * H * W
+    b8 = (time_ms(lambda: k2.conv3x3_dw(x, gy)),
+          time_ms(lambda: torch.nn.grad.conv2d_weight(x, (C, C, 3, 3), gy, padding=1)),
+          bound(flops, nbytes(x, gy, dw)))
+    print(f"K2 time {[B, C, H, W]} conv3x3_dw: kernel {b8[0]:.4f} ms, library "
+          f"{b8[1]:.4f} ms (conv2d_weight), bound {b8[2][0]:.4f} ms ({b8[2][1]}), "
+          f"share of the bound {b8[2][0] / b8[0]:.3f}")
+    return {"errs": errs, "rows": rows, "dw_b8": b8}
 
 
 def check_k3(device) -> dict:
@@ -557,10 +578,18 @@ def main() -> None:
     built = cuda_lib.build_all(libraries, force=True)
     print(f"built {[(p.name, round(s, 2)) for p, s in built]} in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+    spills = []
     for lib in libraries:
+        entry = None
         for line in lib.ptxas_report().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(line.strip())
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "bytes spill stores" in line and any(
+                    int(n) for n in re.findall(r"(\d+) bytes", line)):
+                spills.append(entry)
+    print(f"ptxas: kernels with a stack frame or spills: {spills or 'none'}")
 
     t0 = time.perf_counter()
     k1 = check_k1(device)
@@ -600,6 +629,9 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": by, "bound_ms_fp32_simt": bs, "library_ms": lib_ms,
             "shape": "x [2,48,128,256] fp32, w [48,48,3,3]",
         })
+    ms, lib_ms, (b_ms, by) = k2["dw_b8"]
+    rows[-1].update({"ms_b8": ms, "library_ms_b8": lib_ms, "bound_ms_b8": b_ms,
+                     "bound_by_b8": by})
     _, _, replaces = block_cuda.KERNELS["fused_block"]
     b16, f32 = blk["bf16"], blk["fp32"]
     B, H, W, C = b16["shape"]

@@ -10,37 +10,36 @@
 //       dl = w(1 - e/denom) on positives and -w*t*e on negatives.
 // where l = a . c / tau.  The [M, K] logits are never stored.
 //
-// K1a and K1c (Hopper design).  Bound on the H100: at the main path's M
-// (38 anchors at batch 2) the bytes, 195 MB of bank per pass (0.058 ms at
-// 3.35 TB/s); from M ~ 150 the operations, 2*M*K*D flops a product.  What the
-// design does about each:
+// Bound on the H100: at the main path's M (38 anchors at batch 2) the bytes,
+// 195 MB of bank per pass (0.058 ms at 3.35 TB/s); from M ~ 150 the
+// operations, 2*M*K*D flops a product.  One design for all three kernels,
+// and what it does about each:
 //   * anchor-sized tiles: a bank tile of 64 rows is the MMA's row side, an
 //     anchor chunk of mc <= 64 columns (M rounded up to 8: 40 at M=38) its
 //     column side, so no product runs on padding rows; M > 64 is cut into
-//     equal chunks across blockIdx.x.  The chunk stays in shared memory;
-//   * a pipelined bank stream: two shared-memory stages of 64 rows x D filled
-//     by 16-byte cp.async (zero-fill past K, no division per copy), so the
-//     next tile's 66 KB are in flight while this one is computed (one block
-//     per SM); labels and validity come one tile ahead;
+//     equal chunks across blockIdx.x (anchor_chunks).  The chunk stays in
+//     shared memory; the K split fills one wave of one block per SM;
+//   * a pipelined bank stream (bank_loop): two shared-memory stages of 64
+//     rows x D filled by 16-byte cp.async (zero-fill past K, no division per
+//     copy), so the next tile's 66 KB are in flight while this one is
+//     computed; labels and validity come one tile ahead;
 //   * tensor cores at fp32 accuracy: mma.sync m16n8k8 TF32 in the 3xTF32
 //     split (x = hi + lo; hi.hi + hi.lo + lo.hi, fp32 accumulation), ~2^-19
 //     relative error per product at worst, within the rtol 1e-4 the plain
 //     version is held to (a single TF32 product, ~1e-3 relative before the
-//     1/tau = 14.3 scale and the exp, is not).  mma.sync reaches its rate
-//     only with many independent MMA chains per SM, so K1a gives each warp
-//     one 16 x 8 logits block (two at mc = 64), 4-28 warps a block, and
-//     keeps the three products in separate accumulators;
+//     1/tau = 14.3 scale and the exp, moves pass 1's ns past it).  mma.sync
+//     reaches its rate only with many independent MMA chains per SM, so K1a
+//     and K1b give each warp one 16 x 8 logits block (two at mc = 64), 4-28
+//     warps a block, and keep the three products in separate accumulators;
 //   * the epilogue in registers: masks, the online max and the rescaled
-//     exp-sum (K1a) or dl (K1c) act on the accumulator fragments; K1a merges
-//     lanes by shuffles and the four row groups in shared memory;
+//     exp-sum (K1a), the positive sums s1 and t (K1b) or dl (K1c) act on the
+//     accumulator fragments; K1a and K1b merge lanes by shuffles and the
+//     four row groups in shared memory;
 //   * K1c's second product on the same stage: dl / tau goes to shared memory
 //     as an MMA operand and dA^T += C_tile^T dl runs in 3xTF32 with the dA
 //     accumulators in registers across the block's K range (16 warps, one
 //     16-row block of dA^T each), so the bank is read once per backward; one
 //     [mc, D] partial per (chunk, split).
-// K1b keeps the first design of all three: fp32 FMA on the SIMT cores with
-// a 64x64 logits tile per 256-thread block, synchronous loads; its bound is
-// the same.
 //
 // Common to all three, against the TPU kernel's block structure:
 //   * the TPU runs a sequential grid over K carrying sums in VMEM scratch;
@@ -59,19 +58,23 @@
 // copies where D % 4 != 0).
 //
 // K1_PRODUCTS (3 unless set) is a diagnostic build switch for
-// tools/bench_k1_variants.py, which times K1a and K1c with 1 (hi.hi only: one
-// TF32 product, TF32 accuracy) and 0 (no products: the bank stream, labels and
-// epilogue on zero logits) to show what bounds them.  The port builds 3.
+// tools/bench_k1_variants.py, which times the three kernels with 1 (hi.hi
+// only: one TF32 product, TF32 accuracy) and 0 (no products: the bank stream,
+// labels and epilogue on zero logits) to show what bounds them.  The port
+// builds 3.
 //
 // Plain C interface (loaded with ctypes).  infonce_init() raises the
 // kernels' dynamic shared-memory limit once per device, before the first
 // launch.  Each entry point launches on the given stream, does not
 // synchronise and returns cudaGetLastError() after every launch (0 on
-// success).  Callers allocate every buffer.
+// success).  Callers allocate every buffer.  The cp.async copies and the
+// TF32 products are in tc_common.cuh, shared with K2.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "tc_common.cuh"
 
 #ifndef K1_PRODUCTS
 #define K1_PRODUCTS 3
@@ -79,90 +82,8 @@
 
 namespace {
 
-// K1b's SIMT tiling.
-constexpr int BM = 64;          // anchor rows per block
-constexpr int BN = 64;          // contrast rows per tile
-constexpr int TX = 16;          // threads along a tile's columns
-constexpr int TY = 16;          // threads along a tile's rows
-constexpr int NT = TX * TY;     // 256 threads
-constexpr int RM = BM / TY;     // 4 rows per thread: ty + TY*i
-constexpr int RN = BN / TX;     // 4 columns per thread: tx + TX*j
 constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
-
-// Copy rows [row0, row0+64) x D of a row-major [nrows, D] matrix into
-// shared memory with leading dimension ld (= D + 1, odd: conflict-free
-// column reads), zero-filling rows past the end.
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int row0, int nrows, int D, int ld) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    int r = idx / D, k = idx - r * D;
-    int g = row0 + r;
-    dst[r * ld + k] = g < nrows ? src[(size_t)g * D + k] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_labels(int* cl_s, int* cv_s, const int* __restrict__ c_l,
-                                            const unsigned char* __restrict__ c_v,
-                                            int col0, int K) {
-  for (int n = threadIdx.x; n < BN; n += NT) {
-    int g = col0 + n;
-    cl_s[n] = g < K ? c_l[g] : 0;
-    cv_s[n] = g < K ? (int)c_v[g] : 0;
-  }
-}
-
-// l[i][j] = As[ty+TY*i, :] . Cs[tx+TX*j, :] * inv_t
-__device__ __forceinline__ void tile_logits(const float* As, const float* Cs, int ld, int D,
-                                            int tx, int ty, float inv_t, float l[RM][RN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) l[i][j] = 0.f;
-  for (int k = 0; k < D; ++k) {
-    float a[RM], c[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = As[(ty + TY * i) * ld + k];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) c[j] = Cs[(tx + TX * j) * ld + k];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) l[i][j] = fmaf(a[i], c[j], l[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) l[i][j] *= inv_t;
-}
-
-// Sum over the 16 threads (one half-warp) that share a row.
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = TX / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-struct Smem {
-  float* As;
-  float* Cs;
-  int* cl_s;
-  int* cv_s;
-};
-
-__device__ __forceinline__ Smem carve(float* smem, int ld) {
-  Smem s;
-  s.As = smem;
-  s.Cs = s.As + BM * ld;
-  s.cl_s = reinterpret_cast<int*>(s.Cs + BN * ld);
-  s.cv_s = s.cl_s + BN;
-  return s;
-}
-
-size_t smem_bytes(int D) {
-  size_t ld = D + 1;
-  return (BM + BN) * ld * sizeof(float) + 2 * BN * sizeof(int);
-}
 
 __global__ void pass1_merge(const float* __restrict__ m_part, const float* __restrict__ ns_part,
                             const float* __restrict__ p_part, float* __restrict__ m,
@@ -181,67 +102,6 @@ __global__ void pass1_merge(const float* __restrict__ m_part, const float* __res
   p[r] = pp;
 }
 
-__global__ void __launch_bounds__(NT)
-pass2_tiles(const float* __restrict__ a, const int* __restrict__ a_l,
-            const float* __restrict__ c, const int* __restrict__ c_l,
-            const unsigned char* __restrict__ c_v, const float* __restrict__ m,
-            const float* __restrict__ ns, float* __restrict__ s1_part,
-            float* __restrict__ t_part, int M, int K, int D, int tiles_per_split,
-            float inv_t) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  Smem sm = carve(smem, ld);
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int row0 = blockIdx.x * BM, s = blockIdx.y;
-
-  load_rows(sm.As, a, row0, M, D, ld);
-  int al[RM];
-  float mr[RM], nsr[RM], s1[RM], tt[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    int r = row0 + ty + TY * i;
-    al[i] = r < M ? a_l[r] : 0;
-    mr[i] = r < M ? m[r] : 0.f;
-    nsr[i] = r < M ? ns[r] : 0.f;
-    s1[i] = 0.f;
-    tt[i] = 0.f;
-  }
-
-  const int n_tiles = (K + BN - 1) / BN;
-  const int t0 = s * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, n_tiles);
-  for (int t = t0; t < t1; ++t) {
-    __syncthreads();
-    load_rows(sm.Cs, c, t * BN, K, D, ld);
-    load_labels(sm.cl_s, sm.cv_s, c_l, c_v, t * BN, K);
-    __syncthreads();
-    float l[RM][RN];
-    tile_logits(sm.As, sm.Cs, ld, D, tx, ty, inv_t, l);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int n = tx + TX * j;
-        if (sm.cv_s[n] && sm.cl_s[n] == al[i]) {
-          const float sh = l[i][j] - mr[i];
-          const float denom = expf(sh) + nsr[i] + 1e-30f;
-          s1[i] += sh - logf(denom);
-          tt[i] += 1.f / denom;
-        }
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const float a1 = row_sum(s1[i]);
-    const float a2 = row_sum(tt[i]);
-    const int r = row0 + ty + TY * i;
-    if (tx == 0 && r < M) {
-      s1_part[(size_t)s * M + r] = a1;
-      t_part[(size_t)s * M + r] = a2;
-    }
-  }
-}
-
 __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out,
                            int n, int S) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -251,17 +111,14 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
   out[idx] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// K1a and K1c for Hopper: 3xTF32 tensor-core products over a cp.async ring.
-// ---------------------------------------------------------------------------
-
 constexpr int ROWS = 64;    // bank rows per tile: 4 MMA row blocks of 16
 constexpr int MAX_MC = 64;  // anchors per chunk: up to 8 MMA column blocks of 8
 constexpr int BWD_WARPS = 16;
 
-// K1a's warps for a chunk of 8 nb anchors: one per (16-row block, 8-anchor
-// block) up to nb = 7, so a warp's products form few dependent chains; at
-// nb = 8, 16 warps of two anchor blocks each (registers cap 1024 threads).
+// K1a's and K1b's warps for a chunk of 8 nb anchors: one per (16-row block,
+// 8-anchor block) up to nb = 7, so a warp's products form few dependent
+// chains; at nb = 8, 16 warps of two anchor blocks each (registers cap 1024
+// threads).
 __host__ __device__ constexpr int pass1_warps(int nb) { return nb <= 7 ? 4 * nb : 16; }
 
 // One block's shared memory, in 4-byte words.
@@ -282,56 +139,9 @@ __host__ __device__ inline Plan plan(int D, int mc, bool bwd) {
   size_t words = 2 * p.stage + (size_t)mc * p.ld  // two bank stages, the anchors
                  + 4 * ROWS                        // labels, validity: two slots each
                  + 5 * MAX_MC;                     // per anchor: label, m, ns, t, w
-  words += bwd ? (size_t)ROWS * p.ldp : 3 * 4 * MAX_MC;  // P, or pass 1's merge
+  words += bwd ? (size_t)ROWS * p.ldp : 3 * 4 * MAX_MC;  // P, or the passes' merge
   p.bytes = words * sizeof(float);
   return p;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Global -> shared copies that do not block; src_bytes = 0 reads nothing and
-// writes zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x = hi + lo: hi is x with the 13 low mantissa bits cleared (a TF32
-// value), lo = x - hi exactly.  The tensor cores read a TF32 operand's top
-// 19 bits, so lo enters the products truncated to TF32: |lo - tf32(lo)| <=
-// 2^-10 |lo| <= 2^-20 |x|.  Two integer/fp32 instructions, where cvt.rna
-// would take two conversions on the slower conversion pipe.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a b on one m16n8k8 tile, fp32 accumulation.  Fragments (g = lane / 4,
-// t = lane % 4): a = (g, t), (g+8, t), (g, t+4), (g+8, t+4); b = (t, g),
-// (t+4, g); d = (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 3xTF32: d += lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b); the lo lo term
@@ -443,6 +253,50 @@ __device__ __forceinline__ void logits_tile(const float* Cs, const float* As, in
     for (int q = 0; q < 4; ++q) acc[j][q] += hl[j][q] + lh[j][q];
 }
 
+// The bank loop of all three kernels.  Streams the block's bank tiles
+// [t0, t1) through the two stages (the next tile in flight, its labels one
+// tile ahead, while this one is computed), computes each tile's logits
+// fragments for the warp's row block rg and anchor blocks [jb, jb + nj), and
+// hands them to epi(acc, Cs, va, vb, la, lb): Cs is the tile's stage, va/la
+// and vb/lb the validity and label of the lane's bank rows 16 rg + g and
+// 16 rg + g + 8.  Every thread of the block calls it.
+template <int NJ, class Epi>
+__device__ __forceinline__ void bank_loop(float* stages, const float* As, int* cl_s, int* cv_s,
+                                          const Plan& pl, const BankStream& bank,
+                                          const int* __restrict__ c_l,
+                                          const unsigned char* __restrict__ c_v, int K, int t0,
+                                          int t1, int rg, int jb, int nj, Epi&& epi) {
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (t0 < t1) {
+    bank.load(stages, t0 * ROWS);
+    cp_async_commit();
+    if (tid < ROWS) tile_labels(c_l, c_v, t0 * ROWS, K, cl_s[tid], cv_s[tid]);
+  }
+  for (int it = t0; it < t1; ++it) {
+    const int b = (it - t0) & 1;
+    const float* Cs = stages + b * pl.stage;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; stage and labels of tile it-1 are consumed
+    const bool more = it + 1 < t1;
+    int nl = 0, nv = 0;
+    if (more) {  // tile it+1 streams in while this one is computed
+      bank.load(stages + (b ^ 1) * pl.stage, (it + 1) * ROWS);
+      cp_async_commit();
+      if (tid < ROWS) tile_labels(c_l, c_v, (it + 1) * ROWS, K, nl, nv);
+    }
+    float acc[NJ][4];
+    logits_tile<NJ>(Cs, As, pl.ld, pl.dp, rg, jb, nj, g, t, acc);
+    const int ra = rg * 16 + g;
+    const int* cl = cl_s + b * ROWS;
+    const int* cv = cv_s + b * ROWS;
+    epi(acc, Cs, (bool)cv[ra], (bool)cv[ra + 8], cl[ra], cl[ra + 8]);
+    if (more && tid < ROWS) {
+      cl_s[(b ^ 1) * ROWS + tid] = nl;
+      cv_s[(b ^ 1) * ROWS + tid] = nv;
+    }
+  }
+}
+
 __device__ __forceinline__ void lse_merge(float& m, float& ns, float& p, float om, float ons,
                                           float op) {
   const float nm = fmaxf(m, om);
@@ -481,12 +335,6 @@ pass1_tc(const float* __restrict__ a, const int* __restrict__ a_l,
 
   load_anchors(As, stages, a, c0, M, D, MC, pl.ld);
   if (tid < MC) al_s[tid] = c0 + tid < M ? a_l[c0 + tid] : 0;
-  const BankStream bank(c, K, D, pl.ld, vec);
-  if (t0 < t1) {
-    bank.load(stages, t0 * ROWS);
-    cp_async_commit();
-    if (tid < ROWS) tile_labels(c_l, c_v, t0 * ROWS, K, cl_s[tid], cv_s[tid]);
-  }
 
   float m_run[NJ][2], ns_run[NJ][2], p_run[NJ][2];
 #pragma unroll
@@ -498,24 +346,9 @@ pass1_tc(const float* __restrict__ a, const int* __restrict__ a_l,
       p_run[j][e] = 0.f;
     }
 
-  for (int it = t0; it < t1; ++it) {
-    const int b = (it - t0) & 1;
-    cp_async_wait_all();
-    __syncthreads();  // tile it has landed; stage and labels of tile it-1 are consumed
-    const bool more = it + 1 < t1;
-    int nl = 0, nv = 0;
-    if (more) {  // tile it+1 streams in while this one is computed
-      bank.load(stages + (b ^ 1) * pl.stage, (it + 1) * ROWS);
-      cp_async_commit();
-      if (tid < ROWS) tile_labels(c_l, c_v, (it + 1) * ROWS, K, nl, nv);
-    }
-    float acc[NJ][4];
-    logits_tile<NJ>(stages + b * pl.stage, As, pl.ld, pl.dp, rg, jb, nj, g, t, acc);
-    const int ra = rg * 16 + g;
-    const int* cl = cl_s + b * ROWS;
-    const int* cv = cv_s + b * ROWS;
-    const bool va = cv[ra], vb = cv[ra + 8];
-    const int la = cl[ra], lb = cl[ra + 8];
+  bank_loop<NJ>(stages, As, cl_s, cv_s, pl, BankStream(c, K, D, pl.ld, vec), c_l, c_v, K, t0,
+                t1, rg, jb, nj,
+                [&](const float (&acc)[NJ][4], const float*, bool va, bool vb, int la, int lb) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       if (j >= nj) continue;
@@ -540,11 +373,7 @@ pass1_tc(const float* __restrict__ a, const int* __restrict__ a_l,
         p_run[j][e] += pc;
       }
     }
-    if (more && tid < ROWS) {
-      cl_s[(b ^ 1) * ROWS + tid] = nl;
-      cv_s[(b ^ 1) * ROWS + tid] = nv;
-    }
-  }
+  });
 
   // Merge the 8 lanes (g) that share a column, then the 4 row groups in order.
 #pragma unroll
@@ -580,6 +409,110 @@ pass1_tc(const float* __restrict__ a, const int* __restrict__ a_l,
     m_part[(size_t)s * M + c0 + tid] = mm;
     ns_part[(size_t)s * M + c0 + tid] = nn;
     p_part[(size_t)s * M + c0 + tid] = pp;
+  }
+}
+
+// K1b.  Blocks, warps and the bank loop of K1a; each lane sums s1 and t of
+// its columns over the valid positives of its two rows of every tile, with
+// the anchor's m and ns in registers.  Writes part[s][0][r] = s1 and
+// part[s][1][r] = t of split s, so one sum_splits merges both.
+template <int NB>
+__global__ void __launch_bounds__(pass1_warps(NB) * 32, 1)
+pass2_tc(const float* __restrict__ a, const int* __restrict__ a_l,
+         const float* __restrict__ c, const int* __restrict__ c_l,
+         const unsigned char* __restrict__ c_v, const float* __restrict__ m,
+         const float* __restrict__ ns, float* __restrict__ part, int M, int K, int D,
+         int tiles_per_split, float inv_t, int vec) {
+  constexpr int CG = pass1_warps(NB) / 4, MC = NB * 8, NJ = (NB + CG - 1) / CG;
+  extern __shared__ float smem[];
+  const Plan pl = plan(D, MC, false);
+  float* stages = smem;
+  float* As = stages + 2 * pl.stage;
+  int* cl_s = reinterpret_cast<int*>(As + MC * pl.ld);  // [2][ROWS]
+  int* cv_s = cl_s + 2 * ROWS;                           // [2][ROWS]
+  int* al_s = cv_s + 2 * ROWS;                           // [MC] each: label, m, ns
+  float* m_s = reinterpret_cast<float*>(al_s + MAX_MC);
+  float* ns_s = m_s + MAX_MC;
+  float* red = reinterpret_cast<float*>(al_s + 5 * MAX_MC);  // [2][4][MC]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, jb = (warp >> 2) * NJ, nj = min(NJ, NB - jb);
+  const int c0 = blockIdx.x * MC, s = blockIdx.y;
+  const int n_tiles = (K + ROWS - 1) / ROWS;
+  const int t0 = s * tiles_per_split, t1 = min(t0 + tiles_per_split, n_tiles);
+
+  load_anchors(As, stages, a, c0, M, D, MC, pl.ld);
+  if (tid < MC) {
+    const bool in = c0 + tid < M;
+    al_s[tid] = in ? a_l[c0 + tid] : 0;
+    m_s[tid] = in ? m[c0 + tid] : 0.f;
+    ns_s[tid] = in ? ns[c0 + tid] : 0.f;
+  }
+  __syncthreads();  // the epilogue reads the anchors' rows below before the loop's first sync
+  int al[NJ][2];
+  float mr[NJ][2], nsr[NJ][2], s1[NJ][2], tt[NJ][2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = min(jb + j, NB - 1) * 8 + 2 * t + e;
+      al[j][e] = al_s[col];
+      mr[j][e] = m_s[col];
+      nsr[j][e] = ns_s[col];
+      s1[j][e] = tt[j][e] = 0.f;
+    }
+
+  bank_loop<NJ>(stages, As, cl_s, cv_s, pl, BankStream(c, K, D, pl.ld, vec), c_l, c_v, K, t0,
+                t1, rg, jb, nj,
+                [&](const float (&acc)[NJ][4], const float*, bool va, bool vb, int la, int lb) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!(h ? vb && lb == al[j][e] : va && la == al[j][e])) continue;
+          const float sh = acc[j][2 * h + e] * inv_t - mr[j][e];
+          const float denom = expf(sh) + nsr[j][e] + 1e-30f;
+          s1[j][e] += sh - logf(denom);
+          tt[j][e] += 1.f / denom;
+        }
+      }
+    }
+  });
+
+  // Sum the 8 lanes (g) that share a column, then the 4 row groups in order.
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], off);
+        tt[j][e] += __shfl_xor_sync(0xffffffffu, tt[j][e], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = (jb + j) * 8 + 2 * t + e;
+        red[rg * MC + col] = s1[j][e];
+        red[(4 + rg) * MC + col] = tt[j][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < MC && c0 + tid < M) {
+    float a1 = red[tid], a2 = red[4 * MC + tid];
+    for (int q = 1; q < 4; ++q) {
+      a1 += red[q * MC + tid];
+      a2 += red[(4 + q) * MC + tid];
+    }
+    part[(size_t)(2 * s) * M + c0 + tid] = a1;
+    part[(size_t)(2 * s + 1) * M + c0 + tid] = a2;
   }
 }
 
@@ -629,42 +562,24 @@ bwd_tc(const float* __restrict__ a, const int* __restrict__ a_l,
     t_s[tid] = in ? t_in[r] : 0.f;
     w_s[tid] = in ? w_in[r] : 0.f;
   }
-  const BankStream bank(c, K, D, ld, vec);
-  if (t0 < t1) {
-    bank.load(stages, t0 * ROWS);
-    cp_async_commit();
-    if (tid < ROWS) tile_labels(c_l, c_v, t0 * ROWS, K, cl_s[tid], cv_s[tid]);
-  }
 
   float dacc[NB][4];
 #pragma unroll
   for (int j = 0; j < NB; ++j) dacc[j][0] = dacc[j][1] = dacc[j][2] = dacc[j][3] = 0.f;
 
-  for (int it = t0; it < t1; ++it) {
-    const int b = (it - t0) & 1;
-    const float* Cs = stages + b * pl.stage;
-    cp_async_wait_all();
-    __syncthreads();  // tile it has landed; tile it-1's stage, labels and P are consumed
-    const bool more = it + 1 < t1;
-    int nl = 0, nv = 0;
-    if (more) {
-      bank.load(stages + (b ^ 1) * pl.stage, (it + 1) * ROWS);
-      cp_async_commit();
-      if (tid < ROWS) tile_labels(c_l, c_v, (it + 1) * ROWS, K, nl, nv);
-    }
-    float acc[NJ][4];
-    logits_tile<NJ>(Cs, As, ld, pl.dp, rg, jb, nj, g, t, acc);
+  bank_loop<NJ>(stages, As, cl_s, cv_s, pl, BankStream(c, K, D, ld, vec), c_l, c_v, K, t0, t1,
+                rg, jb, nj,
+                [&](const float (&acc)[NJ][4], const float* Cs, bool va, bool vb, int la,
+                    int lb) {
     const int ra = rg * 16 + g;
-    const int* cl = cl_s + b * ROWS;
-    const int* cv = cv_s + b * ROWS;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       if (j >= nj) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = ra + 8 * h;
-        const bool valid = cv[row];
-        const int lab = cl[row];
+        const bool valid = h ? vb : va;
+        const int lab = h ? lb : la;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = (jb + j) * 8 + 2 * t + e;
@@ -678,16 +593,12 @@ bwd_tc(const float* __restrict__ a, const int* __restrict__ a_l,
         }
       }
     }
-    if (more && tid < ROWS) {
-      cl_s[(b ^ 1) * ROWS + tid] = nl;
-      cv_s[(b ^ 1) * ROWS + tid] = nv;
-    }
     __syncthreads();  // P is complete
 
     // dA^T[d, j] += sum_n C[n, d] P[n, j].  The MMA's k index t runs over
     // tile row 2t and k index t+4 over row 2t+1 (a permutation of the sum):
     // with ld and ldp = 4 mod 8 these loads are conflict-free.
-    if (warp >= nd) continue;  // D < 256: fewer row blocks than warps
+    if (warp >= nd) return;  // D < 256: fewer row blocks than warps
 #pragma unroll 2
     for (int n0 = 0; n0 < ROWS; n0 += 8) {
       const float* pr = P + (n0 + 2 * t) * ldp + g;
@@ -706,7 +617,7 @@ bwd_tc(const float* __restrict__ a, const int* __restrict__ a_l,
 #pragma unroll
       for (int j = 0; j < NB; ++j) mma_3xtf32(dacc[j], ah, al, bh[j], bl[j]);
     }
-  }
+  });
 
   if (warp >= nd) return;
 #pragma unroll
@@ -730,8 +641,8 @@ int set_smem(const void* fn, size_t bytes) {
                                    (int)bytes);
 }
 
-// The anchor chunking of K1a and K1c: ceil(M / MAX_MC) chunks of mc columns,
-// mc a multiple of 8 (the MMA's column side).
+// The anchor chunking of all three kernels: ceil(M / MAX_MC) chunks of mc
+// columns, mc a multiple of 8 (the MMA's column side).
 int anchor_chunks(int M, int* mc) {
   const int n = (M + MAX_MC - 1) / MAX_MC;
   *mc = ((M + n - 1) / n + 7) / 8 * 8;
@@ -747,6 +658,7 @@ template <int NB>
 int init_tc() {
   int err;
   if ((err = set_smem((const void*)pass1_tc<NB>, plan(MAX_D, NB * 8, false).bytes))) return err;
+  if ((err = set_smem((const void*)pass2_tc<NB>, plan(MAX_D, NB * 8, false).bytes))) return err;
   return set_smem((const void*)bwd_tc<NB>, plan(MAX_D, NB * 8, true).bytes);
 }
 
@@ -761,7 +673,6 @@ extern "C" {
 // current device.  0 on success.
 int infonce_init() {
   int err;
-  if ((err = set_smem((const void*)pass2_tiles, smem_bytes(MAX_D)))) return err;
 #define K1_INIT(nb) \
   if ((err = init_tc<nb>())) return err;
   K1_CHUNK_WIDTHS(K1_INIT)
@@ -801,24 +712,30 @@ int infonce_pass1(const float* a, const int* a_l, const float* c, const int* c_l
   return (int)cudaGetLastError();
 }
 
-// K1b.  Partials s1_part/t_part are [S, M]; outputs s1/t are [M].
+// K1b.  Partials part are [S, 2, M]; output out is [2, M]: s1, then t.
 int infonce_pass2(const float* a, const int* a_l, const float* c, const int* c_l,
-                  const unsigned char* c_v, const float* m, const float* ns,
-                  float* s1_part, float* t_part, float* s1, float* t, int M, int K, int D,
-                  int S, float inv_t, void* stream) {
+                  const unsigned char* c_v, const float* m, const float* ns, float* part,
+                  float* out, int M, int K, int D, int S, float inv_t, void* stream) {
   int err = check_args(M, K, D, S);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = smem_bytes(D);
-  const int n_tiles = (K + BN - 1) / BN;
+  int mc;
+  const dim3 grid(anchor_chunks(M, &mc), S);
+  const size_t bytes = plan(D, mc, false).bytes;
+  const int n_tiles = (K + ROWS - 1) / ROWS;
   const int tps = (n_tiles + S - 1) / S;
-  dim3 grid((M + BM - 1) / BM, S);
-  pass2_tiles<<<grid, NT, bytes, st>>>(a, a_l, c, c_l, c_v, m, ns, s1_part, t_part, M, K, D,
-                                       tps, inv_t);
+  const int vec = bank_vec(c, D);
+  switch (mc / 8) {
+#define K1_PASS2(nb)                                                                   \
+  case nb:                                                                             \
+    pass2_tc<nb><<<grid, pass1_warps(nb) * 32, bytes, st>>>(                          \
+        a, a_l, c, c_l, c_v, m, ns, part, M, K, D, tps, inv_t, vec);                   \
+    break;
+    K1_CHUNK_WIDTHS(K1_PASS2)
+#undef K1_PASS2
+  }
   if ((err = (int)cudaGetLastError())) return err;
-  sum_splits<<<(M + 255) / 256, 256, 0, st>>>(s1_part, s1, M, S);
-  if ((err = (int)cudaGetLastError())) return err;
-  sum_splits<<<(M + 255) / 256, 256, 0, st>>>(t_part, t, M, S);
+  sum_splits<<<(2 * M + 255) / 256, 256, 0, st>>>(part, out, 2 * M, S);
   return (int)cudaGetLastError();
 }
 

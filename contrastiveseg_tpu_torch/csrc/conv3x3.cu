@@ -9,11 +9,12 @@
 //       = sum over (batch, pixel) of x[ci][pixel + (ky-1, kx-1)] * g[co][pixel].
 // Layouts are the port's own: x, y, g are NCHW, w and dW OIHW [Co, C, 3, 3].
 //
-// Bound: at HRNet-W48 branch 0 (B=2, C=Co=48, 128x256) each launch is 2*9*C*Co*B*H*W =
-// 2.72 GFLOP against ~25 MB, ~100 flop/byte, so compute-bound on the fp32 SIMT cores
-// (67 TFLOP/s: 41 us).  This first version is fp32 FMA with shared-memory tiles and
-// register blocking; TF32/bf16 wgmma is the next lever and a numerics decision (the JAX
-// path is fp32 HIGHEST).
+// Bound on the H100: at HRNet-W48 branch 0 (B=2, C=Co=48, 128x256) each launch is
+// 2*9*C*Co*B*H*W = 2.72 GFLOP against ~25 MB, ~100 flop/byte, so the operations: fp32
+// products at their fastest fp32-accurate rate, three TF32 tensor-core products each
+// (3xTF32, 495/3 TFLOP/s: 16.5 us), above the bytes (7.5 us at 3.35 TB/s).  The
+// forward (K2a) is still fp32 FMA on the SIMT cores with shared-memory tiles and
+// register blocking; dW (K2b) runs on the tensor cores (below).
 //
 // Design, against the TPU kernels:
 //   * halos are masked in the kernel: the tile loader writes zeros outside the image, so
@@ -24,17 +25,36 @@
 //     256 threads = 64 pixel threads x 4 channel groups; each thread owns 8 pixels (rows
 //     2 apart at one column) x QC channels in registers.  The input channels stream
 //     through shared memory 8 at a time, with their halo and their [8][9][<=64] weights;
+//   * dW is the GEMM dW[Co, 9C] = G[Co, P] X^[P, 9C] over the P = B*H*W pixels, X^ the
+//     im2col of x, as an implicit GEMM on the tensor cores: 3xTF32 mma.sync m16n8k8
+//     (x = hi + lo; hi.hi + hi.lo + lo.hi in three accumulators), g the A operand (16
+//     output channels x 8 pixels), B read straight from haloed x rows at each tap's
+//     offset, so no im2col and no padded x exist in device memory.  A block takes 16
+//     output channels and a run of 128-pixel row segments down an image column; x rows
+//     sit in a ring of row slots, so a segment loads one new x row and one g row
+//     through a two-stage cp.async ring while the previous segment is computed.  The
+//     output [16, 9C] is cut into 9*ceil(C/8) MMA tiles over 16 warps (at most 5 a
+//     warp: 124 registers at C = 64, no spills).  The hi.hi products are summed one
+//     segment at a time and then added in fp32: run over a whole split, the tensor
+//     cores' own accumulation drifted from fp64 by 7x (batch 2) to 16x (batch 8)
+//     cuDNN's fp32 error on an H100 (tools/bench_k2_variants.py, K2_FLUSH=0);
 //   * dW has no ordered grid on this card (the TPU kernel accumulates one VMEM block over
-//     a sequential grid).  Each block sums a contiguous range of row segments into
-//     registers (one thread = one input channel x 9 taps x QC output channels), writes a
-//     partial [Co, C, 9], and dw_sum_splits adds the partials in split order: dW is
-//     deterministic, with no float atomics.
+//     a sequential grid): split-K over pixel ranges, sized so that (splits x channel
+//     blocks) fills the SMs about once; each block writes a partial [its Co, C, 9], and
+//     dw_sum_splits adds the partials in split order: dW is deterministic, with no float
+//     atomics.
 //
-// Plain C interface (loaded with ctypes).  Each entry point launches on the given stream,
-// does not synchronise and returns cudaGetLastError() (0 on success).  Callers allocate
-// every buffer.
+// Plain C interface (loaded with ctypes).  conv3x3_init() raises dW's dynamic
+// shared-memory limit once per device, before the first launch.  Each entry point
+// launches on the given stream, does not synchronise and returns cudaGetLastError() (0 on
+// success).  Callers allocate every buffer.  The cp.async copies and the TF32 products
+// are in tc_common.cuh, shared with K1.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -48,8 +68,39 @@ constexpr int CK = 8;            // forward: input channels per shared-memory ch
 constexpr int XH = TH + 2;       // haloed input tile
 constexpr int XW = TW + 2;
 constexpr int MAX_COP = 64;      // output channels per block, at most
-constexpr int DW_TW = 32;        // dW: pixels per row segment
-constexpr int DW_MAX_CI = 64;    // dW: input channels per block, at most
+
+// K2b's diagnostic build switches, for tools/bench_k2_variants.py; the port builds the
+// defaults.  K2_PRODUCTS: TF32 products per fp32 product (3; 1 = hi.hi only, TF32
+// accuracy; 0 = none).  K2_NO_LOADS: skip the segment loads (the products on whatever
+// shared memory holds).  K2_FLUSH=0: the hi.hi accumulator runs over the whole split.
+#ifndef K2_PRODUCTS
+#define K2_PRODUCTS 3
+#endif
+#ifndef K2_FLUSH
+#define K2_FLUSH 1
+#endif
+
+constexpr int DW_SW = 128;       // dW: pixels per row segment, 16 MMA k-steps
+constexpr int DW_LOG_SW = 7;
+constexpr int DW_CO = 16;        // dW: output channels per block, the MMA's row side
+constexpr int DW_WARPS = 16;     // dW: warps per block
+constexpr int DW_UNROLL = 8;     // dW: k-steps unrolled
+constexpr int DW_MAX_C = 64;     // dW: input channels, at most (8 MMA column blocks a tap)
+constexpr int DW_X0 = 4;         // dW: x tile column of pixel w0 (16-byte aligned)
+// Row strides of dW's x and g tiles, in words: DW_LDX = 12 and DW_LDG = 4 mod 32, so
+// the B fragment loads (8 channel rows x 4 pixels) and the A fragment loads (8 output
+// channel rows x 4 pixels) hit 32 distinct banks.
+constexpr int DW_LDX = DW_SW + 12;  // >= DW_X0 + DW_SW + 1, the right halo
+constexpr int DW_LDG = DW_SW + 4;
+constexpr int DW_STAGES = 2;     // dW: segments in the cp.async ring
+constexpr int DW_SLOTS = 3 * DW_STAGES;   // dW: x row slots, enough for every segment's 3
+
+// dW's shared memory for 8 ncb input channels: DW_SLOTS x rows of [8 ncb][DW_LDX], then
+// DW_STAGES g tiles of [DW_CO][DW_LDG]; 231,936 bytes at ncb = 8, within the 232,448 a
+// block may take.
+__host__ __device__ constexpr int dw_smem_bytes(int ncb) {
+  return (DW_SLOTS * 8 * ncb * DW_LDX + DW_STAGES * DW_CO * DW_LDG) * (int)sizeof(float);
+}
 
 // Output-channel registers per thread: ceil(min(Co, 64) / 4), rounded up to 4, 8, 12, 16.
 int qc_for(int co) {
@@ -146,82 +197,179 @@ __global__ void __launch_bounds__(NT) conv3x3_fwd_tiles(
   }
 }
 
-// One block: input channels [ci0, ci0 + blockDim/4) x output channels [co0, co0 + 4*QC),
-// summed over row segments [u0, u1) of DW_TW pixels.  Thread: cg = tid % 4, ci = tid / 4.
-template <int QC>
-__global__ void __launch_bounds__(NCG * DW_MAX_CI) conv3x3_dw_tiles(
-    const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ part, int B,
-    int C, int Co, int H, int W, int units_per_split) {
-  constexpr int COP = NCG * QC;
-  constexpr int XW2 = DW_TW + 2;
-  __shared__ float xs[DW_MAX_CI][3][XW2];
-  __shared__ __align__(16) float gs[DW_TW][MAX_COP];
+// dW's row segments in order u = (b * nwc + wc) * H + h: DW_SW pixels [w0, w0 + DW_SW)
+// of image row h, w0 = DW_SW wc.  A split walks down image columns, so segment u shares the x
+// rows h - 1 and h with segment u - 1.  The x rows live in a ring of DW_SLOTS row slots:
+// segment u's rows h - 1, h, h + 1 are the virtual rows vb(u) .. vb(u) + 2, in slot
+// (virtual row) % DW_SLOTS, where vb advances by 1 a segment and by 3 where a new column
+// starts.  Loading DW_STAGES - 1 segments ahead touches at most 3 DW_STAGES virtual rows
+// past the segment being computed, so no slot in use is overwritten.
+//
+// load(u) copies with cp.async what segment u adds: x row h + 1 (all three rows at the
+// split's first segment and at a column's first), each over columns [w0 - 1, w0 + DW_SW]
+// for the 8 NCB channels, and g row h of the block's 16 output channels into g stage
+// (u - u0) % DW_STAGES.  Everything outside the image, past C or past Co is zero-filled,
+// so no padded copy of x exists.  16-byte copies where W % 4 == 0 and x and g are 16-byte
+// aligned (a 4-pixel group is then wholly inside or outside the image), else 4-byte.
+template <int NCB>
+struct SegmentLoader {
+  static constexpr int CH = 8 * NCB, SLOT = CH * DW_LDX;
+  const float* x;
+  const float* g;
+  float* xring;
+  float* gring;
+  int C, Co, H, W, nwc, co0, u0, shift;  // 2^shift copies per row
 
-  const int nthreads = blockDim.x;
-  const int ckw = nthreads / NCG;
-  const int tid = threadIdx.x;
-  const int cg = tid % NCG;
-  const int ci = tid / NCG;
-  const int s = blockIdx.x;
-  const int ci0 = blockIdx.y * ckw;
-  const int co0 = blockIdx.z * COP;
-  const int nwc = (W + DW_TW - 1) / DW_TW;
-  const int n_units = B * H * nwc;
-  const int u0 = s * units_per_split;
-  const int u1 = min(n_units, u0 + units_per_split);
+  __device__ int vbase(int u) const { return u - u0 + 2 * (u / H - u0 / H); }
 
-  float acc[9][QC];
+  __device__ void load(int u) const {
+#ifdef K2_NO_LOADS
+    return;
+#endif
+    const int col = u / H, h = u - col * H, b = col / nwc, w0 = (col - b * nwc) * DW_SW;
+    const int first = (u == u0 || h == 0) ? 0 : 2, vb = vbase(u);
+    const int xrows = (3 - first) * CH;
+    const int width = DW_SW >> shift, per = 1 << shift;
+    float* gs = gring + (u - u0) % DW_STAGES * DW_CO * DW_LDG;
+    for (int i = threadIdx.x; i < (xrows + DW_CO) << shift; i += blockDim.x) {
+      const int r = i >> shift, w = w0 + (i & (per - 1)) * width;
+      const float* src = x;
+      float* dst;
+      bool ok;
+      if (r < xrows) {
+        const int k = r / CH, ci = r - k * CH, ky = first + k, gh = h + ky - 1;
+        ok = ci < C && gh >= 0 && gh < H && w < W;
+        if (ok) src = x + (((size_t)b * C + ci) * H + gh) * W + w;
+        dst = xring + (vb + ky) % DW_SLOTS * SLOT + ci * DW_LDX + DW_X0 + (w - w0);
+      } else {
+        const int co = co0 + r - xrows;
+        ok = co < Co && w < W;
+        if (ok) src = g + (((size_t)b * Co + co) * H + h) * W + w;
+        dst = gs + (r - xrows) * DW_LDG + (w - w0);
+      }
+      if (width == 4) cp_async16(dst, src, ok ? 16 : 0);
+      else cp_async4(dst, src, ok ? 4 : 0);
+    }
+    for (int i = threadIdx.x; i < 2 * xrows; i += blockDim.x) {  // the halo columns
+      const int r = i >> 1, k = r / CH, ci = r - k * CH, ky = first + k, gh = h + ky - 1;
+      const int w = (i & 1) ? w0 + DW_SW : w0 - 1;
+      const bool ok = ci < C && gh >= 0 && gh < H && w >= 0 && w < W;
+      const float* src = ok ? x + (((size_t)b * C + ci) * H + gh) * W + w : x;
+      cp_async4(xring + (vb + ky) % DW_SLOTS * SLOT + ci * DW_LDX + DW_X0 + (w - w0), src,
+                ok ? 4 : 0);
+    }
+  }
+};
+
+// K2b as an implicit GEMM on the tensor cores: dW[co, (ky, kx, ci)] =
+// sum_p g[co, p] x^[p, (ky, kx, ci)] with x^ the im2col of x, never formed:
+// B fragments are read from the haloed x rows at the tap's offset.  Block (split s,
+// output channels [16 y, 16 y + 16)) sums the row segments [s ups, (s + 1) ups) through
+// a ring of DW_STAGES cp.async stages (the next segment in flight while one is
+// computed).  Its output [16, 9 C] is 9 NCB MMA tiles of 16 x 8 (one tap, 8 input
+// channels each); tile i goes to warp i % DW_WARPS, so a warp holds at most NJ tiles, in
+// 3xTF32 with the three products in separate accumulators.  The hi.hi accumulator runs
+// over one segment (DW_SW pixels) and is then added to an fp32 total: the tensor cores' own
+// accumulation, run over a whole split, strays from fp32 sums by an error that grows
+// with the chain.  The block writes its partial [Co rows of its own, C, 9] of split s.
+template <int NCB>
+__global__ void __launch_bounds__(DW_WARPS * 32, 1)
+conv3x3_dw_tc(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ part,
+              int B, int C, int Co, int H, int W, int units_per_split, int vec) {
+  using Loader = SegmentLoader<NCB>;
+  constexpr int NTILE = 9 * NCB, NJ = (NTILE + DW_WARPS - 1) / DW_WARPS, NS = DW_STAGES;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
+  const int s = blockIdx.x, co0 = blockIdx.y * DW_CO;
+  const int n_units = B * H * ((W + DW_SW - 1) / DW_SW);
+  const int u0 = s * units_per_split, u1 = min(n_units, u0 + units_per_split);
+  float* gring = smem + DW_SLOTS * Loader::SLOT;
+  const Loader loader{x, g, smem, gring, C, Co, H, W, (W + DW_SW - 1) / DW_SW, co0, u0,
+                      vec ? DW_LOG_SW - 2 : DW_LOG_SW};
+
+  // Tile j of this warp: tap (ky, kx) and input-channel block cb; its B fragment (k =
+  // pixel t or t + 4, n = channel gq) starts at xoff[j] in the slot of x row ky.
+  int xoff[NJ], kyj[NJ];
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
+  for (int j = 0; j < NJ; ++j) {
+    const int i = min(j * DW_WARPS + warp, NTILE - 1), tap = i / NCB, cb = i - tap * NCB;
+    kyj[j] = tap / 3;
+    xoff[j] = (8 * cb + gq) * DW_LDX + DW_X0 - 1 + tap - 3 * kyj[j] + t;
+  }
+  const int nj = (NTILE - warp + DW_WARPS - 1) / DW_WARPS;
+  float tot[NJ][4], hl[NJ][4], lh[NJ][4];
 #pragma unroll
-    for (int q = 0; q < QC; ++q) acc[t][q] = 0.f;
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tot[j][q] = hl[j][q] = lh[j][q] = 0.f;
 
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) {
+    if (u0 + k < u1) loader.load(u0 + k);
+    cp_async_commit();
+  }
   for (int u = u0; u < u1; ++u) {
-    const int b = u / (H * nwc);
-    const int h = (u / nwc) % H;
-    const int w0 = (u % nwc) * DW_TW;
-    __syncthreads();
-    for (int i = tid; i < ckw * 3 * XW2; i += nthreads) {
-      const int c = i / (3 * XW2), r = (i / XW2) % 3, q = i % XW2;
-      const int gc = ci0 + c, gh = h - 1 + r, gw = w0 - 1 + q;
-      float v = 0.f;
-      if (gc < C && gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = x[(((size_t)b * C + gc) * H + gh) * W + gw];
-      xs[c][r][q] = v;
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // segment u has landed; segment u - 1 is consumed
+    if (u + NS - 1 < u1) loader.load(u + NS - 1);
+    cp_async_commit();
+    const int vb = loader.vbase(u) % DW_SLOTS;
+    int xb[NJ];  // tile j's B fragments at smem[xb[j] + k0], smem[xb[j] + k0 + 4]
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int slot = vb + kyj[j];
+      xb[j] = (slot < DW_SLOTS ? slot : slot - DW_SLOTS) * Loader::SLOT + xoff[j];
     }
-    for (int i = tid; i < COP * DW_TW; i += nthreads) {
-      const int o = i / DW_TW, px = i % DW_TW;
-      const int go = co0 + o, gw = w0 + px;
-      float v = 0.f;
-      if (go < Co && gw < W) v = g[(((size_t)b * Co + go) * H + h) * W + gw];
-      gs[px][o] = v;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int px = 0; px < DW_TW; ++px) {
-      float gv[QC];
-      load_q<QC>(&gs[px][cg * QC], gv);
+    const float* gr = gring + (u - u0) % NS * DW_CO * DW_LDG + gq * DW_LDG + t;
+    float acc[NJ][4];
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float xv = xs[ci][ky][px + kx];
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll DW_UNROLL
+    for (int k0 = 0; k0 < DW_SW; k0 += 8) {
+      unsigned ah[4], al[4];
+      split_tf32(gr[k0], ah[0], al[0]);
+      split_tf32(gr[k0 + 8 * DW_LDG], ah[1], al[1]);
+      split_tf32(gr[k0 + 4], ah[2], al[2]);
+      split_tf32(gr[k0 + 8 * DW_LDG + 4], ah[3], al[3]);
 #pragma unroll
-          for (int q = 0; q < QC; ++q) acc[3 * ky + kx][q] = fmaf(xv, gv[q], acc[3 * ky + kx][q]);
+      for (int j = 0; j < NJ; ++j) {
+        if (j < nj) {
+          unsigned bh[2], bl[2];
+          split_tf32(smem[xb[j] + k0], bh[0], bl[0]);
+          split_tf32(smem[xb[j] + k0 + 4], bh[1], bl[1]);
+          if (K2_PRODUCTS >= 3) {
+            mma_tf32(lh[j], al, bh[0], bh[1]);
+            mma_tf32(hl[j], ah, bl[0], bl[1]);
+          }
+          if (K2_PRODUCTS >= 1) mma_tf32(K2_FLUSH ? acc[j] : tot[j], ah, bh[0], bh[1]);
         }
       }
     }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tot[j][q] += acc[j][q];
   }
 
-  const int gci = ci0 + ci;
-  if (gci >= C) return;
   float* dst = part + (size_t)s * Co * C * 9;
 #pragma unroll
-  for (int q = 0; q < QC; ++q) {
-    const int o = co0 + cg * QC + q;
-    if (o >= Co) continue;
+  for (int j = 0; j < NJ; ++j) {
+    if (j >= nj) continue;
+    const int i = j * DW_WARPS + warp, tap = i / NCB, cb = i - tap * NCB;
 #pragma unroll
-    for (int t = 0; t < 9; ++t) dst[((size_t)o * C + gci) * 9 + t] = acc[t][q];
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + gq + 8 * h;
+      if (co >= Co) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ci = 8 * cb + 2 * t + e;
+        if (ci < C)
+          dst[((size_t)co * C + ci) * 9 + tap] =
+              tot[j][2 * h + e] + (hl[j][2 * h + e] + lh[j][2 * h + e]);
+      }
+    }
   }
 }
 
@@ -238,6 +386,9 @@ __global__ void dw_sum_splits(const float* __restrict__ part, float* __restrict_
 int bad_shape(int B, int C, int Co, int H, int W) {
   return B <= 0 || C <= 0 || Co <= 0 || H <= 0 || W <= 0;
 }
+
+// One case per count of 8-channel input blocks of dW.
+#define DW_CHANNEL_BLOCKS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 
 }  // namespace
 
@@ -264,25 +415,41 @@ int conv3x3_fwd(const float* x, const float* w, float* y, int B, int C, int Co, 
   return (int)cudaGetLastError();
 }
 
+// Lets conv3x3_dw_tc take the shared memory of its two stages, on the current device.
+int conv3x3_init() {
+  int err = 0;
+#define K2_INIT(ncb)                                                                     \
+  if (!err)                                                                              \
+    err = (int)cudaFuncSetAttribute((const void*)conv3x3_dw_tc<ncb>,                     \
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+                                    dw_smem_bytes(ncb));
+  DW_CHANNEL_BLOCKS(K2_INIT)
+#undef K2_INIT
+  return err;
+}
+
 // K2b.  x [B, C, H, W], g [B, Co, H, W]; part [S, Co, C, 9] scratch; dw [Co, C, 3, 3].
-// S row-segment splits of ceil(n_units / S) segments each, n_units = B*H*ceil(W/32).
+// C <= 64.  S splits of ceil(n_units / S) row segments each, n_units = B*H*ceil(W/64),
+// times ceil(Co / 16) output-channel blocks.
 int conv3x3_dw(const float* x, const float* g, float* part, float* dw, int B, int C, int Co,
                int H, int W, int S, void* stream) {
-  if (bad_shape(B, C, Co, H, W) || S <= 0) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, C, Co, H, W) || C > DW_MAX_C || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int qc = qc_for(Co);
-  const int n_co_blocks = (Co + NCG * qc - 1) / (NCG * qc);
-  const int ckw = C < DW_MAX_CI ? (C + 7) / 8 * 8 : DW_MAX_CI;
-  const int n_ci_blocks = (C + ckw - 1) / ckw;
-  const int n_units = B * H * ((W + DW_TW - 1) / DW_TW);
+  const int n_units = B * H * ((W + DW_SW - 1) / DW_SW);
   const int ups = (n_units + S - 1) / S;
-  dim3 grid(S, n_ci_blocks, n_co_blocks);
-  const int threads = NCG * ckw;
-  switch (qc) {
-    case 4: conv3x3_dw_tiles<4><<<grid, threads, 0, st>>>(x, g, part, B, C, Co, H, W, ups); break;
-    case 8: conv3x3_dw_tiles<8><<<grid, threads, 0, st>>>(x, g, part, B, C, Co, H, W, ups); break;
-    case 12: conv3x3_dw_tiles<12><<<grid, threads, 0, st>>>(x, g, part, B, C, Co, H, W, ups); break;
-    default: conv3x3_dw_tiles<16><<<grid, threads, 0, st>>>(x, g, part, B, C, Co, H, W, ups); break;
+  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const dim3 grid(S, (Co + DW_CO - 1) / DW_CO);
+  const int ncb = (C + 7) / 8;
+  const size_t bytes = dw_smem_bytes(ncb);
+  switch (ncb) {
+#define K2_DW(ncb)                                                                       \
+  case ncb:                                                                              \
+    conv3x3_dw_tc<ncb><<<grid, DW_WARPS * 32, bytes, st>>>(x, g, part, B, C, Co, H, W,    \
+                                                           ups, vec);                    \
+    break;
+    DW_CHANNEL_BLOCKS(K2_DW)
+#undef K2_DW
   }
   int err = (int)cudaGetLastError();
   if (err) return err;

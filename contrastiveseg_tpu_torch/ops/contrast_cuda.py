@@ -2,9 +2,9 @@
 
 Replaces the Pallas kernels of ``contrastiveseg_tpu/ops/contrast_pallas.py``
 (``_pass1_kernel`` :50, ``_pass2_kernel`` :75, ``_bwd_kernel`` :98); the
-kernels and their design notes are in ``csrc/contrast_infonce.cu``.  K1a
-and K1c run 3xTF32 tensor-core products over anchor chunks of at most 64
-columns (``chunk_splits``); K1b runs fp32 SIMT tiles (``num_splits``).
+kernels and their design notes are in ``csrc/contrast_infonce.cu``.  All
+three run 3xTF32 tensor-core products over anchor chunks of at most 64
+columns, with one split rule (``chunk_splits``).
 
 Build: ``ops/cuda_lib.py`` (nvcc for ``sm_90a`` at first use into
 ``build/kernels/``, ctypes); ``infonce_init`` runs once per device.
@@ -36,12 +36,12 @@ from contrastiveseg_tpu_torch.ops.cuda_lib import P, I, F, check, ptrs, stream
 
 LIBRARY = cuda_lib.CudaLibrary(
     "contrast_infonce.cu",
-    {name: [P] * 11 + [I, I, I, I, F, P]
-     for name in ("infonce_pass1", "infonce_pass2", "infonce_bwd")},
+    {"infonce_pass1": [P] * 11 + [I, I, I, I, F, P],
+     "infonce_pass2": [P] * 9 + [I, I, I, I, F, P],
+     "infonce_bwd": [P] * 11 + [I, I, I, I, F, P]},
     error_string="infonce_error_string", init="infonce_init")
-_BM = 64  # anchor rows per block of K1b (csrc BM)
-_BN = 64  # contrast rows per tile (csrc BN, ROWS)
-_MAX_MC = 64  # anchors per chunk of K1a and K1c (csrc MAX_MC)
+_ROWS = 64  # bank rows per tile (csrc ROWS)
+_MAX_MC = 64  # anchors per chunk (csrc MAX_MC)
 _MAX_D = 256  # largest feature width (csrc MAX_D)
 
 
@@ -63,20 +63,12 @@ def _check_inputs(a_f, a_l, c_f, c_l, c_v, **rows):
     return M, K, D
 
 
-def num_splits(M: int, K: int, device: torch.device) -> int:
-    """K1b's K splits: (anchor tiles x splits) fills the card about twice."""
-    sms = cuda_lib.sm_count(device.index)
-    m_tiles = -(-M // _BM)
-    n_tiles = -(-K // _BN)
-    return max(1, min(n_tiles, -(-2 * sms // m_tiles)))
-
-
 def chunk_splits(M: int, K: int, device: torch.device) -> int:
-    """K1a's and K1c's K splits: (anchor chunks x splits) is one wave of one
-    block per SM (each block takes ~200 KB of shared memory at D=256)."""
+    """K1's K splits: (anchor chunks x splits) is one wave of one block per
+    SM (each block takes ~200 KB of shared memory at D=256)."""
     sms = cuda_lib.sm_count(device.index)
     chunks = -(-M // _MAX_MC)
-    n_tiles = -(-K // _BN)
+    n_tiles = -(-K // _ROWS)
     return max(1, min(n_tiles, sms // chunks))
 
 
@@ -101,12 +93,11 @@ def infonce_pass2(a_f, a_l, c_f, c_l, c_v, m, ns, temperature):
     if a_f.device.type == "cpu":
         return stream_pass2(a_f, a_l, c_f, c_l, c_v, m, ns, temperature)
     M, K, D = _check_inputs(a_f, a_l, c_f, c_l, c_v, m=m, ns=ns)
-    S = num_splits(M, K, a_f.device)
-    part = torch.empty((2, S, M), dtype=torch.float32, device=a_f.device)
+    S = chunk_splits(M, K, a_f.device)
+    part = torch.empty((S, 2, M), dtype=torch.float32, device=a_f.device)
     out = torch.empty((2, M), dtype=torch.float32, device=a_f.device)
     LIBRARY.launch("infonce_pass2", a_f.device,
-                   *ptrs(a_f, a_l, c_f, c_l, c_v, m, ns, part[0], part[1],
-                         out[0], out[1]),
+                   *ptrs(a_f, a_l, c_f, c_l, c_v, m, ns, part, out),
                    M, K, D, S, 1.0 / temperature, stream(a_f.device))
     infonce_pass2.launches += 1
     return out[0], out[1]

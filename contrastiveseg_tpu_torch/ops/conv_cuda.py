@@ -34,23 +34,18 @@ LIBRARY = cuda_lib.CudaLibrary(
     "conv3x3.cu",
     {"conv3x3_fwd": [P, P, P, I, I, I, I, I, I, P],
      "conv3x3_dw": [P, P, P, P, I, I, I, I, I, I, P]},
-    error_string="conv3x3_error_string")
-_DW_TW = 32  # pixels per dW row segment (csrc DW_TW)
-_MAX_CI = 64  # input channels per dW block, at most (csrc DW_MAX_CI)
-_NCG = 4  # output-channel groups per block (csrc NCG)
-
-
-def _qc(co: int) -> int:
-    q = -(-min(co, 64) // _NCG)
-    return -(-q // 4) * 4
+    error_string="conv3x3_error_string", init="conv3x3_init")
+_DW_SW = 128  # pixels per dW row segment (csrc DW_SW)
+_DW_CO = 16  # output channels per dW block (csrc DW_CO)
+_DW_MAX_C = 64  # input channels of dW, at most (csrc DW_MAX_C)
 
 
 def dw_splits(B: int, C: int, Co: int, H: int, W: int, device: torch.device) -> int:
-    """Row-segment splits of dW, so that the blocks fill the card about twice."""
-    ckw = min(_MAX_CI, -(-C // 8) * 8)
-    blocks = -(-C // ckw) * -(-Co // (_NCG * _qc(Co)))
-    n_units = B * H * -(-W // _DW_TW)
-    return max(1, min(n_units, -(-2 * cuda_lib.sm_count(device.index) // blocks)))
+    """Row-segment splits of dW: (splits x 16-channel output blocks) fills
+    the card about once, one block per SM."""
+    blocks = -(-Co // _DW_CO)
+    n_units = B * H * -(-W // _DW_SW)
+    return max(1, min(n_units, cuda_lib.sm_count(device.index) // blocks))
 
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch.Tensor:
@@ -83,6 +78,8 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     Co = g.shape[1]
     check("x", x, torch.float32, (B, C, H, W), dev)
     check("g", g, torch.float32, (B, Co, H, W), dev)
+    if C > _DW_MAX_C:
+        raise ValueError(f"K2b supports C <= {_DW_MAX_C} input channels, got {C}")
     S = dw_splits(B, C, Co, H, W, dev)
     part = torch.empty((S, Co, C, 3, 3), dtype=torch.float32, device=dev)
     dw = torch.empty((Co, C, 3, 3), dtype=torch.float32, device=dev)

@@ -2,11 +2,12 @@
 
 Each source under ``csrc/`` is one shared library with a plain C interface:
 ``nvcc`` compiles it for ``sm_90a`` into ``build/kernels/`` (gitignored),
-named by the source's hash so that an edit rebuilds, at first use and never
-at import; ``ctypes`` loads it.  Every entry point launches on the stream it
-is given, does not synchronise, and returns ``cudaGetLastError()`` (0 on
-success); ``launch`` raises on anything else.  ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.
+named by the hash of the source and the shared headers (``csrc/*.cuh``) so
+that an edit rebuilds, at first use and never at import; ``ctypes`` loads
+it.  Every entry point launches on the stream it is given, does not
+synchronise, and returns ``cudaGetLastError()`` (0 on success); ``launch``
+raises on anything else.  ``build_all`` starts one ``nvcc`` per source at
+once and waits for all of them.
 
 The checks and pointer helpers here are shared by the wrappers of
 ``ops/contrast_cuda.py`` (K1), ``ops/conv_cuda.py`` (K2) and
@@ -60,7 +61,10 @@ class CudaLibrary:
         self._ready: set[int] = set()
 
     def library_path(self) -> Path:
-        key = self.source.read_bytes() + "".join(f" -D{d}" for d in self.defines).encode()
+        """Named by the hash of the source, the headers of ``csrc/`` and the
+        macros, so that an edit to any of them rebuilds."""
+        key = b"".join(p.read_bytes() for p in [self.source, *sorted(CSRC.glob("*.cuh"))])
+        key += "".join(f" -D{d}" for d in self.defines).encode()
         digest = hashlib.sha256(key).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
 

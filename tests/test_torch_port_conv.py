@@ -30,6 +30,7 @@ from contrastiveseg_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import (
     compiled_pallas_conv,
     exact_fp32_reference,
+    mm_tf32,
     one_torch_thread,
     random_variables,
     shared_jax_compiles,
@@ -105,6 +106,44 @@ def test_plain_versions_are_the_vjp_of_the_conv(flip):
     else:  # dW is fp32 by contract: fp32 tolerance
         torch.testing.assert_close(conv_cuda.conv3x3_dw(x, go).double(), w.grad,
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_3xtf32_dw_keeps_k2bs_tolerance():
+    """K2b's numerics, emulated on the CPU: dW as one GEMM of g [Co, P] and
+    the im2col of x [9C, P] over P = 8,192 pixels ([1, 48, 64, 128]), with
+    the 3xTF32 products of ``csrc/conv3x3.cu``, is within the card test's
+    tolerance of the fp64 dW (rtol 1e-4, atol 1e-6 max|dW| + 1e-4).  A
+    single TF32 product is not: its truncated operands move dW by ~1e-3
+    relative."""
+    rng = np.random.default_rng(48)
+    x = torch.from_numpy(rng.standard_normal((1, 48, 64, 128), dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((1, 48, 64, 128), dtype=np.float32))
+    want = torch.nn.grad.conv2d_weight(x.double(), (48, 48, 3, 3), g.double(), padding=1)
+    cols = torch.nn.functional.unfold(x, 3, padding=1)[0]  # [9C, P], (ci, ky, kx) order
+    atol = 1e-6 * float(want.abs().max()) + 1e-4
+    with one_torch_thread():
+        got = mm_tf32(g[0].reshape(48, -1), cols, split=True).reshape(48, 48, 3, 3)
+        one = mm_tf32(g[0].reshape(48, -1), cols, split=False).reshape(48, 48, 3, 3)
+    torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=atol)
+    assert not torch.allclose(one.double(), want, rtol=1e-4, atol=atol)
+
+
+def test_k2_variant_switches_exist_in_the_source():
+    """``tools/bench_k2_variants.py`` builds ``csrc/conv3x3.cu`` with -D
+    switches; each must be one the source reads, and the port's own build
+    sets none."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "bench_k2_variants.py"
+    spec = importlib.util.spec_from_file_location("bench_k2_variants", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = conv_cuda.LIBRARY.source.read_text()
+    assert conv_cuda.LIBRARY.defines == ()
+    for defines in tool.VARIANTS.values():
+        for d in defines:
+            assert d.split("=")[0] in source, d
 
 
 @pytest.mark.parametrize("case,want", [

@@ -5,16 +5,16 @@ JAX, so it also runs on a machine that has none:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
-Tolerances: K1 rtol 1e-4, atol 1e-5 (fp32 sums in another order; K1a's
-and K1c's products are 3xTF32 on the tensor cores, at worst ~2^-19
-relative per product, K1b's sequential FMAs, the plain version's cuBLAS
-SGEMM).
+Tolerances: K1 rtol 1e-4, atol 1e-5 (fp32 sums in another order; K1's
+products are 3xTF32 on the tensor cores, at worst ~2^-19 relative per
+product, the plain version's cuBLAS SGEMM).
 K2 and K3 in fp32 with cuDNN's TF32 off: rtol 1e-4, atol 1e-4 (sums of up
-to 9·64 products; dW sums B·H·W of them, so atol scales with its size, and
-K2's dW is held against the plain formula evaluated in fp64: cuDNN's fp32
-``conv2d_weight`` itself rounds past that tolerance at some shapes); K3
-in bf16 within 2 bf16 steps of the output (both round y1 and the output at
-the same places; a value near a rounding boundary may land one step apart).
+to 9·64 products; dW sums B·H·W of them in 3xTF32, so atol scales with its
+size, and K2's dW is held against the plain formula evaluated in fp64:
+cuDNN's fp32 ``conv2d_weight`` itself rounds past that tolerance at some
+shapes); K3 in bf16 within 2 bf16 steps of the output (both round y1 and
+the output at the same places; a value near a rounding boundary may land
+one step apart).
 """
 
 from __future__ import annotations
@@ -30,13 +30,15 @@ from contrastiveseg_tpu_torch.ops.conv import conv3x3_plain
 
 
 def _setup(M, K, D, C=19, seed=0):
-    """L2-normalised features, class C-1 absent from the contrast set (its
-    anchor row has no positive), ~10% invalid anchors and contrast rows."""
+    """L2-normalised features, class C-1 absent from the contrast set (the
+    anchor row M // 2 has it, and no positive, unless M = 1), ~10% invalid
+    anchors and contrast rows."""
     rng = np.random.default_rng(seed)
     a = rng.standard_normal((M, D)).astype(np.float32)
     a /= np.linalg.norm(a, axis=-1, keepdims=True)
     a_l = rng.integers(0, C - 1, size=M).astype(np.int32)
-    a_l[M // 2] = C - 1
+    if M > 1:
+        a_l[M // 2] = C - 1
     c = rng.standard_normal((K, D)).astype(np.float32)
     c /= np.linalg.norm(c, axis=-1, keepdims=True)
     c_l = rng.integers(0, C - 1, size=K).astype(np.int32)
@@ -54,8 +56,9 @@ def cuda_device():
 @pytest.mark.parametrize("M,K,D", [
     (16, 48, 8), (70, 1000, 256), (38, 19037, 256),
     # the recipe's batch 8; anchor chunks of 64 (300 = 5 x 60); K not a
-    # multiple of the 64-row bank tile; D=8; D=6 (4-byte bank copies)
-    (152, 19037, 256), (300, 5003, 256), (300, 777, 8), (20, 1001, 6)])
+    # multiple of the 64-row bank tile; D=8; D=6 (4-byte bank copies); one
+    # anchor in a chunk of 8 columns (7 of padding)
+    (152, 19037, 256), (300, 5003, 256), (300, 777, 8), (20, 1001, 6), (1, 1001, 256)])
 def test_k1_kernels_match_plain_on_card(cuda_device, M, K, D):
     torch.backends.cuda.matmul.allow_tf32 = False
     arrs = [torch.from_numpy(x).to(cuda_device) for x in _setup(M, K, D, seed=M)]
@@ -88,7 +91,10 @@ def test_k1_kernels_are_deterministic_on_card(cuda_device):
     for x, y in zip(*runs):
         assert torch.equal(x, y)
     m, ns, p = runs[0]
-    t = k1.infonce_pass2(a, a_l, c, c_l, c_v, m, ns, 0.07)[1]
+    runs = [k1.infonce_pass2(a, a_l, c, c_l, c_v, m, ns, 0.07) for _ in range(2)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    t = runs[0][1]
     w = torch.where(a_v & (p > 0), -1.0 / p.clamp(min=1), 0.0)
     assert torch.equal(k1.infonce_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, 0.07),
                        k1.infonce_bwd(a, a_l, c, c_l, c_v, m, ns, t, w, 0.07))
@@ -107,7 +113,9 @@ def test_k1_wrapper_rejects_bad_inputs_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,C,Co,H,W", [(2, 48, 48, 32, 256), (2, 48, 48, 16, 40),
-                                        (1, 3, 18, 8, 16), (2, 12, 70, 16, 24)])
+                                        (1, 3, 18, 8, 16), (2, 12, 70, 16, 24),
+                                        # C = 64; W % 4 != 0: dW's 4-byte copies
+                                        (2, 64, 40, 24, 70)])
 def test_k2_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(B + C + W)
@@ -126,6 +134,15 @@ def test_k2_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
 
 
 @pytest.mark.cuda
+def test_k2_dw_is_deterministic_on_card(cuda_device):
+    """dW's split partials are added in split order, with no float atomics."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device)
+    gy = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device)
+    assert torch.equal(conv_cuda.conv3x3_dw(x, gy), conv_cuda.conv3x3_dw(x, gy))
+
+
+@pytest.mark.cuda
 def test_k2_autograd_and_checks_on_card(cuda_device):
     x = torch.randn(2, 8, 16, 20, device=cuda_device, requires_grad=True)
     w = torch.randn(8, 8, 3, 3, device=cuda_device, requires_grad=True)
@@ -138,6 +155,9 @@ def test_k2_autograd_and_checks_on_card(cuda_device):
         conv_cuda.conv3x3_fwd(x.detach().double(), w.detach())
     with pytest.raises(ValueError, match="contiguous"):
         conv_cuda.conv3x3_fwd(x.detach().transpose(2, 3), w.detach())
+    with pytest.raises(ValueError, match="C <= 64"):
+        conv_cuda.conv3x3_dw(torch.zeros(1, 65, 8, 8, device=cuda_device),
+                             torch.zeros(1, 4, 8, 8, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -15,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_TOOLS = ("train_torch.py", "profile_torch_step.py", "bench_block_torch.py",
-              "bench_k1_variants.py")
+              "bench_k1_variants.py", "bench_k2_variants.py")
 PORT_FILES = sorted((ROOT / "contrastiveseg_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / name for name in PORT_TOOLS] + [ROOT / "chip_smoke.py"]
 FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax"}

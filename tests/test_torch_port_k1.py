@@ -33,6 +33,8 @@ from contrastiveseg_tpu_torch.ops.contrast_stream import (
     streaming_contrastive_loss,
 )
 
+from torch_port_helpers import mm_tf32
+
 
 def _setup(M=16, K=48, D=8, C=5, seed=0, no_pos_row=True):
     rng = np.random.default_rng(seed)
@@ -98,51 +100,35 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
                                   "infonce_bwd": 0}
 
 
-def _tf32(x):
-    """The tensor cores' view of an fp32 operand: its 13 low mantissa bits
-    dropped."""
-    return (x.view(torch.int32) & -8192).view(torch.float32)
-
-
-def _mm_tf32(x, y, split):
-    """x @ y.T as the K1a/K1c kernels compute it: with ``split``, 3xTF32 (x =
-    hi + lo with hi = tf32(x), lo = x - hi read as tf32; hi.hi + hi.lo +
-    lo.hi in fp32); without, one TF32 product."""
-    xh, yh = _tf32(x), _tf32(y)
-    if not split:
-        return xh @ yh.T
-    xl, yl = _tf32(x - xh), _tf32(y - yh)
-    return xh @ yh.T + (xh @ yl.T + xl @ yh.T)
-
-
 def _emulated_passes(split):
-    """K1a and K1c with their products emulated in TF32; K1b stays the fp32
-    plain pass, as its kernel is fp32."""
+    """K1's three kernels with their products emulated in TF32."""
 
-    def pass1(a_f, a_l, c_f, c_l, c_v, temperature):
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(contrast_stream, "_logits",
-                       lambda a, cf, tau: _mm_tf32(a, cf, split) * (1.0 / tau))
-            return stream_pass1(a_f, a_l, c_f, c_l, c_v, temperature)
+    def tf32_logits(plain_pass):
+        def run(*args):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(contrast_stream, "_logits",
+                           lambda a, cf, tau: mm_tf32(a, cf, split) * (1.0 / tau))
+                return plain_pass(*args)
+        return run
 
     def bwd(a_f, a_l, c_f, c_l, c_v, m, ns, t, w, temperature):
         dA = torch.zeros_like(a_f)
         for k0 in range(0, c_f.shape[0], 8192):
             cf, cl, cv = c_f[k0:k0 + 8192], c_l[k0:k0 + 8192], c_v[k0:k0 + 8192]
-            e = torch.exp(_mm_tf32(a_f, cf, split) * (1.0 / temperature) - m[:, None])
+            e = torch.exp(mm_tf32(a_f, cf, split) * (1.0 / temperature) - m[:, None])
             same = a_l[:, None] == cl[None, :]
             ok = cv[None, :]
             denom = e + ns[:, None] + 1e-30
             dl = torch.where(same & ok, w[:, None] * (1.0 - e / denom), 0.0)
             dl = dl + torch.where(~same & ok, -w[:, None] * t[:, None] * e, 0.0)
-            dA = dA + _mm_tf32(dl / temperature, cf.T, split)
+            dA = dA + mm_tf32(dl / temperature, cf.T, split)
         return dA
 
-    return Passes(pass1, stream_pass2, bwd)
+    return Passes(tf32_logits(stream_pass1), tf32_logits(stream_pass2), bwd)
 
 
 def test_3xtf32_products_keep_k1s_tolerance():
-    """The numerics of the Hopper K1a/K1c, emulated on the CPU at the main
+    """The numerics of the Hopper K1, emulated on the CPU at the main
     path's shape (M=38 anchors, D=256, tau 0.07) against a 4,000-row bank:
     pass 1's (m, ns, p), dA and the loss's value and gradient stay within
     K1's rtol 1e-4 / atol 1e-5 of the fp32 plain passes.  A single TF32
@@ -173,6 +159,26 @@ def test_3xtf32_products_keep_k1s_tolerance():
     plain.backward()
     torch.testing.assert_close(emulated.detach(), plain.detach(), rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-4, atol=1e-5)
+
+
+def test_3xtf32_pass2_keeps_k1bs_tolerance():
+    """K1b's numerics, emulated as above: s1 and t stay within K1's rtol 1e-4
+    / atol 1e-5 of the fp32 plain pass 2.  So does a single TF32 product,
+    unlike in pass 1: s1 and t sum only over positives, with no max or
+    exp-sum of negatives to amplify the logit error; its s1 error is still
+    more than 10x that of the 3xTF32 products, which K1b shares with K1a."""
+    tau = 0.07
+    a, a_l, a_v, c, c_l, c_v = [torch.from_numpy(x) for x in _setup(
+        M=38, K=4000, D=256, C=19, seed=38)]
+    m, ns, _ = stream_pass1(a, a_l, c, c_l, c_v, tau)
+    want = stream_pass2(a, a_l, c, c_l, c_v, m, ns, tau)
+    err = {}
+    for split in (True, False):
+        got = _emulated_passes(split).pass2(a, a_l, c, c_l, c_v, m, ns, tau)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        err[split] = float((got[0] - want[0]).abs().max())
+    assert err[False] > 10 * err[True]
 
 
 def test_k1_build_variants_get_their_own_library(monkeypatch, tmp_path):

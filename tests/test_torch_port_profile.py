@@ -23,8 +23,10 @@ _spec.loader.exec_module(prof)
     ("_ZN52_GLOBAL__N__contrast_infonce_cu10sum_splitsEPKfPfii", "K1"),
     ("_ZN52_GLOBAL__N__54bb903d_19_contrast_infonce_cu_e9da0ee08pass1_tcILi5EEEvPKf", "K1"),
     ("_ZN52_GLOBAL__N__54bb903d_19_contrast_infonce_cu_e9da0ee06bwd_tcILi5EEEvPKf", "K1"),
+    ("void (anonymous namespace)::pass2_tc<5>(float const*, int const*)", "K1"),
     ("_ZN43_GLOBAL__N__conv3x3_cu17conv3x3_fwd_tilesILi12EEEvPKfS2_Pfiiiiii", "K2"),
     ("_ZN43_GLOBAL__N__conv3x3_cu16conv3x3_dw_tilesILi12EEEvPKfS2_Pfiiiiii", "K2"),
+    ("void (anonymous namespace)::conv3x3_dw_tc<6>(float const*, float const*)", "K2"),
     ("_ZN43_GLOBAL__N__conv3x3_cu13dw_sum_splitsEPKfPfii", "K2"),
     ("_ZN47_GLOBAL__N__fused_block_cu17fused_block_tilesIfLi12EEEvPKT_", "K3"),
     ("sm90_xmma_dgrad_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "convolution"),

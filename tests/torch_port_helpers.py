@@ -162,3 +162,22 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def tf32(x):
+    """The tensor cores' view of an fp32 operand: its 13 low mantissa bits
+    dropped (truncated, as the kernels' split leaves them)."""
+    import torch
+
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def mm_tf32(x, y, split: bool):
+    """x @ y.T as the port's tensor-core kernels compute it (K1, K2b): with
+    ``split``, 3xTF32 (x = hi + lo with hi = tf32(x), lo = x - hi read as
+    tf32; hi.hi + hi.lo + lo.hi in fp32); without, one TF32 product."""
+    xh, yh = tf32(x), tf32(y)
+    if not split:
+        return xh @ yh.T
+    xl, yl = tf32(x - xh), tf32(y - yh)
+    return xh @ yh.T + (xh @ yl.T + xl @ yh.T)
