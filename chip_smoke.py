@@ -14,10 +14,10 @@ Phases (any failure raises, so the run exits non-zero):
      plain loss, value and gradient; times at M=38, 152 and 1024, each
      kernel's share of its bound;
   4. K2 (forward, dX, dW) against its plain version at the main path's
-     branch-0 shape [2, 48, 128, 256] and at a ragged width of 40; dW and
-     cuDNN's ``conv2d_weight`` also timed at the recipe's batch 8, [8, 48,
-     128, 256]; K3 against its plain version at [8, 48, 128, 256] in fp32
-     and bf16 (the bench shape);
+     branch-0 shape [2, 48, 128, 256] and at a ragged width of 40; at the
+     recipe's batch 8, [8, 48, 128, 256], the forward and dW against fp64 and
+     timed beside cuDNN's ``conv2d`` and ``conv2d_weight``; K3 against its
+     plain version at [8, 48, 128, 256] in fp32 and bf16 (the bench shape);
   5. the flag-off slice: 3 train steps of ``cityscapes_hrnet_w48_mem`` at full
      HRNet-W48 width, 19 classes, the full 190k-row bank, batch 2 of 512x1024
      synthetic scenes, contrast live from step 0, through the same code as
@@ -265,14 +265,20 @@ def check_k2(device) -> dict:
                   f"ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
                   f"share of the bound {b_ms / ms:.3f}, fp32-SIMT bound {bs:.4f} ms")
 
-    # dW at the recipe's batch 8 (262,144 pixels a sum), against the formula in
-    # fp64 at the card test's tolerance: cuDNN's fp32 dW, printed beside it,
-    # strays from fp64 itself at this depth.
+    # The forward and dW at the recipe's batch 8 (dW sums 262,144 pixels),
+    # against the formulas in fp64 at the card test's tolerances: cuDNN's fp32
+    # dW, printed beside it, strays from fp64 itself at this depth.
     B, C, H, W = 8, 48, 128, 256
     x = torch.randn(B, C, H, W, generator=g).to(device)
+    w = (torch.randn(C, C, 3, 3, generator=g) / (3 * C ** 0.5)).to(device)
     gy = torch.randn(B, C, H, W, generator=g).to(device)
+    y = k2.conv3x3_fwd(x, w)
     dw = k2.conv3x3_dw(x, gy)
     torch.cuda.synchronize()
+    err = close("K2 batch 8 forward against fp64", y.double(),
+                torch.nn.functional.conv2d(x.double(), w.double(), padding=1), 1e-4, 1e-4)
+    errs["conv3x3_fwd"] = max(errs["conv3x3_fwd"], err)
+    print(f"K2 batch 8 forward: max abs err against fp64 {err:.3e} (rtol 1e-4, atol 1e-4)")
     want_dw = torch.nn.grad.conv2d_weight(x.double(), (C, C, 3, 3), gy.double(), padding=1)
     atol = 1e-6 * float(want_dw.abs().max()) + 1e-4
     err = close("K2 batch 8 dW against fp64", dw.double(), want_dw, 1e-4, atol)
@@ -280,13 +286,19 @@ def check_k2(device) -> dict:
     print(f"K2 batch 8 dW: max abs err against fp64 {err:.3e} (cuDNN fp32 "
           f"conv2d_weight {lib_err:.3e}; atol {atol:.3e}, rtol 1e-4)")
     flops = 2 * 9 * C * C * B * H * W
-    b8 = (time_ms(lambda: k2.conv3x3_dw(x, gy)),
-          time_ms(lambda: torch.nn.grad.conv2d_weight(x, (C, C, 3, 3), gy, padding=1)),
-          bound(flops, nbytes(x, gy, dw)))
-    print(f"K2 time {[B, C, H, W]} conv3x3_dw: kernel {b8[0]:.4f} ms, library "
-          f"{b8[1]:.4f} ms (conv2d_weight), bound {b8[2][0]:.4f} ms ({b8[2][1]}), "
-          f"share of the bound {b8[2][0] / b8[0]:.3f}")
-    return {"errs": errs, "rows": rows, "dw_b8": b8}
+    b8 = {
+        "conv3x3_fwd": (time_ms(lambda: k2.conv3x3_fwd(x, w)),
+                        time_ms(lambda: torch.nn.functional.conv2d(x, w, padding=1)),
+                        bound(flops, nbytes(x, w, y)), "conv2d"),
+        "conv3x3_dw": (time_ms(lambda: k2.conv3x3_dw(x, gy)),
+                       time_ms(lambda: torch.nn.grad.conv2d_weight(x, (C, C, 3, 3), gy,
+                                                                   padding=1)),
+                       bound(flops, nbytes(x, gy, dw)), "conv2d_weight"),
+    }
+    for name, (ms, lib_ms, (b_ms, by), lib) in b8.items():
+        print(f"K2 time {[B, C, H, W]} {name}: kernel {ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"({lib}), bound {b_ms:.4f} ms ({by}), share of the bound {b_ms / ms:.3f}")
+    return {"errs": errs, "rows": rows, "b8": b8}
 
 
 def check_k3(device) -> dict:
@@ -629,9 +641,10 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": by, "bound_ms_fp32_simt": bs, "library_ms": lib_ms,
             "shape": "x [2,48,128,256] fp32, w [48,48,3,3]",
         })
-    ms, lib_ms, (b_ms, by) = k2["dw_b8"]
-    rows[-1].update({"ms_b8": ms, "library_ms_b8": lib_ms, "bound_ms_b8": b_ms,
-                     "bound_by_b8": by})
+    for row in rows[-2:]:
+        ms, lib_ms, (b_ms, by), _ = k2["b8"][row["name"]]
+        row.update({"ms_b8": ms, "library_ms_b8": lib_ms, "bound_ms_b8": b_ms,
+                    "bound_by_b8": by})
     _, _, replaces = block_cuda.KERNELS["fused_block"]
     b16, f32 = blk["bf16"], blk["fp32"]
     B, H, W, C = b16["shape"]

@@ -12,19 +12,29 @@
 // Bound on the H100: at HRNet-W48 branch 0 (B=2, C=Co=48, 128x256) each launch is
 // 2*9*C*Co*B*H*W = 2.72 GFLOP against ~25 MB, ~100 flop/byte, so the operations: fp32
 // products at their fastest fp32-accurate rate, three TF32 tensor-core products each
-// (3xTF32, 495/3 TFLOP/s: 16.5 us), above the bytes (7.5 us at 3.35 TB/s).  The
-// forward (K2a) is still fp32 FMA on the SIMT cores with shared-memory tiles and
-// register blocking; dW (K2b) runs on the tensor cores (below).
+// (3xTF32, 495/3 TFLOP/s: 16.5 us), above the bytes (7.5 us at 3.35 TB/s).  Both
+// kernels run 3xTF32 mma.sync on the tensor cores.
 //
 // Design, against the TPU kernels:
-//   * halos are masked in the kernel: the tile loader writes zeros outside the image, so
+//   * halos are masked in the kernel: the tile loaders write zeros outside the image, so
 //     there is no padded copy of x (the TPU version pads rows by 7 and 1 and columns to a
 //     multiple of 8 for Mosaic's alignment; jnp.pad cost +30 ms/step on the TPU).  Any H
 //     and W work, ragged tiles included;
-//   * forward: one block = a 16x32 output tile of one image x up to 64 output channels.
-//     256 threads = 64 pixel threads x 4 channel groups; each thread owns 8 pixels (rows
-//     2 apart at one column) x QC channels in registers.  The input channels stream
-//     through shared memory 8 at a time, with their halo and their [8][9][<=64] weights;
+//   * the forward is the implicit GEMM Y[P, Co] = X^[P, 9C] W[9C, Co] on the tile of
+//     conv_tile.cuh (shared with K3): pixels are the MMA's row side, output channels its
+//     column side (Co = 48 is 6 n-tiles; channels on the row side would pad 48 to 64 in
+//     blocks of 16), and A fragments come from haloed x rows in shared memory at the tap's
+//     offset.  One block = an 8 x 32 output tile of one image x up to 64 output
+//     channels, one warp an output row (2 x 2 ceil(Co / 16) tiles: each A fragment
+//     serves every n-tile, so shared-memory loads stay under the products).  Input
+//     channels stream 8 at a time with their [Co][8][9] weights through a three-stage
+//     cp.async ring (16-byte copies where W % 4 == 0); the weights are read in source
+//     order, so flip (dX) is only an index change in that load.  The reduction is 9C
+//     long (432 at C = 48), with the hi.hi products in one accumulator and the cross
+//     terms in another: the tensor cores' accumulation truncates, and summing all three
+//     in one (which would fit two blocks an SM, and ran faster) left the forward several
+//     times further from fp64 and the flag-on weight gradients nearer chip_smoke.py's
+//     bound;
 //   * dW is the GEMM dW[Co, 9C] = G[Co, P] X^[P, 9C] over the P = B*H*W pixels, X^ the
 //     im2col of x, as an implicit GEMM on the tensor cores: 3xTF32 mma.sync m16n8k8
 //     (x = hi + lo; hi.hi + hi.lo + lo.hi in three accumulators), g the A operand (16
@@ -44,41 +54,63 @@
 //     dw_sum_splits adds the partials in split order: dW is deterministic, with no float
 //     atomics.
 //
-// Plain C interface (loaded with ctypes).  conv3x3_init() raises dW's dynamic
-// shared-memory limit once per device, before the first launch.  Each entry point
+// Plain C interface (loaded with ctypes).  conv3x3_init() raises the kernels' dynamic
+// shared-memory limits once per device, before the first launch.  Each entry point
 // launches on the given stream, does not synchronise and returns cudaGetLastError() (0 on
 // success).  Callers allocate every buffer.  The cp.async copies and the TF32 products
-// are in tc_common.cuh, shared with K1.
+// are in tc_common.cuh, shared with K1 and K3.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "conv_tile.cuh"
 #include "tc_common.cuh"
 
 namespace {
 
-constexpr int NPT = 64;          // pixel threads (forward) / unused lanes never exist
-constexpr int NCG = 4;           // output-channel groups per block
-constexpr int NT = NPT * NCG;    // 256 threads (forward)
-constexpr int TH = 16;           // forward: output rows per block
-constexpr int TW = 32;           // forward: output columns per block
-constexpr int NPIX = TH * TW / NPT;  // 8 pixels per thread
-constexpr int CK = 8;            // forward: input channels per shared-memory chunk
-constexpr int XH = TH + 2;       // haloed input tile
-constexpr int XW = TW + 2;
-constexpr int MAX_COP = 64;      // output channels per block, at most
+// K2a's tile: FW_TH x FW_TW output pixels of one image x up to 64 output channels; one
+// warp per output row: two m-tiles of 16 pixels by 2 NJ n-tiles of 8 channels, with the
+// hi.hi products and the cross terms in two accumulators (up to 128 registers of them,
+// so one block of 8 warps an SM).
+constexpr int FW_TH = 8;                   // output rows per block, one a warp
+constexpr int FW_TW = 32;                  // output columns per block
+constexpr int FW_NT = FW_TH * 32;          // 256 threads
+constexpr int FW_X0 = 4;                   // x tile column of pixel w0 (16-byte aligned)
+constexpr int FW_LDX = 40;                 // >= FW_X0 + FW_TW + 1, the right halo
+constexpr int FW_XR = FW_TH + 2;           // x rows of the tile, with the halo
+constexpr int FW_KS = conv_tile::conflict_free_stride(FW_XR * FW_LDX);  // 408 words
+constexpr int FW_MAX_NJ = 4;               // 64 output channels a block, at most
+constexpr int KR = conv_tile::KROWS;       // input channels per chunk
+constexpr int FW_NS = 3;                   // chunks in the cp.async ring
 
-// K2b's diagnostic build switches, for tools/bench_k2_variants.py; the port builds the
-// defaults.  K2_PRODUCTS: TF32 products per fp32 product (3; 1 = hi.hi only, TF32
-// accuracy; 0 = none).  K2_NO_LOADS: skip the segment loads (the products on whatever
-// shared memory holds).  K2_FLUSH=0: the hi.hi accumulator runs over the whole split.
+// K2's diagnostic build switches, for tools/bench_k2_variants.py; the port builds the
+// defaults.  K2_PRODUCTS: TF32 products per fp32 product in K2a and K2b (3; 1 = hi.hi
+// only, TF32 accuracy; 0 = none).  K2_NO_LOADS: skip K2a's chunk loads and K2b's
+// segment loads (the products on whatever shared memory holds).  K2_FLUSH=0: K2b's
+// hi.hi accumulator runs over the whole split.
 #ifndef K2_PRODUCTS
 #define K2_PRODUCTS 3
 #endif
 #ifndef K2_FLUSH
 #define K2_FLUSH 1
 #endif
+
+// K2a's shared memory: FW_NS stages of [8 channels][FW_KS] x words and [16 nj output
+// channels][conv_tile::BS] weights ([8 channels][9 taps] each).
+__host__ __device__ constexpr int fw_stage_words(int nj) {
+  return KR * FW_KS + 16 * nj * conv_tile::BS;
+}
+// With flip, a chunk's weights are [8 input channels][fw_flip_ks] (9 x 16 nj words each,
+// k rows 8 or 24 mod 32: B loads add 9 g and fw_flip_ks t, distinct mod 32).
+__host__ __device__ constexpr int fw_flip_ks(int nj) {
+  return conv_tile::conflict_free_stride(9 * 16 * nj);
+}
+static_assert(KR * fw_flip_ks(4) <= 16 * 4 * conv_tile::BS, "flipped weights fit a stage");
+__host__ __device__ constexpr int fw_smem_bytes(int nj) {
+  return FW_NS * fw_stage_words(nj) * (int)sizeof(float);
+}
 
 constexpr int DW_SW = 128;       // dW: pixels per row segment, 16 MMA k-steps
 constexpr int DW_LOG_SW = 7;
@@ -102,99 +134,133 @@ __host__ __device__ constexpr int dw_smem_bytes(int ncb) {
   return (DW_SLOTS * 8 * ncb * DW_LDX + DW_STAGES * DW_CO * DW_LDG) * (int)sizeof(float);
 }
 
-// Output-channel registers per thread: ceil(min(Co, 64) / 4), rounded up to 4, 8, 12, 16.
-int qc_for(int co) {
-  int c = co < MAX_COP ? co : MAX_COP;
-  int q = (c + NCG - 1) / NCG;
-  return (q + 3) / 4 * 4;
-}
-
-template <int QC>
-__device__ __forceinline__ void load_q(const float* src, float (&v)[QC]) {
-#pragma unroll
-  for (int j = 0; j < QC / 4; ++j) {
-    float4 f = reinterpret_cast<const float4*>(src)[j];
-    v[4 * j] = f.x;
-    v[4 * j + 1] = f.y;
-    v[4 * j + 2] = f.z;
-    v[4 * j + 3] = f.w;
-  }
-}
-
-template <int QC>
-__global__ void __launch_bounds__(NT) conv3x3_fwd_tiles(
-    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y, int C,
-    int Co, int H, int W, int flip, int n_co_blocks) {
-  constexpr int COP = NCG * QC;
-  __shared__ float xs[CK][XH][XW];
-  __shared__ __align__(16) float ws[CK][9][COP];
-
-  const int tid = threadIdx.x;
-  const int pt = tid % NPT;
-  const int cg = tid / NPT;
-  const int w0 = blockIdx.x * TW;
-  const int h0 = blockIdx.y * TH;
-  const int b = blockIdx.z / n_co_blocks;
-  const int co0 = (blockIdx.z % n_co_blocks) * COP;
+// Copies chunk c0 (input channels [c0, c0 + 8)) of K2a's operands into stage st with
+// cp.async: x rows h0 - 1 .. h0 + FW_TH, columns w0 - 1 .. w0 + FW_TW, as [channel][row]
+// [FW_X0 - 1 + column]; and the weights of those channels for output channels [co0,
+// co0 + 16 NJ), each run of them that is contiguous in w kept contiguous: without FLIP
+// (w[o][i][t]) output channel n's 72 words, at n BS + 9 k + t; with FLIP (w[i][o][8 - t],
+// dX) input channel k's 9 x 16 NJ words, at k fw_flip_ks + 9 n + (8 - t).  Everything
+// outside the image, past C or past Co is zero-filled, so no padded copy of x exists.
+// VEC (W % 4 == 0, x and w 16-byte aligned): 16-byte copies of the x body, a 4-pixel
+// group wholly in or out, and of whole weight runs; else 4-byte.
+template <int NJ, bool VEC, bool FLIP>
+__device__ __forceinline__ void fwd_load(float* st, const float* __restrict__ x,
+                                         const float* __restrict__ w, int C, int Co, int H,
+                                         int W, int b, int h0, int w0, int co0, int c0) {
+#ifdef K2_NO_LOADS
+  return;
+#endif
+  constexpr int COB = 16 * NJ, PER = VEC ? FW_TW / 4 : FW_TW;
+  const int tid = conv_tile::opaque_tid();
   const float* xb = x + (size_t)b * C * H * W;
-
-  float acc[NPIX][QC];
-#pragma unroll
-  for (int p = 0; p < NPIX; ++p)
-#pragma unroll
-    for (int q = 0; q < QC; ++q) acc[p][q] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CK) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < CK * XH * XW; i += NT) {
-      const int c = i / (XH * XW), r = (i / XW) % XH, q = i % XW;
-      const int gc = c0 + c, gh = h0 - 1 + r, gw = w0 - 1 + q;
-      float v = 0.f;
-      if (gc < C && gh >= 0 && gh < H && gw >= 0 && gw < W) v = xb[((size_t)gc * H + gh) * W + gw];
-      xs[c][r][q] = v;
+  for (int i = tid; i < KR * FW_XR * PER; i += FW_NT) {
+    const int k = i / (FW_XR * PER), r = i / PER % FW_XR, q = i % PER * (VEC ? 4 : 1);
+    const int ci = c0 + k, gh = h0 - 1 + r, gw = w0 + q;
+    const bool ok = ci < C && gh >= 0 && gh < H && gw < W;
+    const float* src = ok ? xb + ((size_t)ci * H + gh) * W + gw : x;
+    float* dst = st + k * FW_KS + r * FW_LDX + FW_X0 + q;
+    if (VEC) cp_async16(dst, src, ok ? 16 : 0);
+    else cp_async4(dst, src, ok ? 4 : 0);
+  }
+  for (int i = tid; i < KR * FW_XR * 2; i += FW_NT) {  // the halo columns
+    const int k = i / (2 * FW_XR), r = i / 2 % FW_XR, right = i & 1;
+    const int ci = c0 + k, gh = h0 - 1 + r, gw = right ? w0 + FW_TW : w0 - 1;
+    const bool ok = ci < C && gh >= 0 && gh < H && gw >= 0 && gw < W;
+    const float* src = ok ? xb + ((size_t)ci * H + gh) * W + gw : x;
+    cp_async4(st + k * FW_KS + r * FW_LDX + (right ? FW_X0 + FW_TW : FW_X0 - 1), src,
+              ok ? 4 : 0);
+  }
+  float* ws = st + KR * FW_KS;
+  // Run u (an output channel, or with FLIP an input channel) of RUN words: its source,
+  // destination and how many of its words exist.
+  constexpr int RUNS = FLIP ? KR : COB, RUN = FLIP ? 9 * COB : 9 * KR;
+  constexpr int DST = FLIP ? fw_flip_ks(NJ) : conv_tile::BS;
+  auto src = [&](int u) {
+    return FLIP ? w + ((size_t)(c0 + u) * Co + co0) * 9 : w + ((size_t)(co0 + u) * C + c0) * 9;
+  };
+  auto valid = [&](int u) {  // words of run u inside w
+    const int runs_ok = FLIP ? c0 + u < C : co0 + u < Co;
+    const int left = FLIP ? Co - co0 : C - c0;
+    return runs_ok ? 9 * (left < RUN / 9 ? left : RUN / 9) : 0;
+  };
+  const int whole = FLIP ? Co % 4 == 0 && co0 + COB <= Co : C % 4 == 0 && c0 + KR <= C;
+  if (VEC && whole) {
+    for (int i = tid; i < RUNS * RUN / 4; i += FW_NT) {
+      const int u = i / (RUN / 4), r = i % (RUN / 4) * 4;
+      const bool ok = valid(u) > 0;
+      cp_async16(ws + u * DST + r, ok ? src(u) + r : w, ok ? 16 : 0);
     }
-    // Weight of (output o, input i, tap t = 3*ky + kx): w[o][i][t], or with flip
-    // w[i][o][8 - t] (w is then [C, Co, 3, 3]: the forward's [Co_fwd, C_fwd, 3, 3]).
-    for (int i = tid; i < CK * 9 * COP; i += NT) {
-      const int c = i / (9 * COP), t = (i / COP) % 9, o = i % COP;
-      const int gc = c0 + c, go = co0 + o;
-      float v = 0.f;
-      if (gc < C && go < Co)
-        v = flip ? w[((size_t)gc * Co + go) * 9 + 8 - t] : w[((size_t)go * C + gc) * 9 + t];
-      ws[c][t][o] = v;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int c = 0; c < CK; ++c) {
+    return;
+  }
+  for (int i = tid; i < RUNS * RUN; i += FW_NT) {
+    const int u = i / RUN, r = i % RUN;
+    const bool ok = r < valid(u);
+    cp_async4(ws + u * DST + r, ok ? src(u) + r : w, ok ? 4 : 0);
+  }
+}
+
+// K2a as an implicit GEMM on the tensor cores: y[p, co] = sum over (tap, ci) of
+// x^[p, (tap, ci)] w[(tap, ci), co], x^ the im2col of x, never formed (conv_tile.cuh).
+// Block (column tile, row tile, image x output-channel block) computes FW_TH x FW_TW
+// pixels x 16 NJ output channels; the input channels stream through a three-stage
+// cp.async ring 8 at a time (two chunks in flight while one is computed), with the
+// chunk's weights.  Warp r holds output row r: 2 x 2 NJ tiles of 16 pixels x 8 channels.
+// No split-K: each output is one block's sum, in one order, so K2a is deterministic.
+template <int NJ, bool VEC, bool FLIP>
+__global__ void __launch_bounds__(FW_NT, 1)
+conv3x3_fwd_tc(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
+               int C, int Co, int H, int W, int n_co_blocks) {
+  // B at column n, channel k, tap t: without FLIP n BS + 9 k + t; with FLIP the taps are
+  // stored reversed, k fw_flip_ks + 9 n + 8 - t.
+  using Op = std::conditional_t<
+      FLIP, conv_tile::Tf32x3<K2_PRODUCTS, 2, 9, fw_flip_ks(NJ), -1>,
+      conv_tile::Tf32x3<K2_PRODUCTS, 2, conv_tile::BS, 9, 1>>;
+  constexpr int STAGE = fw_stage_words(NJ), NJW = 2 * NJ;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = blockIdx.x * FW_TW, h0 = blockIdx.y * FW_TH;
+  const int b = blockIdx.z / n_co_blocks, co0 = blockIdx.z % n_co_blocks * 16 * NJ;
+
+  int pix[2][2];  // pixel (warp, 16 m + 8 h + g) at tap (0, 0): x tile row warp, column - 1
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          float wv[QC];
-          load_q<QC>(&ws[c][3 * ky + kx][cg * QC], wv);
+    for (int h = 0; h < 2; ++h) pix[m][h] = warp * FW_LDX + FW_X0 - 1 + 16 * m + 8 * h + g;
+  typename Op::Acc acc[2][NJW];
+  conv_tile::zero<Op, 2, NJW>(acc);
+
+  const int nc = (C + KR - 1) / KR;
 #pragma unroll
-          for (int p = 0; p < NPIX; ++p) {
-            const int i = pt + NPT * p;
-            const float xv = xs[c][i / TW + ky][i % TW + kx];
+  for (int c = 0; c < FW_NS - 1; ++c) {
+    if (c < nc)
+      fwd_load<NJ, VEC, FLIP>(smem + c * STAGE, x, w, C, Co, H, W, b, h0, w0, co0, c * KR);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<FW_NS - 2>();
+    __syncthreads();  // chunk c has landed; chunk c - 1 is consumed
+    const int cn = c + FW_NS - 1;
+    if (cn < nc)
+      fwd_load<NJ, VEC, FLIP>(smem + cn % FW_NS * STAGE, x, w, C, Co, H, W, b, h0, w0, co0,
+                              cn * KR);
+    cp_async_commit();
+    const unsigned* st = reinterpret_cast<const unsigned*>(smem + c % FW_NS * STAGE);
+    const float* ws = reinterpret_cast<const float*>(st) + KR * FW_KS + (FLIP ? 8 : 0);
+    conv_tile::conv_taps<Op, 2, NJW, FW_LDX>(acc, st, FW_KS, pix, ws, 0);
+  }
+
+  const int gh = h0 + warp;
+  if (gh >= H) return;
 #pragma unroll
-            for (int q = 0; q < QC; ++q) acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
-          }
-        }
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NJW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int gw = w0 + 16 * m + 8 * (q >> 1) + g, co = co0 + 8 * j + 2 * t + (q & 1);
+        if (gw < W && co < Co)
+          y[(((size_t)b * Co + co) * H + gh) * W + gw] = Op::value(acc[m][j], q);
       }
-    }
-  }
-
-#pragma unroll
-  for (int p = 0; p < NPIX; ++p) {
-    const int i = pt + NPT * p;
-    const int gh = h0 + i / TW, gw = w0 + i % TW;
-    if (gh >= H || gw >= W) continue;
-#pragma unroll
-    for (int q = 0; q < QC; ++q) {
-      const int o = co0 + cg * QC + q;
-      if (o < Co) y[(((size_t)b * Co + o) * H + gh) * W + gw] = acc[p][q];
-    }
-  }
 }
 
 // dW's row segments in order u = (b * nwc + wc) * H + h: DW_SW pixels [w0, w0 + DW_SW)
@@ -389,6 +455,10 @@ int bad_shape(int B, int C, int Co, int H, int W) {
 
 // One case per count of 8-channel input blocks of dW.
 #define DW_CHANNEL_BLOCKS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+// One case per (16-channel column blocks, 16-byte copies, flip) of K2a.
+#define FW_TILES(X)                                                                      \
+  X(1, 0, 0) X(1, 0, 1) X(1, 1, 0) X(1, 1, 1) X(2, 0, 0) X(2, 0, 1) X(2, 1, 0) X(2, 1, 1) \
+  X(3, 0, 0) X(3, 0, 1) X(3, 1, 0) X(3, 1, 1) X(4, 0, 0) X(4, 0, 1) X(4, 1, 0) X(4, 1, 1)
 
 }  // namespace
 
@@ -399,23 +469,32 @@ const char* conv3x3_error_string(int err) {
 }
 
 // K2a.  x [B, C, H, W], y [B, Co, H, W]; w [Co, C, 3, 3], or [C, Co, 3, 3] with flip.
+// Any C and Co: output channels in ceil(Co / 64) blocks of 16 NJ, NJ = ceil(Co / blocks
+// / 16).
 int conv3x3_fwd(const float* x, const float* w, float* y, int B, int C, int Co, int H, int W,
                 int flip, void* stream) {
   if (bad_shape(B, C, Co, H, W)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int qc = qc_for(Co);
-  const int n_co_blocks = (Co + NCG * qc - 1) / (NCG * qc);
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * n_co_blocks);
-  switch (qc) {
-    case 4: conv3x3_fwd_tiles<4><<<grid, NT, 0, st>>>(x, w, y, C, Co, H, W, flip, n_co_blocks); break;
-    case 8: conv3x3_fwd_tiles<8><<<grid, NT, 0, st>>>(x, w, y, C, Co, H, W, flip, n_co_blocks); break;
-    case 12: conv3x3_fwd_tiles<12><<<grid, NT, 0, st>>>(x, w, y, C, Co, H, W, flip, n_co_blocks); break;
-    default: conv3x3_fwd_tiles<16><<<grid, NT, 0, st>>>(x, w, y, C, Co, H, W, flip, n_co_blocks); break;
+  const int n_co_blocks = (Co + 16 * FW_MAX_NJ - 1) / (16 * FW_MAX_NJ);
+  const int nj = ((Co + n_co_blocks - 1) / n_co_blocks + 15) / 16;
+  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid((W + FW_TW - 1) / FW_TW, (H + FW_TH - 1) / FW_TH, B * n_co_blocks);
+  const size_t bytes = fw_smem_bytes(nj);
+  switch (4 * nj + 2 * vec + (flip != 0)) {
+#define K2_FWD(nj, v, f)                                                                 \
+  case 4 * nj + 2 * v + f:                                                               \
+    conv3x3_fwd_tc<nj, v, f><<<grid, FW_NT, bytes, st>>>(x, w, y, C, Co, H, W,            \
+                                                         n_co_blocks);                   \
+    break;
+    FW_TILES(K2_FWD)
+#undef K2_FWD
   }
   return (int)cudaGetLastError();
 }
 
-// Lets conv3x3_dw_tc take the shared memory of its two stages, on the current device.
+// Lets K2a and conv3x3_dw_tc take the shared memory of their two stages, on the current
+// device.
 int conv3x3_init() {
   int err = 0;
 #define K2_INIT(ncb)                                                                     \
@@ -425,6 +504,13 @@ int conv3x3_init() {
                                     dw_smem_bytes(ncb));
   DW_CHANNEL_BLOCKS(K2_INIT)
 #undef K2_INIT
+#define K2_FWD_INIT(nj, v, f)                                                            \
+  if (!err)                                                                              \
+    err = (int)cudaFuncSetAttribute((const void*)conv3x3_fwd_tc<nj, v, f>,               \
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+                                    fw_smem_bytes(nj));
+  FW_TILES(K2_FWD_INIT)
+#undef K2_FWD_INIT
   return err;
 }
 

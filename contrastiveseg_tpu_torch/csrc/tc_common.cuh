@@ -1,5 +1,6 @@
-// Helpers shared by K1 (contrast_infonce.cu) and K2 (conv3x3.cu) on Hopper (sm_90a):
-// cp.async copies into shared memory and 3xTF32 tensor-core products on mma.sync.
+// Helpers shared by K1 (contrast_infonce.cu), K2 (conv3x3.cu) and K3 (fused_block.cu,
+// through conv_tile.cuh) on Hopper (sm_90a): cp.async copies into shared memory, 3xTF32
+// and bf16 tensor-core products on mma.sync.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,6 +47,18 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on one m16n8k16 tile of bf16 operands, fp32 accumulation; the products of
+// bf16 values are exact.  Each register holds two bf16 of consecutive k, the lower k in
+// the low half: a = (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..); b = (2t..2t+1,
+// g), (2t+8..2t+9, g); d as in mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -7,9 +7,10 @@ notes are in ``csrc/fused_block.cu``, built by ``ops/cuda_lib.py``.
 ``fused_basic_block_eval(x, w1, s1, b1, w2, s2, b2)``:
   * takes the plain version, ``ops/block.reference_block_eval``, for CPU
     tensors, and only for those;
-  * for CUDA tensors folds s1 and s2 into the weights and rounds them to
-    x's dtype (as the JAX wrapper does), checks device, dtype (fp32 or
-    bf16 x; fp32 weights, scales and biases), shape (C <= 64) and
+  * for CUDA tensors folds s1 and s2 into the weights (the kernel rounds
+    them to x's dtype, as the JAX wrapper does: bf16 as it packs them,
+    round to nearest even like ``Tensor.to``), checks device, dtype (fp32
+    or bf16 x; fp32 weights, scales and biases), shape (C <= 64) and
     contiguity, launches on the current stream and raises if
     ``cudaGetLastError()`` is not 0;
   * counts its launches in ``fused_basic_block_eval.launches``.
@@ -47,8 +48,8 @@ def fused_basic_block_eval(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
         check(name, v, torch.float32, (C, C, 3, 3), dev)
     for name, v in (("s1", s1), ("b1", b1), ("s2", s2), ("b2", b2)):
         check(name, v, torch.float32, (C,), dev)
-    w1f = fold_weights(w1, s1, x.dtype)
-    w2f = fold_weights(w2, s2, x.dtype)
+    w1f = fold_weights(w1, s1, torch.float32)
+    w2f = fold_weights(w2, s2, torch.float32)
     y = torch.empty_like(x)
     LIBRARY.launch("fused_block", dev, *ptrs(x, w1f, w2f, b1, b2, y), B, C, H, W,
                    _DTYPES[x.dtype], stream(dev))

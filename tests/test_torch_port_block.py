@@ -99,3 +99,41 @@ def test_boundary_tiles_read_zero_padding(case):
     inner = (slice(None), slice(None), slice(1, -1), slice(1, -1))
     torch.testing.assert_close(got[inner], leaky[inner], atol=1e-4, rtol=1e-4)
     assert float((got[:, :, 0] - leaky[:, :, 0]).abs().max()) > 1e-2
+
+
+def _block_3xtf32(x, w1, s1, b1, w2, s2, b2, split: bool):
+    """K3's fp32 arithmetic on the CPU: both convs as [C, 9C] x im2col products
+    in 3xTF32 (``split``) or one TF32 product, fp32 sums, y1 zero outside the
+    image (conv2's SAME padding)."""
+    from torch_port_helpers import mm_tf32
+
+    from contrastiveseg_tpu_torch.ops.block import fold_weights
+
+    def conv(v, w):
+        cols = torch.nn.functional.unfold(v, 3, padding=1)  # [B, 9C, P]
+        w2d = w.reshape(w.shape[0], -1).contiguous()
+        out = torch.stack([mm_tf32(w2d, c.T.contiguous(), split=split) for c in cols])
+        return out.reshape(v.shape[0], w.shape[0], *v.shape[2:])
+
+    y1 = torch.relu(conv(x, fold_weights(w1, s1, torch.float32)) + b1[:, None, None])
+    return torch.relu(conv(y1, fold_weights(w2, s2, torch.float32)) + b2[:, None, None] + x)
+
+
+def test_3xtf32_stages_keep_k3s_tolerance(case):
+    """K3's fp32 stages, emulated on the CPU with the 3xTF32 products of
+    ``csrc/conv_tile.cuh``, are within the card test's tolerance (rtol 1e-4,
+    atol 1e-4) of the block in fp64 (2.4e-5 off here); a single TF32 product
+    is not (3.2e-2 off, at outputs up to 22)."""
+    from torch_port_helpers import one_torch_thread
+
+    xt, (w1, s1, b1, w2, s2, b2), _, _ = case
+    d = [a.double() for a in (xt, w1, s1, b1, w2, s2, b2)]
+    y1 = torch.relu(torch.nn.functional.conv2d(d[0], d[1] * d[2][:, None, None, None],
+                                               padding=1) + d[3][:, None, None])
+    want = torch.relu(torch.nn.functional.conv2d(y1, d[4] * d[5][:, None, None, None],
+                                                 padding=1) + d[6][:, None, None] + d[0])
+    with one_torch_thread():
+        got = _block_3xtf32(xt, w1, s1, b1, w2, s2, b2, split=True)
+        one = _block_3xtf32(xt, w1, s1, b1, w2, s2, b2, split=False)
+    torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4)
+    assert not torch.allclose(one.double(), want, rtol=1e-4, atol=1e-4)

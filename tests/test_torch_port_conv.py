@@ -108,42 +108,65 @@ def test_plain_versions_are_the_vjp_of_the_conv(flip):
                                    atol=1e-4, rtol=1e-4)
 
 
-def test_3xtf32_dw_keeps_k2bs_tolerance():
-    """K2b's numerics, emulated on the CPU: dW as one GEMM of g [Co, P] and
-    the im2col of x [9C, P] over P = 8,192 pixels ([1, 48, 64, 128]), with
-    the 3xTF32 products of ``csrc/conv3x3.cu``, is within the card test's
-    tolerance of the fp64 dW (rtol 1e-4, atol 1e-6 max|dW| + 1e-4).  A
-    single TF32 product is not: its truncated operands move dW by ~1e-3
-    relative."""
+@pytest.mark.parametrize("kernel", ["dw", "fwd", "dx"])
+def test_3xtf32_keeps_k2s_tolerance(kernel):
+    """K2's numerics, emulated on the CPU at [1, 48, 64, 128] with the 3xTF32
+    products of ``csrc/conv3x3.cu`` and ``csrc/conv_tile.cuh``, against fp64
+    at the card test's tolerances.
+
+    * dw (K2b): one GEMM of g [Co, P] and the im2col of x [9C, P] over P =
+      8,192 pixels; rtol 1e-4, atol 1e-6 max|dW| + 1e-4;
+    * fwd and dx (K2a): the weights [Co, 9C] times the im2col of x [9C, P]
+      (w flipped and transposed for dX), a reduction 432 long; rtol 1e-4,
+      atol 1e-4, with w at the scale 1 / (3 sqrt(C)) of ``chip_smoke.py``.
+
+    A single TF32 product is not within them: its truncated operands move
+    dW by ~1e-3 relative and the forward and dX by ~4e-3 absolute, so both
+    kernels keep three."""
     rng = np.random.default_rng(48)
     x = torch.from_numpy(rng.standard_normal((1, 48, 64, 128), dtype=np.float32))
-    g = torch.from_numpy(rng.standard_normal((1, 48, 64, 128), dtype=np.float32))
-    want = torch.nn.grad.conv2d_weight(x.double(), (48, 48, 3, 3), g.double(), padding=1)
     cols = torch.nn.functional.unfold(x, 3, padding=1)[0]  # [9C, P], (ci, ky, kx) order
-    atol = 1e-6 * float(want.abs().max()) + 1e-4
+    if kernel == "dw":
+        g = torch.from_numpy(rng.standard_normal((1, 48, 64, 128), dtype=np.float32))
+        want = torch.nn.grad.conv2d_weight(x.double(), (48, 48, 3, 3), g.double(), padding=1)
+        a, b, shape = g[0].reshape(48, -1), cols, (48, 48, 3, 3)
+        atol = 1e-6 * float(want.abs().max()) + 1e-4
+    else:
+        w = torch.from_numpy(rng.standard_normal((48, 48, 3, 3), dtype=np.float32)
+                             / (3 * 48 ** 0.5))
+        if kernel == "dx":
+            w = w.flip((2, 3)).transpose(0, 1)
+        want = torch.nn.functional.conv2d(x.double(), w.double(), padding=1)
+        a, b, shape = w.reshape(48, -1).contiguous(), cols.T.contiguous(), want.shape
+        atol = 1e-4
     with one_torch_thread():
-        got = mm_tf32(g[0].reshape(48, -1), cols, split=True).reshape(48, 48, 3, 3)
-        one = mm_tf32(g[0].reshape(48, -1), cols, split=False).reshape(48, 48, 3, 3)
+        got = mm_tf32(a, b, split=True).reshape(shape)
+        one = mm_tf32(a, b, split=False).reshape(shape)
     torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=atol)
     assert not torch.allclose(one.double(), want, rtol=1e-4, atol=atol)
 
 
 def test_k2_variant_switches_exist_in_the_source():
-    """``tools/bench_k2_variants.py`` builds ``csrc/conv3x3.cu`` with -D
-    switches; each must be one the source reads, and the port's own build
-    sets none."""
+    """``tools/bench_k2_variants.py`` builds ``csrc/conv3x3.cu`` (K2a, K2b) and
+    ``csrc/fused_block.cu`` (K3) with -D switches; each must be one the
+    source reads, and the port's own build sets none."""
     import importlib.util
     from pathlib import Path
+
+    from contrastiveseg_tpu_torch.ops import block_cuda
 
     path = Path(__file__).resolve().parents[1] / "tools" / "bench_k2_variants.py"
     spec = importlib.util.spec_from_file_location("bench_k2_variants", path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    source = conv_cuda.LIBRARY.source.read_text()
-    assert conv_cuda.LIBRARY.defines == ()
-    for defines in tool.VARIANTS.values():
-        for d in defines:
-            assert d.split("=")[0] in source, d
+    for lib, variants in ((conv_cuda.LIBRARY, tool.VARIANTS),
+                          (block_cuda.LIBRARY, tool.K3_VARIANTS)):
+        source = lib.source.read_text()
+        assert lib.defines == ()
+        for defines in variants.values():
+            for d in defines:
+                assert f"#ifndef {d.split('=')[0]}" in source or \
+                    f"#ifdef {d.split('=')[0]}" in source, d
 
 
 @pytest.mark.parametrize("case,want", [

@@ -115,7 +115,12 @@ def test_k1_wrapper_rejects_bad_inputs_on_card(cuda_device):
 @pytest.mark.parametrize("B,C,Co,H,W", [(2, 48, 48, 32, 256), (2, 48, 48, 16, 40),
                                         (1, 3, 18, 8, 16), (2, 12, 70, 16, 24),
                                         # C = 64; W % 4 != 0: dW's 4-byte copies
-                                        (2, 64, 40, 24, 70)])
+                                        (2, 64, 40, 24, 70),
+                                        # K2a's tile edges: H not a multiple of its 4
+                                        # rows, W ragged by 1-3 past 32 columns, dX
+                                        # with 70 input channels, C = Co = 64
+                                        (1, 48, 48, 18, 33), (2, 16, 70, 10, 34),
+                                        (1, 64, 64, 13, 35)])
 def test_k2_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(B + C + W)
@@ -143,6 +148,17 @@ def test_k2_dw_is_deterministic_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k2_fwd_is_deterministic_on_card(cuda_device):
+    """Each output of K2a (forward and dX) is one block's sum in one order:
+    no split-K, no atomics."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device)
+    w = (torch.randn(48, 48, 3, 3, generator=g) * 0.1).to(cuda_device)
+    for flip in (False, True):
+        assert torch.equal(conv_cuda.conv3x3_fwd(x, w, flip), conv_cuda.conv3x3_fwd(x, w, flip))
+
+
+@pytest.mark.cuda
 def test_k2_autograd_and_checks_on_card(cuda_device):
     x = torch.randn(2, 8, 16, 20, device=cuda_device, requires_grad=True)
     w = torch.randn(8, 8, 3, 3, device=cuda_device, requires_grad=True)
@@ -162,7 +178,10 @@ def test_k2_autograd_and_checks_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,C,H,W", [(2, 48, 32, 40), (1, 5, 8, 9), (1, 64, 24, 70)])
+@pytest.mark.parametrize("B,C,H,W", [(2, 48, 32, 40), (1, 5, 8, 9), (1, 64, 24, 70),
+                                     # K3's tile edges: H not a multiple of its 8 rows,
+                                     # W ragged by 1-3 past 32 columns
+                                     (2, 48, 20, 33), (1, 5, 11, 34), (1, 64, 13, 35)])
 def test_k3_kernel_matches_plain_on_card(cuda_device, dtype, B, C, H, W):
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(C + H)
@@ -180,3 +199,16 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, dtype, B, C, H, W):
         step = 2.0 ** -7 * want.abs().clamp(min=1.0)
         assert bool(((got - want).abs() <= 2 * step).all())
     assert block_cuda.launch_counts() == {"fused_block": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_is_deterministic_on_card(cuda_device, dtype):
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 48, 64, 96, generator=g).to(cuda_device, dtype)
+    args = [(torch.randn(48, 48, 3, 3, generator=g) * 0.1), torch.rand(48, generator=g) + 0.5,
+            torch.randn(48, generator=g) * 0.1, (torch.randn(48, 48, 3, 3, generator=g) * 0.1),
+            torch.rand(48, generator=g) + 0.5, torch.randn(48, generator=g) * 0.1]
+    args = [a.to(cuda_device) for a in args]
+    assert torch.equal(block_cuda.fused_basic_block_eval(x, *args),
+                       block_cuda.fused_basic_block_eval(x, *args))

@@ -29,6 +29,9 @@ _spec.loader.exec_module(prof)
     ("void (anonymous namespace)::conv3x3_dw_tc<6>(float const*, float const*)", "K2"),
     ("_ZN43_GLOBAL__N__conv3x3_cu13dw_sum_splitsEPKfPfii", "K2"),
     ("_ZN47_GLOBAL__N__fused_block_cu17fused_block_tilesIfLi12EEEvPKT_", "K3"),
+    ("void (anonymous namespace)::conv3x3_fwd_tc<3, true>(float const*, float const*)", "K2"),
+    ("void (anonymous namespace)::fused_block_bf16<3>(__nv_bfloat16 const*, float const*)", "K3"),
+    ("void (anonymous namespace)::fused_block_f32<3>(float const*, float const*)", "K3"),
     ("sm90_xmma_dgrad_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "convolution"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>", "convolution"),
     ("void cudnn::batchnorm_bwtr_nhwc_semiPersist<float, float, float>", "batchnorm"),

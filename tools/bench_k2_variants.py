@@ -1,25 +1,36 @@
 #!/usr/bin/env python
-"""What bounds K2b (``conv3x3_dw``): time it built as diagnostic variants.
+"""What bounds K2 (``conv3x3_fwd``, ``conv3x3_dw``) and K3 (``fused_block``):
+time them built as diagnostic variants.
 
     python3 tools/bench_k2_variants.py [--batches 2,8]
 
-Builds ``csrc/conv3x3.cu`` as the port ships it and with its diagnostic
-switches, one nvcc each, all at once: ``K2_PRODUCTS=1`` (the hi.hi TF32
-product alone) and ``=0`` (no products), ``K2_NO_LOADS`` (the products on
-whatever shared memory holds, no segment loads) and ``K2_FLUSH=0`` (the
-hi.hi accumulator runs over a whole split instead of one segment).  Each variant runs
-through the port's wrapper on HRNet-W48 branch 0's dW, x and g of
-[B, 48, 128, 256] fp32 (seeded), and is timed two ways: CUDA events around
-back-to-back calls (``chip_smoke.time_ms``) and each kernel's device time
-under ``torch.profiler`` (``conv3x3_dw_tc`` and ``dw_sum_splits``, per
-call, over 20 calls).  cuDNN's ``conv2d_weight`` is timed beside them.
-Every variant's and cuDNN's max abs error against the same dW in fp64 is
-printed; only the shipped variant is held to the card test's tolerance
-(rtol 1e-4, atol 1e-6 max|dW| + 1e-4), the others are wrong by design or
-are the question.
+Builds ``csrc/conv3x3.cu`` and ``csrc/fused_block.cu`` as the port ships
+them and with their diagnostic switches, one nvcc each, all at once.  K2:
+``K2_PRODUCTS=1`` (the hi.hi TF32 product alone) and ``=0`` (no products),
+``K2_NO_LOADS`` (the products on whatever shared memory holds: no chunk
+loads in K2a, no segment loads in K2b) and ``K2_FLUSH=0`` (K2b's hi.hi
+accumulator runs over a whole split instead of one segment).  K3:
+``K3_PRODUCTS=1`` (fp32: one TF32 product) and ``=0`` (no products) and
+``K3_NO_LOADS`` (no x or weight loads).
 
-Prints one line per (B, variant), then one JSON line of them all, then the
-card's name and power limit.  Needs one CUDA device.
+K2 variants run through the port's wrappers on HRNet-W48 branch 0's x, w and
+g of [B, 48, 128, 256] fp32 (seeded): K2a's forward and dX, K2b's dW.  K3
+variants run on ``tools/bench_block_torch.py``'s inputs, [8, 48, 128, 256]
+in bf16 and fp32.  Each is timed two ways: CUDA events around back-to-back
+calls of the wrapper (``chip_smoke.time_ms``; K3's wrapper also folds the
+BN scales into the weights) and each kernel's device time under
+``torch.profiler`` (``conv3x3_fwd_tc``, ``conv3x3_dw_tc``, ``dw_sum_splits``,
+``fused_block_f32``, ``fused_block_bf16``; per call, over 20 calls).
+cuDNN's ``conv2d`` and ``conv2d_weight`` and K3's plain version are timed
+beside them.  Max abs
+errors: K2 against fp64, K3 against its plain version; only the shipped
+variants are held to the card test's tolerances (K2 rtol 1e-4, atol 1e-4
+on the forward, atol 1e-6 max|dW| + 1e-4 on dW; K3 fp32 rtol 1e-4, atol
+1e-4, bf16 within 2 bf16 steps), the others are wrong by design or are the
+question.
+
+Prints one line per row, then one JSON line of them all, then the card's
+name and power limit.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +51,14 @@ VARIANTS = {
     "no_loads": ("K2_NO_LOADS",),
     "no_flush": ("K2_FLUSH=0",),
 }
+K3_VARIANTS = {
+    "shipped": (),
+    "products_1": ("K3_PRODUCTS=1",),
+    "products_0": ("K3_PRODUCTS=0",),
+    "no_loads": ("K3_NO_LOADS",),
+}
+KERNEL_NAMES = ("conv3x3_fwd_tc", "conv3x3_dw_tc", "dw_sum_splits", "fused_block_f32",
+                "fused_block_bf16")
 
 
 def device_us(fn, calls: int = 20) -> dict[str, float]:
@@ -57,64 +76,139 @@ def device_us(fn, calls: int = 20) -> dict[str, float]:
         torch.cuda.synchronize()
     out = collections.Counter()
     for name, s, t in device_intervals(prof):
-        key = next((k for k in ("conv3x3_dw_tc", "dw_sum_splits") if k in name), name[:40])
+        key = next((k for k in KERNEL_NAMES if k in name), name[:40])
         out[key] += (t - s) / calls
     return dict(out)
+
+
+def variant_libraries(shipped, variants: dict) -> dict:
+    from contrastiveseg_tpu_torch.ops import cuda_lib
+
+    return {name: shipped if not d else cuda_lib.CudaLibrary(
+        shipped.source.name, shipped.signatures, shipped.error_string, shipped.init,
+        defines=d) for name, d in variants.items()}
+
+
+def k2_rows(libs: dict, batches, device) -> list[dict]:
+    import torch
+
+    from chip_smoke import close, time_ms
+    from contrastiveseg_tpu_torch.ops import conv_cuda as k2
+
+    rows = []
+    g = torch.Generator().manual_seed(2)
+    for B in batches:
+        x = torch.randn(B, C, 128, 256, generator=g).to(device)
+        w = (torch.randn(C, C, 3, 3, generator=g) / (3 * C ** 0.5)).to(device)
+        gy = torch.randn(B, C, 128, 256, generator=g).to(device)
+        want_y = torch.nn.functional.conv2d(x.double(), w.double(), padding=1)
+        want_dw = torch.nn.grad.conv2d_weight(x.double(), (C, C, 3, 3), gy.double(), padding=1)
+        atol = 1e-6 * float(want_dw.abs().max()) + 1e-4
+
+        def cudnn():
+            torch.nn.functional.conv2d(x, w, padding=1)
+            torch.nn.grad.conv2d_weight(x, (C, C, 3, 3), gy, padding=1)
+
+        row = {"B": B, "variant": "cudnn",
+               "conv2d_ms": time_ms(lambda: torch.nn.functional.conv2d(x, w, padding=1)),
+               "conv2d_weight_ms": time_ms(
+                   lambda: torch.nn.grad.conv2d_weight(x, (C, C, 3, 3), gy, padding=1)),
+               "device_us": device_us(cudnn),
+               "max_abs_err_fwd_vs_fp64": float(
+                   (torch.nn.functional.conv2d(x, w, padding=1).double() - want_y).abs().max())}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        shipped = k2.LIBRARY
+        for name, lib in libs.items():
+            k2.LIBRARY = lib
+            try:
+                y = k2.conv3x3_fwd(x, w)
+                dw = k2.conv3x3_dw(x, gy)
+                torch.cuda.synchronize()
+                if name == "shipped":
+                    close(f"B={B} forward against fp64", y.double(), want_y, 1e-4, 1e-4)
+                    close(f"B={B} dW against fp64", dw.double(), want_dw, 1e-4, atol)
+
+                def all_three():
+                    k2.conv3x3_fwd(x, w)
+                    k2.conv3x3_fwd(gy, w, True)
+                    k2.conv3x3_dw(x, gy)
+
+                row = {"B": B, "variant": name,
+                       "fwd_ms": time_ms(lambda: k2.conv3x3_fwd(x, w)),
+                       "dx_ms": time_ms(lambda: k2.conv3x3_fwd(gy, w, True)),
+                       "dw_ms": time_ms(lambda: k2.conv3x3_dw(x, gy)),
+                       "device_us_fwd_dx_dw": device_us(all_three),
+                       "max_abs_err_fwd_vs_fp64": float((y.double() - want_y).abs().max()),
+                       "max_abs_err_dw_vs_fp64": float((dw.double() - want_dw).abs().max())}
+            finally:
+                k2.LIBRARY = shipped
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
+def k3_rows(libs: dict, device) -> list[dict]:
+    import torch
+
+    from chip_smoke import time_ms
+    from contrastiveseg_tpu_torch.ops import block_cuda as k3
+    from contrastiveseg_tpu_torch.ops.block import reference_block_eval
+    from tools.bench_block_torch import make_inputs
+
+    rows = []
+    for fp32 in (False, True):
+        args = make_inputs(8, 128, 256, C, fp32, device)
+        want = reference_block_eval(*args).float()
+        rows.append({"dtype": "fp32" if fp32 else "bf16", "variant": "plain",
+                     "ms": time_ms(lambda: reference_block_eval(*args))})
+        print(json.dumps(rows[-1]), flush=True)
+        shipped = k3.LIBRARY
+        for name, lib in libs.items():
+            k3.LIBRARY = lib
+            try:
+                got = k3.fused_basic_block_eval(*args).float()
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                if name == "shipped":
+                    bound = (1e-4 + 1e-4 * want.abs() if fp32
+                             else 2 * 2.0 ** -7 * want.abs().clamp(min=1.0))
+                    if bool((diff > bound).any()):
+                        raise AssertionError(f"K3 {'fp32' if fp32 else 'bf16'} disagrees: "
+                                             f"max abs err {float(diff.max()):.3e}")
+                row = {"dtype": "fp32" if fp32 else "bf16", "variant": name,
+                       "ms": time_ms(lambda: k3.fused_basic_block_eval(*args)),
+                       "device_us": device_us(lambda: k3.fused_basic_block_eval(*args)),
+                       "max_abs_err_vs_plain": float(diff.max())}
+            finally:
+                k3.LIBRARY = shipped
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
 
 
 def main() -> None:
     import torch
 
-    from chip_smoke import card_line, close, time_ms
-    from contrastiveseg_tpu_torch.ops import conv_cuda as k2
-    from contrastiveseg_tpu_torch.ops import cuda_lib
+    from chip_smoke import card_line
+    from contrastiveseg_tpu_torch.ops import block_cuda, conv_cuda, cuda_lib
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batches", default="2,8", help="batch sizes B, comma-separated")
+    ap.add_argument("--batches", default="2,8", help="K2's batch sizes B, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_k2_variants.py needs a CUDA device")
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
-    shipped = k2.LIBRARY
-    libs = {name: shipped if not d else cuda_lib.CudaLibrary(
-        shipped.source.name, shipped.signatures, shipped.error_string, shipped.init,
-        defines=d) for name, d in VARIANTS.items()}
-    built = cuda_lib.build_all(list(libs.values()), force=True)
+    k2_libs = variant_libraries(conv_cuda.LIBRARY, VARIANTS)
+    k3_libs = variant_libraries(block_cuda.LIBRARY, K3_VARIANTS)
+    built = cuda_lib.build_all([*k2_libs.values(), *k3_libs.values()], force=True)
     print(f"built {[(p.name, round(s, 2)) for p, s in built]}")
-
-    results = []
-    g = torch.Generator().manual_seed(2)
-    for B in (int(b) for b in args.batches.split(",")):
-        x = torch.randn(B, C, 128, 256, generator=g).to(device)
-        gy = torch.randn(B, C, 128, 256, generator=g).to(device)
-        want = torch.nn.grad.conv2d_weight(x.double(), (C, C, 3, 3), gy.double(), padding=1)
-        atol = 1e-6 * float(want.abs().max()) + 1e-4
-
-        def cudnn():
-            return torch.nn.grad.conv2d_weight(x, (C, C, 3, 3), gy, padding=1)
-
-        row = {"B": B, "variant": "cudnn_conv2d_weight", "events_ms": time_ms(cudnn),
-               "max_abs_err_vs_fp64": float((cudnn().double() - want).abs().max())}
-        results.append(row)
-        print(json.dumps(row))
-        for name, lib in libs.items():
-            k2.LIBRARY = lib
-            try:
-                dw = k2.conv3x3_dw(x, gy)
-                torch.cuda.synchronize()
-                if name == "shipped":
-                    close(f"B={B} dW against fp64", dw.double(), want, 1e-4, atol)
-                row = {"B": B, "variant": name,
-                       "events_ms": time_ms(lambda: k2.conv3x3_dw(x, gy)),
-                       "device_us": device_us(lambda: k2.conv3x3_dw(x, gy)),
-                       "max_abs_err_vs_fp64": float((dw.double() - want).abs().max())}
-            finally:
-                k2.LIBRARY = shipped
-            results.append(row)
-            print(json.dumps(row))
-    print(json.dumps({"k2b_variants": results}))
+    rows = k2_rows(k2_libs, [int(b) for b in args.batches.split(",")], device)
+    rows += k3_rows(k3_libs, device)
+    print(json.dumps({"k2_k3_variants": rows}))
     print(card_line())
 
 

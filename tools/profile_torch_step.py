@@ -40,10 +40,10 @@ SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]",
 # K1's kernels by their names (K1_KERNELS, also the breakdown's keys); a
 # mangled name holds the source's, csrc/contrast_infonce.cu.
 K1_KERNELS = ("pass1_tc", "pass1_merge", "pass2_tc", "bwd_tc", "sum_splits")
-K2_KERNELS = ("conv3x3_fwd_tiles", "conv3x3_dw", "dw_sum_splits")
+K2_KERNELS = ("conv3x3_fwd", "conv3x3_dw", "dw_sum_splits")
 CATEGORIES = (  # K2 before K1 and the convolutions: its names hold theirs
     ("K2", K2_KERNELS),
-    ("K3", ("fused_block_tiles",)),
+    ("K3", ("fused_block",)),
     ("K1", ("contrast_infonce",) + K1_KERNELS),
     ("convolution (cuDNN, with its layout transforms)",
      ("conv", "dgrad", "wgrad", "fprop", "nhwctonchw", "nchwtonhwc")),
