@@ -32,7 +32,25 @@ Phases (any failure raises, so the run exits non-zero):
      anchor scores; losses within rtol 1e-4, each branch-0 conv weight
      gradient within 2e-2 in relative norm (``GRAD_REL_NORM``);
   8. K3's path, ``tools/bench_block_torch.py``, in bf16 and fp32;
-  9. a JSON line of the six kernels, the card line, and the result line.
+  9. the directory slice: a Cityscapes-layout tree written under
+     ``build/chip_smoke_data/`` (8 train and 4 val frames of 1024x2048, raw
+     Cityscapes ids, each PNG beside its ``.npy_cache`` sidecar, so that no
+     PNG is decoded and PIL is not needed), then 3 steps of the headline at
+     the recipe's batch 8 from it through the data pipeline (the preset's
+     transforms, ``data.workers`` and pinned prefetch), validation over the
+     4 val frames at 2048x1024; >= 3 launches of each K1 kernel, the first
+     device batch bit-identical to the pipeline's host batch, segdata loaded
+     from ``build/segdata/`` with no fallback; each step's time and data
+     wait, the pipeline's host seconds a batch alone at 1 and 4 workers,
+     val images/s and the peak memory;
+ 10. a JSON line of the six kernels, the card line, and the result line.
+
+The slices read their batches through the port's data pipeline
+(``data/pipeline.py``): the synthetic ones get the preset's train
+transforms (scale 0.5-2.0, crop 1024x512) and validate at
+``val.data_transformer`` (2048x1024).  ``solver.display_iter=1`` gives each
+step its own time.  Segdata (``native/segdata.cpp``) is built with ``g++``
+beside the CUDA libraries; a failed build fails the run.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernel-vs-plain launches of phases 3-4 are not counted.  Kernel times
@@ -68,7 +86,8 @@ GRAD_REL_NORM = 2e-2
 # every fp32 kernel here is held to (tests/test_torch_port_k1.py emulates it).
 PEAK_FLOPS = {"fp32": 495e12 / 3, "fp32_simt": 67e12, "bf16": 989e12}
 SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]", "train.batch_size=2",
-         "contrast.warmup_iters=0", "solver.max_iters=3"]
+         "contrast.warmup_iters=0", "solver.max_iters=3", "solver.display_iter=1"]
+ROOT = Path(__file__).resolve().parent
 
 
 def card_line() -> str:
@@ -333,13 +352,26 @@ def slice_config(extra: list[str]):
     return build_config("cityscapes_hrnet_w48_mem", None, SLICE + extra)
 
 
+def pipeline_batch(cfg, device) -> dict:
+    """The train pipeline's first batch, on ``device``."""
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.prefetch import device_batches
+
+    batches = device_batches(build_pipeline(cfg, "train").iter_from(0), device)
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
 def check_history(history, launches: dict, want: dict, what: str) -> None:
     import torch
 
     for i, row in enumerate(history):
         print(f"{what} step {i + 1}: loss {row['loss']:.6f} seg "
               f"{row['loss_seg']:.6f} contrast {row['loss_contrast']:.6f} "
-              f"time {row['seconds'] * 1e3:.1f} ms")
+              f"time {row['seconds'] * 1e3:.1f} ms, data wait "
+              f"{row['data_seconds'] * 1e3:.1f} ms")
     for row in history:
         for key in ("loss", "loss_seg", "loss_contrast"):
             if not torch.isfinite(torch.tensor(row[key])):
@@ -377,7 +409,7 @@ def run_slice(device) -> dict:
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
 
-    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     cfg = slice_config(["solver.test_interval=0", "checkpoints.save_iters=0",
                         f"checkpoints.checkpoints_dir={ckpt_dir / 'off'}"])
     trainer = Trainer(cfg, device)
@@ -410,16 +442,14 @@ def run_slice(device) -> dict:
 
     # The trained model's contrast loss through K1 against the plain
     # version, on the same outputs, anchor draws and bank.
-    from contrastiveseg_tpu_torch.data.synthetic import synthetic_batches
     from contrastiveseg_tpu_torch.losses.manager import build_loss
     from contrastiveseg_tpu_torch.ops.contrast import hard_anchor_sample
     from contrastiveseg_tpu_torch.ops.contrast_stream import streaming_contrastive_loss
     from contrastiveseg_tpu_torch.ops.queue import bank_as_contrast_set
     from contrastiveseg_tpu_torch.ops.resize import scale_target_nearest
 
-    batch = next(synthetic_batches(cfg, 2))
-    images = batch["image"].to(device)
-    labels = batch["label"].to(device)
+    batch = pipeline_batch(cfg, device)
+    images, labels = batch["image"], batch["label"]
     with torch.no_grad():
         out = state.model.eval()(images)
     B, h, w, D = out["embed"].shape
@@ -456,7 +486,7 @@ def run_flagged_slice(device) -> dict:
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
 
-    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt" / "on"
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt" / "on"
     cfg = slice_config(["network.pallas_conv=true", "solver.test_interval=3",
                         "checkpoints.save_iters=0", "data.synthetic_length=4",
                         "val.batch_size=2", f"checkpoints.checkpoints_dir={ckpt_dir}"])
@@ -474,7 +504,8 @@ def run_flagged_slice(device) -> dict:
     scores = trainer.last_scores
     if not (0.0 <= scores.get("miou", -1.0) <= 1.0):
         raise AssertionError(f"validation gave no mIoU in [0, 1]: {scores}")
-    print(f"flag-on slice validation (4 scenes, 512x1024): mIoU {scores['miou']:.4f} "
+    print(f"flag-on slice validation (4 synthetic scenes of 512x1024, padded to "
+          f"1024x2048): mIoU {scores['miou']:.4f} "
           f"pixel_acc {scores['pixel_acc']:.4f}, {scores['images_per_sec']:.2f} img/s")
     print(f"flag-on slice step time steps 2-3: "
           f"{[round(r['seconds'] * 1e3, 1) for r in history[1:]]} ms; "
@@ -508,7 +539,6 @@ def flag_on_equals_off(device) -> None:
     and anchor and enqueue scores."""
     import torch
 
-    from contrastiveseg_tpu_torch.data.synthetic import synthetic_batches
     from contrastiveseg_tpu_torch.engine.state import create_train_state
     from contrastiveseg_tpu_torch.engine.train_step import Draws, make_train_step
     from contrastiveseg_tpu_torch.losses.contrast import AnchorScores
@@ -518,8 +548,8 @@ def flag_on_equals_off(device) -> None:
     results = {}
     for flag in (False, True):
         cfg = slice_config([f"network.pallas_conv={flag}"])
-        batch = {k: v.to(device) for k, v in next(synthetic_batches(cfg, 2)).items()}
-        h, w = cfg.get("data.synthetic_size")
+        batch = pipeline_batch(cfg, device)
+        _, h, w, _ = batch["image"].shape
         C, n = cfg.get("data.num_classes"), (h // 4) * (w // 4)
         g = torch.Generator(device=device).manual_seed(11)
         draws = Draws(AnchorScores(torch.rand((2, C, n), generator=g, device=device),
@@ -568,6 +598,159 @@ def run_block_bench() -> dict:
     return out
 
 
+def png_bytes(a) -> bytes:
+    """An 8-bit grey (HxW) or RGB (HxWx3) PNG of ``a``, every row filter 0."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = a.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, -1)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if a.ndim == 3 else 0, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
+                  seed: int = 0) -> None:
+    """A Cityscapes-layout tree, {root}/{split}/image|label/*.png, each PNG
+    beside its ``.npy_cache/<name>.png.npy`` sidecar (the decoded array, as
+    ``tools/cache_dataset.py`` writes it; written after the PNG, so fresh).
+    The frames are the synthetic scenes with raw Cityscapes ids; the bottom
+    sixteenth of each is raw id 0 (unlabeled), which relabels to -1."""
+    import numpy as np
+
+    from contrastiveseg_tpu_torch.data.datasets import (
+        CITYSCAPES_LABEL_LIST,
+        SyntheticSegDataset,
+    )
+
+    raw_ids = np.asarray(CITYSCAPES_LABEL_LIST, np.uint8)
+    scenes = SyntheticSegDataset(19, hw, n_train + n_val, seed=seed)
+    for i in range(n_train + n_val):
+        split, name = ("train", f"f{i}") if i < n_train else ("val", f"f{i - n_train}")
+        scene = scenes[i]
+        label = raw_ids[scene["label"]]
+        label[-(hw[0] // 16):] = 0
+        for kind, array in (("image", scene["image"]), ("label", label)):
+            d = root / split / kind
+            (d / ".npy_cache").mkdir(parents=True, exist_ok=True)
+            (d / f"{name}.png").write_bytes(png_bytes(array))
+            np.save(d / ".npy_cache" / f"{name}.png.npy", array)
+
+
+def pipeline_seconds(cfg, workers: int, repeat: int = 4) -> float:
+    """Host seconds a batch of the train pipeline alone, over one epoch of
+    the train frames listed ``repeat`` times (so that workers >= 2 have
+    batches to overlap)."""
+    from contrastiveseg_tpu_torch.data.datasets import build_dataset
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+
+    cfg = cfg.updated("data.workers", workers)
+    dataset = build_dataset(cfg, "train")
+    dataset.items = dataset.items * repeat
+    pipe = build_pipeline(cfg, "train", dataset=dataset)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in pipe.epoch_iter(0))
+    return (time.perf_counter() - t0) / n
+
+
+def run_directory_slice(device) -> dict:
+    """The headline at batch 8 from a Cityscapes-layout directory."""
+    import importlib.util
+    import sys
+
+    import torch
+
+    from contrastiveseg_tpu_torch.data import native
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from tools.train_torch import build_config
+
+    pil_loaded = "PIL.Image" in sys.modules
+    data_dir = ROOT / "build" / "chip_smoke_data"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_dataset(data_dir)
+    print(f"directory slice: wrote 8 train and 4 val frames of 1024x2048 (PNG and "
+          f".npy_cache) in {time.perf_counter() - t0:.1f} s")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt" / "dir"
+    cfg = build_config("cityscapes_hrnet_w48_mem", None, [
+        "data.synthetic=False", f"data.data_dir={data_dir}", "contrast.warmup_iters=0",
+        "solver.max_iters=3", "solver.display_iter=1", "solver.test_interval=0",
+        "checkpoints.save_iters=0", f"checkpoints.checkpoints_dir={ckpt_dir}"])
+    if (cfg.get("train.batch_size"), cfg.get("train_trans.random_crop.crop_size"),
+            cfg.get("train_trans.random_resize.scale_range")) != (8, [1024, 512], [0.5, 2.0]):
+        raise AssertionError("the directory slice must run the recipe's batch 8, crop and scales")
+    trainer = Trainer(cfg, device)
+    first = []
+    step = trainer.train_step
+
+    def keep_first(state, batch):
+        if not first:
+            first.append({k: v.clone() for k, v in batch.items()})
+        return step(state, batch)
+
+    trainer.train_step = keep_first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    check_history(history, launches, {n: 3 for n in k1.KERNELS}, "directory slice")
+    if any(launches[n] for n in ("conv3x3_fwd", "conv3x3_dw", "fused_block")):
+        raise AssertionError(f"the directory slice launched K2 or K3: {launches}")
+
+    host = next(build_pipeline(cfg, "train").iter_from(0))
+    got = first[0]
+    if tuple(got["image"].shape) != (8, 512, 1024, 3) or not (
+            torch.equal(got["image"].cpu(), torch.from_numpy(host["image"]))
+            and torch.equal(got["label"].cpu(), torch.from_numpy(host["label"]).long())):
+        raise AssertionError("the first device batch differs from the pipeline's host batch")
+    ignored = float((got["label"] == -1).float().mean())
+    print(f"directory slice: first device batch {list(got['image'].shape)} equals the "
+          f"pipeline's host batch bit for bit ({ignored:.3f} of its labels are -1)")
+
+    scores = trainer.validate()
+    if not (0.0 <= scores["miou"] <= 1.0):
+        raise AssertionError(f"directory validation gave no mIoU in [0, 1]: {scores}")
+    print(f"directory slice validation (4 frames of 1024x2048, batch 4): mIoU "
+          f"{scores['miou']:.4f} pixel_acc {scores['pixel_acc']:.4f}, "
+          f"{scores['images_per_sec']:.3f} val images/s")
+
+    route = native.LIBRARY.route()
+    if Path(route).parent != ROOT / "build" / "segdata" or native.LIBRARY.fallbacks:
+        raise AssertionError(f"segdata came from {route} with {native.LIBRARY.fallbacks} "
+                             "numpy fallbacks; expected the build in build/segdata/ and none")
+    if not pil_loaded and "PIL.Image" in sys.modules:
+        raise AssertionError("the directory slice decoded a PNG through PIL")
+    print(f"segdata: {Path(route).relative_to(ROOT)}, 0 numpy fallbacks; PIL importable: "
+          f"{importlib.util.find_spec('PIL') is not None}, not imported by the phase")
+    host_s = {w: pipeline_seconds(cfg, w) for w in (1, 4)}
+    steps = history[1:]
+    print(f"directory slice at batch 8: steps 2-3 "
+          f"{[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
+          f"{[round(r['data_seconds'] * 1e3, 1) for r in steps]} ms a step (step 1: "
+          f"{history[0]['seconds'] * 1e3:.1f} ms, data wait "
+          f"{history[0]['data_seconds'] * 1e3:.1f} ms); pipeline alone "
+          f"{host_s[1]:.3f} s a batch at 1 worker, {host_s[4]:.3f} s at 4; peak memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated)")
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return {"launches": launches, "history": history, "peak": peak, "scores": scores,
+            "host_seconds": host_s}
+
+
 def main() -> None:
     import torch
 
@@ -583,13 +766,20 @@ def main() -> None:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t_start = time.perf_counter()
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from contrastiveseg_tpu_torch.data import native
     from contrastiveseg_tpu_torch.ops import block_cuda, contrast_cuda, conv_cuda, cuda_lib
 
     libraries = [contrast_cuda.LIBRARY, conv_cuda.LIBRARY, block_cuda.LIBRARY]
     t0 = time.perf_counter()
-    built = cuda_lib.build_all(libraries, force=True)
-    print(f"built {[(p.name, round(s, 2)) for p, s in built]} in "
-          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+    with ThreadPoolExecutor(1) as pool:
+        segdata = pool.submit(native.LIBRARY.build)
+        built = cuda_lib.build_all(libraries, force=True)
+        segdata_path = segdata.result()
+    print(f"built {[(p.name, round(s, 2)) for p, s in built]} and "
+          f"{segdata_path.relative_to(ROOT)} (g++) in {time.perf_counter() - t0:.2f} s "
+          f"(one compiler each, in parallel)")
     spills = []
     for lib in libraries:
         entry = None
@@ -610,20 +800,23 @@ def main() -> None:
     print(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
     sl = run_slice(device)
     on = run_flagged_slice(device)
-    shutil.rmtree(Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt",
-                  ignore_errors=True)
     flag_on_equals_off(device)
     blk = run_block_bench()
+    dr = run_directory_slice(device)
+    shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
           f" ms, peak {sl['peak'] / 2**30:.3f} GiB; flag-on slice: steps 2-3 "
           f"{[round(r['seconds'] * 1e3, 1) for r in on['history'][1:]]} ms, peak "
-          f"{on['peak'] / 2**30:.3f} GiB (same call, same card)")
+          f"{on['peak'] / 2**30:.3f} GiB; directory slice at batch 8: steps 2-3 "
+          f"{[round(r['seconds'] * 1e3, 1) for r in dr['history'][1:]]} ms, peak "
+          f"{dr['peak'] / 2**30:.3f} GiB (same call, same card)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
         row = {"name": name, "route": "cuda",
                "source": "contrastiveseg_tpu_torch/csrc/contrast_infonce.cu",
                "replaces": replaces, "launches": sl["launches"][name],
+               "launches_directory_slice": dr["launches"][name],
                "max_abs_err": k1["errs"][name], "library_ms": None,
                "shape": "M=38 K=190000 D=256"}
         for case, sfx in (("main_path", ""), ("recipe_b8", "_m152"), ("headline", "_m1024")):

@@ -1,1 +1,1 @@
-"""Data of the port: synthetic scenes, normalization, batch stacking."""
+"""Data of the port: datasets, transforms, collate and the host pipeline."""

@@ -20,6 +20,7 @@ from typing import Iterable, Sequence
 import torch
 from torch import nn
 
+from contrastiveseg_tpu_torch.engine.prefetch import device_batches
 from contrastiveseg_tpu_torch.metrics.running_score import RunningScore
 from contrastiveseg_tpu_torch.ops.confusion import confusion_matrix
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -56,8 +57,9 @@ class Evaluator:
         return confusion_matrix(seg.argmax(-1), labels, self.num_classes)
 
     def run(self, batches: Iterable[dict], device: torch.device | str) -> dict:
-        """Scores over ``batches`` ({"image", "label"} CPU tensors), with the
-        model in eval mode (its mode is restored after)."""
+        """Scores over ``batches`` (numpy {"image", "label"}, as the val
+        pipeline gives them; copied through ``engine/prefetch.device_batches``),
+        with the model in eval mode (its mode is restored after)."""
         device = torch.device(device)
         was_training = self.model.training
         self.model.eval()
@@ -67,11 +69,9 @@ class Evaluator:
         n_images = 0
         t0 = time.perf_counter()
         try:
-            for batch in batches:
-                images = batch["image"].to(device, non_blocking=True)
-                labels = batch["label"].to(device, non_blocking=True)
-                total += self.confusion(images, labels)
-                n_images += images.shape[0]
+            for batch in device_batches(batches, device):
+                total += self.confusion(batch["image"], batch["label"])
+                n_images += batch["image"].shape[0]
             self.score.update_confusion(total)  # syncs the device
         finally:
             self.model.train(was_training)

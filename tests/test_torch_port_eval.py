@@ -26,7 +26,9 @@ from contrastiveseg_tpu.engine.evaluator import Evaluator as JEvaluator
 from contrastiveseg_tpu.metrics.running_score import RunningScore as JRunningScore
 from contrastiveseg_tpu.models.nets import HRNetSeg as JHRNetSeg
 from contrastiveseg_tpu.ops.confusion import confusion_matrix as jconfusion_matrix
-from contrastiveseg_tpu_torch.data.synthetic import SyntheticSegDataset, collate
+from contrastiveseg_tpu_torch.data.collate import collate
+from contrastiveseg_tpu_torch.data.datasets import SyntheticSegDataset
+from contrastiveseg_tpu_torch.data.transforms import Normalizer
 from contrastiveseg_tpu_torch.engine.checkpoint import CheckpointManager
 from contrastiveseg_tpu_torch.engine.evaluator import Evaluator, build_evaluator
 from contrastiveseg_tpu_torch.engine.trainer import Trainer
@@ -87,7 +89,8 @@ def test_evaluator_miou_matches_jax(monkeypatch):
     pm = HRNetSeg(C, "hrnet18", head_dropout=0.0)
     load_jax_variables(pm, variables)
     ds = SyntheticSegDataset(num_classes=C, size_hw=HW, length=4)
-    batches = [collate([ds[i], ds[i + 1]]) for i in (0, 2)]
+    batches = [collate([ds[i], ds[i + 1]], input_size=HW[::-1], normalizer=Normalizer())
+               for i in (0, 2)]
 
     # Running statistics from the scenes themselves, so the eval forward is
     # as well conditioned as a trained net's (see test_torch_port_model).
@@ -95,7 +98,7 @@ def test_evaluator_miou_matches_jax(monkeypatch):
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = 1.0
     with torch.no_grad():
-        pm.train()(torch.cat([b["image"] for b in batches]))
+        pm.train()(torch.from_numpy(np.concatenate([b["image"] for b in batches])))
     sd = pm.state_dict()
 
     def fill(tree, prefix=()):
@@ -107,8 +110,7 @@ def test_evaluator_miou_matches_jax(monkeypatch):
     with jax.disable_jit():
         want = jev.run(
             variables["params"], stats,
-            [{"image": b["image"].numpy(), "label": b["label"].numpy().astype(np.int32)}
-             for b in batches])
+            [{"image": b["image"], "label": b["label"]} for b in batches])
     ev = Evaluator(pm, C)
     got = ev.run(batches, "cpu")
     assert pm.training  # the evaluator restores the model's mode

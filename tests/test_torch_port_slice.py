@@ -43,7 +43,8 @@ from contrastiveseg_tpu.losses.manager import build_loss as jbuild_loss
 from contrastiveseg_tpu.models.nets import build_model as jbuild_model
 from contrastiveseg_tpu.ops.queue import MemoryBank as JBank
 from contrastiveseg_tpu.presets import get_preset
-from contrastiveseg_tpu_torch.data.synthetic import SyntheticSegDataset, collate
+from contrastiveseg_tpu_torch.data.datasets import SyntheticSegDataset
+from contrastiveseg_tpu_torch.data.transforms import Normalizer
 from contrastiveseg_tpu_torch.engine.state import create_train_state
 from contrastiveseg_tpu_torch.engine.train_step import Draws, make_train_step
 from contrastiveseg_tpu_torch.losses.contrast import AnchorScores
@@ -86,7 +87,10 @@ def _batch(cfg, h=H, w=W):
     for i, s in enumerate(samples):  # the port's scenes are the JAX package's
         np.testing.assert_array_equal(s["image"], jds[i]["image"])
         np.testing.assert_array_equal(s["label"], jds[i]["label"])
-    return collate(samples, cfg.get("normalize"))
+    n = cfg.get("normalize")
+    norm = Normalizer(n["div_value"], n["mean_value"], n["std"])
+    return {"image": torch.from_numpy(np.stack([norm(s["image"]) for s in samples])),
+            "label": torch.from_numpy(np.stack([s["label"] for s in samples]).astype(np.int64))}
 
 
 def _bank(cfg, seed=3):
@@ -221,8 +225,9 @@ def test_trainer_refuses_what_is_not_ported():
     cfg = _config()
     check_supported(cfg)
     check_supported(cfg.updated("solver.test_interval", 2))  # the evaluator is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP 9"):
-        check_supported(cfg.updated("data.synthetic", False))
+    check_supported(cfg.updated("data.synthetic", False))  # the data pipeline is ported
+    with pytest.raises(NotImplementedError, match="ROADMAP 7"):
+        check_supported(cfg.updated("data.synthetic", False).updated("data.loader", "lip"))
     with pytest.raises(NotImplementedError, match="ROADMAP 12"):
         check_supported(cfg.updated("network.freeze_bn", True))
     with pytest.raises(NotImplementedError, match="ROADMAP 12"):

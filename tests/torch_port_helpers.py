@@ -7,6 +7,7 @@ JAX package and its PyTorch port.
 from __future__ import annotations
 
 import contextlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -181,3 +182,29 @@ def mm_tf32(x, y, split: bool):
         return xh @ yh.T
     xl, yl = tf32(x - xh), tf32(y - yh)
     return xh @ yh.T + (xh @ yl.T + xl @ yh.T)
+
+
+def write_tree(root: Path, n_train: int = 6, n_val: int = 2, hw=(96, 192), seed: int = 0):
+    """A Cityscapes-layout tree, {root}/{split}/image|label/*.png: Voronoi-ish
+    scenes of raw Cityscapes ids (0 among them, which relabels to -1)."""
+    from PIL import Image
+
+    from contrastiveseg_tpu_torch.data.datasets import CITYSCAPES_LABEL_LIST
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    raw_ids = np.asarray([0] + CITYSCAPES_LABEL_LIST[:4])
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / split / "image").mkdir(parents=True)
+        (root / split / "label").mkdir(parents=True)
+        for i in range(n):
+            cy, cx = rng.uniform(0, h, 8), rng.uniform(0, w, 8)
+            yy, xx = np.mgrid[0:h, 0:w]
+            near = np.argmin((yy[None] - cy[:, None, None]) ** 2
+                             + (xx[None] - cx[:, None, None]) ** 2, axis=0)
+            label = raw_ids[rng.integers(0, len(raw_ids), 8)][near].astype(np.uint8)
+            image = rng.uniform(0, 255, (len(raw_ids), 3))[np.searchsorted(raw_ids, label)]
+            image = np.clip(image + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(image).save(root / split / "image" / f"f{i}.png")
+            Image.fromarray(label).save(root / split / "label" / f"f{i}.png")
+    return root

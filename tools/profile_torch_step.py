@@ -2,7 +2,7 @@
 """Where the time of the port's train step goes, on one CUDA device.
 
     python tools/profile_torch_step.py [--preset cityscapes_hrnet_w48_mem]
-        [--steps 6] [--warmup 3] [key.path=value ...]
+        [--steps 6] [--warmup 3] [--eval] [--cudnn-benchmark] [key.path=value ...]
 
 Defaults: the headline preset at full HRNet-W48 width, batch 2 of 512x1024
 synthetic scenes, contrast live from step 0 (the ``chip_smoke.py`` slice).
@@ -19,6 +19,14 @@ kernel, memcpy and memset intervals), the idle share of that window
 (1 - busy / wall), and the kernel time per step by category, with each
 category's three longest kernels and K1's kernels by name.  The last line of stdout is one JSON object of these
 numbers.  TF32 is off for matmuls and cuDNN, as in ``tools/train_torch.py``.
+
+With ``--eval`` a "step" is the evaluator's work on one val batch instead
+(``Evaluator.confusion``: the eval-mode forward, the upsample of the logits
+to the label's size, argmax and confusion), at ``val.batch_size`` from the
+val pipeline (the headline pads the scenes to 2048x1024).  With
+``--cudnn-benchmark``, cuDNN times its algorithms for each new shape and
+keeps the fastest (``torch.backends.cudnn.benchmark``) instead of taking
+its heuristics' pick; the warm-up steps absorb that search.
 """
 
 from __future__ import annotations
@@ -96,25 +104,38 @@ def main() -> None:
     ap.add_argument("--preset", default="cityscapes_hrnet_w48_mem")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--eval", action="store_true",
+                    help="profile the evaluator on val batches, not the train step")
+    ap.add_argument("--cudnn-benchmark", action="store_true",
+                    help="let cuDNN time its algorithms per shape (torch.backends.cudnn.benchmark)")
     ap.add_argument("overrides", nargs="*", help="key.path=value, after the slice's")
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from contrastiveseg_tpu_torch.data.synthetic import synthetic_batches
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.prefetch import device_batches
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
     from tools.train_torch import build_config, require_device
 
     device = require_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     cfg = build_config(args.preset, None, SLICE + args.overrides)
     trainer = Trainer(cfg, device)
-    batches = synthetic_batches(cfg, cfg.get("train.batch_size"))
-    bs = [{k: v.to(device) for k, v in next(batches).items()} for _ in range(2)]
+    host = (build_pipeline(cfg, "val").epoch_iter(0) if args.eval
+            else build_pipeline(cfg, "train").iter_from(0))
+    batches = device_batches(host, device)
+    bs = [next(batches) for _ in range(2)]
+    batches.close()
+    if args.eval:
+        trainer.state.model.eval()
 
     def step(i):
+        if args.eval:
+            return trainer.evaluator.confusion(bs[i % 2]["image"], bs[i % 2]["label"])
         return trainer.train_step(trainer.state, bs[i % 2])
 
     for i in range(args.warmup):
@@ -149,6 +170,8 @@ def main() -> None:
     total = sum(cats.values())
     n = args.steps
 
+    print(f"{'evaluator' if args.eval else 'train step'} on batches of "
+          f"{list(bs[0]['image'].shape)}")
     print(f"unprofiled step ms: {[round(t, 3) for t in step_ms]} "
           f"(median {statistics.median(step_ms):.3f})")
     print(f"profiled window: {n} steps, wall {wall_ms:.3f} ms "
@@ -163,7 +186,8 @@ def main() -> None:
     print(f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
     print(json.dumps({
         "device": torch.cuda.get_device_name(device),
-        "steps": n, "step_ms": step_ms, "profiled_wall_ms": wall_ms,
+        "eval": args.eval, "cudnn_benchmark": args.cudnn_benchmark,
+        "batch_shape": list(bs[0]["image"].shape), "steps": n, "step_ms": step_ms, "profiled_wall_ms": wall_ms,
         "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "device_ms_per_step": {c: ms / n for c, ms in cats.items()},
         "k1_ms_per_step": {c: ms / n for c, ms in k1.items()},

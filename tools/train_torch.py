@@ -7,8 +7,11 @@ Mirrors ``tools/train.py``:
         [--config extra.json] [--device cuda] [key.path=value ...]
 
 Only ``--phase train`` is ported.  With ``--device cuda`` (the default) the
-run fails when CUDA is absent; it never falls back to the CPU.  The port
-reads only synthetic data so far (``data.synthetic=true``).
+run fails when CUDA is absent; it never falls back to the CPU.  Data comes
+from a Cityscapes-layout directory (``data.data_dir=...``, holding
+``{split}/image`` and ``{split}/label``; PNGs decode through PIL unless
+their ``.npy_cache`` sidecars are fresh) or, with ``data.synthetic=true``,
+from synthetic scenes.
 """
 
 from __future__ import annotations
