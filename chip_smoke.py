@@ -43,7 +43,26 @@ Phases (any failure raises, so the run exits non-zero):
      from ``build/segdata/`` with no fallback; each step's time and data
      wait, the pipeline's host seconds a batch alone at 1 and 4 workers,
      val images/s and the peak memory;
- 10. a JSON line of the six kernels, the card line, and the result line.
+ 10. the plain phase: ``cityscapes_hrnet_w48`` (no projection head, CE on
+     logits upsampled inside the model) for 3 steps at batch 8 from the same
+     tree; validation over the 4 val frames at 2048x1024 with
+     ``val.batch_size=2`` (the preset's 4 meets cuDNN's slow FFT choice);
+     ``latest`` saved and resumed into a new trainer, step, weights, BN
+     statistics and momentum bit for bit; 0 K1 launches;
+ 11. the contrast phase: ``cityscapes_hrnet_w48_contrast`` (the anchors'
+     InfoNCE against each other, no bank) for 3 steps at batch 8 from the
+     tree, ``contrast.warmup_iters=0``; each step's anchor count M and a
+     positive contrast term; 0 K1 launches;
+ 12. the pretrained phase: an ImageNet-layout and an HRNet_W48_MEM-layout
+     ``.pth`` written under ``build/`` from a freshly initialised port W48
+     (the latter with 19 x 5000 x 256 queues); the headline started from
+     each and the plain preset from the ImageNet one through
+     ``network.pretrained``, every loaded tensor equal to the file's on the
+     device and the bank equal to the queues; 2 steps at batch 2 from the
+     MEM file with >= 1 launch of each K1 kernel;
+ 13. a JSON line of the six kernels, the card line, and the result line.
+
+Phases 10-12 print their step times, peak memory and wall time.
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
@@ -746,9 +765,212 @@ def run_directory_slice(device) -> dict:
           f"{peak / 2**30:.3f} GiB (max_memory_allocated)")
     del trainer
     torch.cuda.empty_cache()
-    shutil.rmtree(data_dir, ignore_errors=True)
     return {"launches": launches, "history": history, "peak": peak, "scores": scores,
-            "host_seconds": host_s}
+            "host_seconds": host_s, "data_dir": data_dir}
+
+
+def directory_config(preset: str, data_dir: Path, ckpt_dir: Path, extra: list[str]):
+    from tools.train_torch import build_config
+
+    return build_config(preset, None, [
+        "data.synthetic=False", f"data.data_dir={data_dir}", "solver.display_iter=1",
+        "solver.test_interval=0", "checkpoints.save_iters=0",
+        f"checkpoints.checkpoints_dir={ckpt_dir}"] + extra)
+
+
+def train_phase(trainer, device, what: str) -> tuple[list, dict, int]:
+    """Train ``trainer`` with the launch counts and the peak memory reset
+    just before; returns its history, the launches and the peak."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    launches, peak = read_counts(), torch.cuda.max_memory_allocated(device)
+    for i, row in enumerate(history):
+        for key in ("loss", "loss_seg") + (("loss_contrast",) if "loss_contrast" in row else ()):
+            if not torch.isfinite(torch.tensor(row[key])):
+                raise AssertionError(f"{what}: non-finite {key}: {row}")
+        print(f"{what} step {i + 1}: " + " ".join(
+            f"{k} {v:.6f}" for k, v in row.items() if k.startswith("loss"))
+            + f" time {row['seconds'] * 1e3:.1f} ms, data wait {row['data_seconds'] * 1e3:.1f} ms")
+    print(f"{what}: peak memory {peak / 2**30:.3f} GiB (max_memory_allocated); "
+          f"launches {json.dumps(launches)}")
+    return history, launches, peak
+
+
+def no_k1(launches: dict, what: str) -> None:
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+
+    if any(launches[n] for n in k1.KERNELS):
+        raise AssertionError(f"{what} has no bank but launched K1: {launches}")
+
+
+def same_state(a, b) -> bool:
+    """Step, every model tensor and every momentum buffer, bit for bit."""
+    import torch
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (a.step == b.step and sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(a.optimizer.state[p]["momentum_buffer"],
+                                b.optimizer.state[q]["momentum_buffer"])
+                    for p, q in zip(a.model.parameters(), b.model.parameters())))
+
+
+def run_plain_phase(device, data_dir: Path) -> dict:
+    """cityscapes_hrnet_w48 (no projection head, CE only) at batch 8 from the
+    directory; validation at 2048x1024; a checkpoint round trip."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+
+    cfg = directory_config("cityscapes_hrnet_w48", data_dir,
+                           ROOT / "build" / "chip_smoke_ckpt" / "plain",
+                           ["solver.max_iters=3", "val.batch_size=2"])
+    if cfg.get("train.batch_size") != 8 or cfg.get("loss.loss_type") != "fs_ce_loss":
+        raise AssertionError("the plain phase must run the preset's batch 8 and fs_ce_loss")
+    trainer = Trainer(cfg, device)
+    if trainer.state.bank is not None or trainer.state.model.proj_head is not None:
+        raise AssertionError("cityscapes_hrnet_w48 built a bank or a projection head")
+    history, launches, peak = train_phase(trainer, device, "plain phase")
+    no_k1(launches, "the plain phase")
+    print("plain phase validation: val.batch_size overridden from the preset's "
+          f"{directory_config('cityscapes_hrnet_w48', data_dir, ROOT, []).get('val.batch_size')}"
+          " to 2 (cuDNN's algorithm choice at batch 4 takes ~20 s a batch, PERF.md section 5)")
+    scores = trainer.validate()
+    if not (0.0 <= scores["miou"] <= 1.0):
+        raise AssertionError(f"plain validation gave no mIoU in [0, 1]: {scores}")
+    print(f"plain phase validation (4 frames of 1024x2048, batch 2): mIoU "
+          f"{scores['miou']:.4f} pixel_acc {scores['pixel_acc']:.4f}, "
+          f"{scores['images_per_sec']:.3f} val images/s")
+    path = trainer.ckpt._path("latest")
+    resumed = Trainer(cfg.updated("network.resume", path), device)
+    if resumed.state.step != 3 or not same_state(trainer.state, resumed.state):
+        raise AssertionError("the plain checkpoint did not restore the trained state bit for bit")
+    print(f"plain phase checkpoint round trip: {Path(path).name} "
+          f"({Path(path).stat().st_size / 2**20:.1f} MiB) restored at step 3, every weight, "
+          "BN statistic and momentum buffer equal")
+    del trainer, resumed
+    torch.cuda.empty_cache()
+    return {"history": history, "peak": peak, "scores": scores}
+
+
+def run_contrast_phase(device, data_dir: Path) -> dict:
+    """cityscapes_hrnet_w48_contrast (InfoNCE of the anchors against each
+    other, no bank) at batch 8 from the directory, contrast live from step 0."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops import contrast
+
+    cfg = directory_config("cityscapes_hrnet_w48_contrast", data_dir,
+                           ROOT / "build" / "chip_smoke_ckpt" / "contrast",
+                           ["solver.max_iters=3", "contrast.warmup_iters=0"])
+    if (cfg.get("train.batch_size"), cfg.get("contrast.max_views"),
+            cfg.get("contrast.with_memory")) != (8, 100, False):
+        raise AssertionError("the contrast phase must run the preset's batch 8, "
+                             "max_views 100 and no bank")
+    trainer = Trainer(cfg, device)
+    sample, anchors = contrast.hard_anchor_sample, []
+
+    def counted(*args, **kwargs):  # records each step's anchor rows, no sync
+        out = sample(*args, **kwargs)
+        anchors.append((out.valid.shape[0], out.valid.sum()))
+        return out
+
+    contrast.hard_anchor_sample = counted
+    try:
+        history, launches, peak = train_phase(trainer, device, "contrast phase")
+    finally:
+        contrast.hard_anchor_sample = sample
+    no_k1(launches, "the contrast phase")
+    m = [(rows, int(valid)) for rows, valid in anchors]
+    print(f"contrast phase anchors (rows, valid rows M) per step: {m}")
+    for row, (_, valid) in zip(history, m):
+        if not (row["loss_contrast"] > 0 and valid > 0):
+            raise AssertionError(f"contrast phase: no anchors or no contrast term: {row}, M={valid}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"history": history, "peak": peak, "anchors": m}
+
+
+def run_pretrained_phase(device, data_dir: Path) -> dict:
+    """network.pretrained from the reference's ImageNet and HRNet_W48_MEM
+    layouts, written from a freshly initialised port W48."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.state import init_weights
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.models.nets import build_model
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from contrastiveseg_tpu_torch.utils.pretrained import QUEUE_KEYS
+
+    out_dir = ROOT / "build" / "chip_smoke_pretrained"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cfg = directory_config("cityscapes_hrnet_w48_mem", data_dir, out_dir / "ckpt",
+                           ["solver.max_iters=2", "train.batch_size=2",
+                            "contrast.warmup_iters=0"])
+    source = build_model(cfg)
+    g = torch.Generator().manual_seed(2024)
+    init_weights(source, g)
+    with torch.no_grad():  # BN tensors off their init too, so the check means something
+        for mod in source.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                for t in (mod.weight, mod.bias, mod.running_mean, mod.running_var):
+                    t.add_(0.1 * torch.rand(t.shape, generator=g))
+    sd = source.state_dict()
+    imagenet = {k.removeprefix("backbone."): v for k, v in sd.items() if k.startswith("backbone.")}
+    imagenet.update({"incre_modules.0.0.conv1.weight": torch.ones(32, 48, 1, 1),
+                     "classifier.weight": torch.ones(1000, 2048),
+                     "classifier.bias": torch.zeros(1000)})
+    C, M, D = 19, cfg.get("contrast.memory_size"), cfg.get("contrast.proj_dim")
+    q = torch.nn.functional.normalize(torch.randn((2, C, M, D), generator=g), dim=-1)
+    queues = dict(zip(QUEUE_KEYS, (q[0], torch.randint(0, M, (C,), generator=g),
+                                   q[1], torch.randint(0, M, (C,), generator=g))))
+    mem = {**{f"encoder_q.{k}": v for k, v in sd.items()}, **queues}
+    paths = {"imagenet": out_dir / "hrnetv2_w48_imagenet.pth", "mem": out_dir / "hrnet_w48_mem.pth"}
+    torch.save(imagenet, paths["imagenet"])
+    torch.save({"state_dict": mem}, paths["mem"])
+    print(f"pretrained phase: wrote {paths['imagenet'].name} "
+          f"({paths['imagenet'].stat().st_size / 2**20:.1f} MiB, {len(imagenet)} tensors) and "
+          f"{paths['mem'].name} ({paths['mem'].stat().st_size / 2**20:.1f} MiB, queues "
+          f"{tuple(queues['segment_queue'].shape)} x2) in {time.perf_counter() - t0:.1f} s")
+
+    def loaded(trainer, want: dict, what: str) -> None:
+        got = trainer.state.model.state_dict()
+        bad = [k for k, v in want.items() if not torch.equal(got[k], v.to(device))]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} tensors differ from the file: {bad[:5]}")
+        print(f"{what}: {len(want)} tensors equal the file's bit for bit, on the device")
+
+    backbone = {k: v for k, v in sd.items() if k.startswith("backbone.")}
+    for preset in ("cityscapes_hrnet_w48_mem", "cityscapes_hrnet_w48"):
+        trainer = Trainer(directory_config(preset, data_dir, out_dir / "ckpt", [
+            f"network.pretrained={paths['imagenet']}"]), device)
+        loaded(trainer, backbone, f"{preset} from the ImageNet file")
+        del trainer
+    trainer = Trainer(cfg.updated("network.pretrained", str(paths["mem"])), device)
+    loaded(trainer, sd, "cityscapes_hrnet_w48_mem from the HRNet_W48_MEM file")
+    bank = trainer.state.bank
+    if not (torch.equal(bank.segment_queue, queues["segment_queue"].to(device))
+            and torch.equal(bank.pixel_queue, queues["pixel_queue"].to(device))
+            and torch.equal(bank.segment_ptr.long(), queues["segment_queue_ptr"].to(device))
+            and torch.equal(bank.pixel_ptr.long(), queues["pixel_queue_ptr"].to(device))):
+        raise AssertionError("the bank does not equal the file's queues and pointers")
+    print(f"the bank equals the file's queues ({C} x {M} x {D}, twice) and pointers")
+    history, launches, peak = train_phase(trainer, device, "pretrained phase (MEM file, batch 2)")
+    for name in k1.KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"the pretrained phase launched {name} {launches[name]} times")
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"history": history, "peak": peak, "launches": launches}
 
 
 def main() -> None:
@@ -803,13 +1025,25 @@ def main() -> None:
     flag_on_equals_off(device)
     blk = run_block_bench()
     dr = run_directory_slice(device)
+    phases = {}
+    for name, run in (("plain", run_plain_phase), ("contrast", run_contrast_phase),
+                      ("pretrained", run_pretrained_phase)):
+        t0 = time.perf_counter()
+        phases[name] = run(device, dr["data_dir"])
+        print(f"{name} phase wall time {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
           f" ms, peak {sl['peak'] / 2**30:.3f} GiB; flag-on slice: steps 2-3 "
           f"{[round(r['seconds'] * 1e3, 1) for r in on['history'][1:]]} ms, peak "
           f"{on['peak'] / 2**30:.3f} GiB; directory slice at batch 8: steps 2-3 "
           f"{[round(r['seconds'] * 1e3, 1) for r in dr['history'][1:]]} ms, peak "
-          f"{dr['peak'] / 2**30:.3f} GiB (same call, same card)")
+          f"{dr['peak'] / 2**30:.3f} GiB; at batch 8 from the directory, "
+          f"cityscapes_hrnet_w48: steps 2-3 "
+          f"{[round(r['seconds'] * 1e3, 1) for r in phases['plain']['history'][1:]]} ms, peak "
+          f"{phases['plain']['peak'] / 2**30:.3f} GiB; cityscapes_hrnet_w48_contrast: steps 2-3 "
+          f"{[round(r['seconds'] * 1e3, 1) for r in phases['contrast']['history'][1:]]} ms, "
+          f"peak {phases['contrast']['peak'] / 2**30:.3f} GiB (same call, same card)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():

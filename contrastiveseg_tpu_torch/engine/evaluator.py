@@ -7,7 +7,7 @@ left/right class swaps, the stride-4 logits resized to the label's size
 (bilinear, align_corners), argmax, and the confusion matrix accumulated on
 the device, read once at the end of the run.
 
-Not ported yet (ROADMAP 12): the SegFix and multi-label direction
+Not ported yet (ROADMAP 6): the SegFix and multi-label direction
 evaluators, the diverse-size (per-image) batches and the mesh padding of
 short batches.
 """
@@ -88,7 +88,7 @@ def build_evaluator(cfg, model: nn.Module) -> Evaluator:
                 .startswith("segfix") else "seg")
     if kind != "seg":
         raise NotImplementedError(
-            f"val.evaluator={kind!r} is not ported yet: ROADMAP 12 (only 'seg' is)")
+            f"val.evaluator={kind!r} is not ported yet: ROADMAP 6 (only 'seg' is)")
     return Evaluator(
         model,
         cfg.get("data.num_classes"),

@@ -46,7 +46,7 @@ def build_schedule(cfg) -> Callable[[int], float]:
     policy = cfg.get("lr.lr_policy", default="lambda_poly")
     if policy != "lambda_poly":
         raise NotImplementedError(
-            f"lr.lr_policy={policy!r} is not ported yet (ROADMAP 12); "
+            f"lr.lr_policy={policy!r} is not ported yet (ROADMAP 5, training extras); "
             "the port has lambda_poly")
     sched = poly_schedule(cfg.get("solver.max_iters", default=40000),
                           float(cfg.get("lr.lambda_poly.power", default=0.9)))
@@ -62,11 +62,11 @@ def build_optimizer(cfg, model: torch.nn.Module):
     base_lr * nbb_mult."""
     method = cfg.get("optim.optim_method", default="sgd")
     if method != "sgd":
-        raise NotImplementedError(f"optim.optim_method={method!r} is not ported yet")
+        raise NotImplementedError(f"optim.optim_method={method!r} is not ported yet: ROADMAP 5")
     if cfg.get("optim.group_method", default=None) is not None:
-        raise NotImplementedError("optim.group_method is not ported yet")
+        raise NotImplementedError("optim.group_method is not ported yet: ROADMAP 5")
     if cfg.get("network.clip_grad_norm", default=None):
-        raise NotImplementedError("network.clip_grad_norm is not ported yet")
+        raise NotImplementedError("network.clip_grad_norm is not ported yet: ROADMAP 5")
     base_lr = cfg.get("lr.base_lr")
     nbb_mult = float(cfg.get("lr.nbb_mult", default=1.0))
     p = cfg.get("optim.sgd", default={})

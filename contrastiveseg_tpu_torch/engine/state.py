@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 from contrastiveseg_tpu_torch.engine.optim import build_optimizer
-from contrastiveseg_tpu_torch.ops.queue import MemoryBank, init_memory_bank
+from contrastiveseg_tpu_torch.ops.queue import MemoryBank, bank_from_queues, init_memory_bank
+from contrastiveseg_tpu_torch.utils.pretrained import QUEUE_KEYS, load_pretrained
 
 
 @dataclasses.dataclass
@@ -56,23 +57,39 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
 
 
-def create_train_state(cfg, model: nn.Module,
-                       device: torch.device | str) -> TrainState:
-    """Init the weights from ``cfg.seed``, move the model to ``device``, and
-    build the optimizer, the LR schedule and (with memory) the bank."""
+def create_train_state(cfg, model: nn.Module, device: torch.device | str,
+                       pretrained: Optional[str] = None) -> TrainState:
+    """Init the weights from ``cfg.seed``, load ``pretrained`` (a reference
+    ``.pth``, ``utils/pretrained.py``) over them, move the model to
+    ``device``, and build the optimizer, the LR schedule and (with memory)
+    the bank, which the file's queue buffers seed when it has them (JAX
+    ``engine/trainer.py:58-100``)."""
     device = torch.device(device)
     rng = torch.Generator().manual_seed(cfg.get("seed", default=304))
     s_params, s_bank, s_state = split(rng, 3)
     init_weights(model, torch.Generator().manual_seed(s_params))
+    queues = load_pretrained(model, pretrained) if pretrained else None
     model.to(device)
     optimizer, scheduler = build_optimizer(cfg, model)
     bank = None
-    if cfg.get("contrast.with_memory", default=False):
-        bank = init_memory_bank(
-            cfg.get("data.num_classes"),
-            cfg.get("contrast.memory_size", default=5000),
-            cfg.get("contrast.proj_dim", default=256),
-            generator=device_generator(s_bank, device), device=device)
+    with_memory = cfg.get("contrast.with_memory", default=False)
+    if queues is not None and not with_memory:
+        raise ValueError(f"{pretrained} carries memory queues, but the config has "
+                         "contrast.with_memory=false")
+    if with_memory:
+        C = cfg.get("data.num_classes")
+        M = cfg.get("contrast.memory_size", default=5000)
+        D = cfg.get("contrast.proj_dim", default=256)
+        if queues is None:
+            bank = init_memory_bank(C, M, D, generator=device_generator(s_bank, device),
+                                    device=device)
+        else:
+            for key in ("segment_queue", "pixel_queue"):
+                if tuple(queues[key].shape) != (C, M, D):
+                    raise ValueError(f"{pretrained}: {key} has shape "
+                                     f"{tuple(queues[key].shape)}, the config's bank "
+                                     f"{(C, M, D)}")
+            bank = bank_from_queues(*(queues[k].to(device) for k in QUEUE_KEYS))
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler,
                       bank=bank, generator=torch.Generator().manual_seed(s_state),
                       device=device)

@@ -3,9 +3,10 @@
 Counterpart of ``make_train_step`` in ``contrastiveseg_tpu/engine/train_step.py``
 (:24-138), the single-program path: split the rng, forward, loss with the
 contrast term gated by ``step >= warmup_iters``, backward, enqueue the
-detached embeddings with stride-subsampled labels, optimizer step.
+detached embeddings with stride-subsampled labels (only when the state has
+a memory bank, as at JAX :100), optimizer step.
 Gradient accumulation and the momentum key encoder are not ported yet
-(ROADMAP 12).
+(ROADMAP 5).
 
 Dropout draws from torch's default generator of the device, seeded per
 step from the state's rng inside ``torch.random.fork_rng``, so the global
@@ -28,7 +29,7 @@ from contrastiveseg_tpu_torch.ops.resize import subsample_stride
 
 class Draws(NamedTuple):
     anchor: AnchorScores  # hard_anchor_sample scores, each [B, C, N]
-    queue: torch.Tensor  # enqueue pixel scores [B, C, N_queue]
+    queue: Optional[torch.Tensor] = None  # enqueue pixel scores [B, C, N_queue]
 
 
 def make_train_step(
@@ -64,16 +65,17 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
 
-        # Reference _dequeue_and_enqueue (trainer_contrastive.py:102-138):
-        # keys are the detached embeddings, labels strided (not interp'd).
-        keys = out["embed"].detach()
-        B, h, w, D = keys.shape
-        lab_s = subsample_stride(labels, network_stride)[:, :h, :w]
-        enqueue(state.bank, keys.reshape(B, h * w, D), lab_s.reshape(B, -1),
-                pixel_update_freq=pixel_update_freq,
-                include_class0=queue_include_class0,
-                scores=draws.queue if draws is not None else None,
-                generator=device_generator(s_queue, state.device))
+        if state.bank is not None:
+            # Reference _dequeue_and_enqueue (trainer_contrastive.py:102-138):
+            # keys are the detached embeddings, labels strided (not interp'd).
+            keys = out["embed"].detach()
+            B, h, w, D = keys.shape
+            lab_s = subsample_stride(labels, network_stride)[:, :h, :w]
+            enqueue(state.bank, keys.reshape(B, h * w, D), lab_s.reshape(B, -1),
+                    pixel_update_freq=pixel_update_freq,
+                    include_class0=queue_include_class0,
+                    scores=draws.queue if draws is not None else None,
+                    generator=device_generator(s_queue, state.device))
 
         state.optimizer.step()
         state.scheduler.step()

@@ -3,9 +3,11 @@
 Counterpart of ``Trainer`` in ``contrastiveseg_tpu/engine/trainer.py``
 (``__init__`` :31-172, ``request_stop`` and the preemption handlers
 :175-224, ``train`` :245-343, ``validate`` :384-401): build the model, loss,
-optimizer, bank, evaluator and checkpoint manager from the ``Config``;
-resume from ``network.resume`` (a path) or, with ``network.resume_continue``,
-from the latest checkpoint; then loop to ``solver.max_iters``, validating
+optimizer, bank (with ``contrast.with_memory``), evaluator and checkpoint
+manager from the ``Config``; start from ``network.pretrained`` (a reference
+``.pth``, ``utils/pretrained.py``), unless the run resumes from
+``network.resume`` (a path) or, with ``network.resume_continue``, from the
+latest checkpoint; then loop to ``solver.max_iters``, validating
 every ``solver.test_interval`` steps (and saving by performance), saving
 ``latest`` every ``checkpoints.save_iters`` steps and at the end.
 
@@ -22,8 +24,8 @@ default) ask for a stop: ``latest`` is saved at the next step boundary and
 
 Not ported yet, and refused with ``NotImplementedError`` when a config needs
 them: the LIP and offset loaders and multi-dataset training (ROADMAP §1
-item 7), multi-GPU (item 4), pretrained-weight import, SWA, gradient
-accumulation, the momentum encoder and freeze-BN (item 5).
+item 7), multi-GPU (item 4), SWA, gradient accumulation, the momentum
+encoder and freeze-BN (item 5).
 """
 
 from __future__ import annotations
@@ -51,21 +53,15 @@ log = logging.getLogger(__name__)
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for what the port cannot run yet."""
-    for key, item in (
-        ("network.pretrained", "ROADMAP 12 (pretrained-weight import)"),
-        ("network.freeze_bn", "ROADMAP 12 (training extras)"),
-        ("contrast.momentum_encoder", "ROADMAP 12 (training extras)"),
-    ):
+    for key in ("network.freeze_bn", "contrast.momentum_encoder"):
         if cfg.get(key, default=None):
-            raise NotImplementedError(f"{key} is not ported yet: {item}")
+            raise NotImplementedError(
+                f"{key} is not ported yet: ROADMAP 5 (training extras)")
     if cfg.get("solver.grad_accum_steps", default=1) > 1:
         raise NotImplementedError(
-            "solver.grad_accum_steps > 1 is not ported yet: ROADMAP 12")
+            "solver.grad_accum_steps > 1 is not ported yet: ROADMAP 5 (training extras)")
     if not cfg.get("data.synthetic", default=False):
         check_loader(cfg)
-    if not cfg.get("contrast.with_memory", default=False):
-        raise NotImplementedError(
-            "contrast without the memory bank is not ported yet: ROADMAP 5")
 
 
 def read_window(window: list[dict]) -> list[dict[str, float]]:
@@ -83,7 +79,20 @@ class Trainer:
         self.device = torch.device(device)
         self.max_iters = cfg.get("solver.max_iters", default=40000)
         self.loss_fn = build_loss(cfg)
-        self.state = create_train_state(cfg, build_model(cfg), self.device)
+        self.ckpt = CheckpointManager(
+            cfg.get("checkpoints.checkpoints_dir", default="./checkpoints"),
+            cfg.get("checkpoints.checkpoints_name", default="seg"),
+            config_dict=cfg.to_dict(),
+        )
+        resume = cfg.get("network.resume", default=None)
+        resume_latest = (not resume and cfg.get("network.resume_continue", default=False)
+                         and self.ckpt.has())
+        # A resumed run restores everything the pretrained file would fill.
+        pretrained = (None if resume or resume_latest
+                      else cfg.get("network.pretrained", default=None))
+        self.state = create_train_state(cfg, build_model(cfg), self.device, pretrained)
+        if pretrained:
+            log.info("loaded pretrained weights from %s", pretrained)
         self.train_step = make_train_step(
             self.loss_fn,
             warmup_iters=cfg.get("contrast.warmup_iters", default=0),
@@ -93,18 +102,12 @@ class Trainer:
         )
         self.evaluator = build_evaluator(cfg, self.state.model)
         self._val_pipe = None  # built at the first validation, then reused
-        self.ckpt = CheckpointManager(
-            cfg.get("checkpoints.checkpoints_dir", default="./checkpoints"),
-            cfg.get("checkpoints.checkpoints_name", default="seg"),
-            config_dict=cfg.to_dict(),
-        )
         self.last_scores: dict = {}
         self._stop_signal: Optional[str] = None
-        resume = cfg.get("network.resume", default=None)
         if resume:
             self.ckpt.restore(self.state, path=resume)
             log.info("resumed from %s at step %d", resume, self.state.step)
-        elif cfg.get("network.resume_continue", default=False) and self.ckpt.has():
+        elif resume_latest:
             self.ckpt.restore(self.state)
             log.info("resumed latest at step %d", self.state.step)
 

@@ -1,9 +1,10 @@
-"""Cross-entropy with torch semantics, plain and upsampled.
+"""Cross-entropy with torch semantics: plain, OHEM, aux and upsampled.
 
-Counterpart of ``contrastiveseg_tpu/losses/ce.py`` (FSCELoss,
-loss_helper.py:169-313): per-class weights with the mean taken over the sum
-of the contributing weights, ``ignore_index`` pixels dropped from numerator
-and denominator.  Logits are NHWC [B, H, W, C], labels [B, H, W].
+Counterpart of ``contrastiveseg_tpu/losses/ce.py`` (FSCELoss, FSOhemCELoss
+and FSAuxCELoss, loss_helper.py:169-313): per-class weights with the mean
+taken over the sum of the contributing weights, ``ignore_index`` pixels
+dropped from numerator and denominator.  Logits are NHWC [B, H, W, C],
+labels [B, H, W].
 """
 
 from __future__ import annotations
@@ -46,6 +47,55 @@ def cross_entropy(
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     w = _weights(safe, valid, _class_weight(class_weight, logits.device))
     return (nll * w).sum() / w.sum().clamp(min=1e-12)
+
+
+def ohem_cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    thresh: float = 0.9,
+    min_kept: int = 100000,
+    class_weight: Optional[Sequence[float]] = None,
+    ignore_index: int = -1,
+) -> torch.Tensor:
+    """FSOhemCELoss (loss_helper.py:215-261): online hard-example mining.
+
+    Keeps the pixels whose probability of the true class is below
+    ``max(thresh, sorted_p[k])``, ``k = min(min_kept, n_valid - 1)``, and
+    takes the *unweighted* mean of their class-weighted CE.  Ignored pixels
+    get probability 2.0, so they sort last.  The k-th order statistic comes
+    from a full sort indexed by a device tensor (no host sync); its value,
+    and so the kept set, does not depend on how ties are ordered.
+    """
+    if logits.shape[1:3] != labels.shape[1:3]:
+        labels = scale_target_nearest(labels, (logits.shape[1], logits.shape[2]))
+    C = logits.shape[-1]
+    valid = labels != ignore_index
+    safe = labels.clamp(0, C - 1).long()
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    with torch.no_grad():  # the threshold selects pixels; no gradient flows through it
+        p_true = torch.gather(F.softmax(logits.float(), dim=-1), -1, safe[..., None])[..., 0]
+        p_masked = torch.where(valid, p_true, 2.0)
+        sorted_p = torch.sort(p_masked.reshape(-1)).values
+        k = torch.clamp(valid.sum() - 1, min=0, max=min_kept)
+        threshold = sorted_p[k].clamp(min=thresh)
+        keep = valid & (p_masked < threshold)
+    w = _weights(safe, valid, _class_weight(class_weight, logits.device))
+    return torch.where(keep, nll * w, 0.0).sum() / keep.sum().clamp(min=1)
+
+
+def aux_cross_entropy(
+    seg_logits: torch.Tensor,
+    aux_logits: torch.Tensor,
+    labels: torch.Tensor,
+    seg_weight: float = 1.0,
+    aux_weight: float = 0.4,
+    class_weight: Optional[Sequence[float]] = None,
+    ignore_index: int = -1,
+) -> torch.Tensor:
+    """FSAuxCELoss (loss_helper.py:301-313)."""
+    return (seg_weight * cross_entropy(seg_logits, labels, class_weight, ignore_index)
+            + aux_weight * cross_entropy(aux_logits, labels, class_weight, ignore_index))
 
 
 def _block_loss(seg_t, a_h_blk, a_w, lab_blk, cw, ignore_index):

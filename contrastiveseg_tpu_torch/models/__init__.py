@@ -1,1 +1,2 @@
-"""Models of the port: the HRNet backbone, its heads and ``HRNetSeg``."""
+"""Models of the port: the HRNet backbone, its heads and ``HRNetSeg``
+(plain, contrast and mem)."""

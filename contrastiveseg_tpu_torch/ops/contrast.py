@@ -1,4 +1,4 @@
-"""Hard-anchor sampling and the dense InfoNCE oracle.
+"""Hard-anchor sampling and the dense InfoNCE.
 
 Counterpart of ``contrastiveseg_tpu/ops/contrast.py``: the same
 static-shape reformulation of the reference's per-image per-class sampling
@@ -18,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from contrastiveseg_tpu_torch.ops.resize import scale_target_nearest
 
 _NEG_INF = -1e30
 
@@ -126,24 +128,35 @@ def hard_anchor_sample(
 def contrastive_loss(
     anchors: AnchorSet,
     spec: ContrastSpec,
-    queue_feats: torch.Tensor,  # [K, D]
-    queue_labels: torch.Tensor,  # [K]
+    queue_feats: Optional[torch.Tensor] = None,  # [K, D]
+    queue_labels: Optional[torch.Tensor] = None,  # [K]
     queue_valid: Optional[torch.Tensor] = None,  # [K] bool
 ) -> torch.Tensor:
-    """Dense masked InfoNCE against a queue (``_contrastive``,
-    loss_contrast.py:91-128): materializes the [M, K] logits, so it is the
-    oracle for small K only."""
+    """Dense masked InfoNCE (``_contrastive``, loss_contrast.py:91-128).
+
+    With a queue, the anchors are scored against it; this materializes the
+    [M, K] logits, so it is the oracle for small K only (the bank goes
+    through K1).  Without one, the anchors are scored against each other
+    and the diagonal is masked out of the positives and the negatives
+    (the ``contrast_ce_loss`` path, [M, M] with M <= max_samples).
+    """
     a_f, a_l, a_v = anchors
-    c_l = queue_labels.to(torch.int32)
-    c_v = (queue_valid if queue_valid is not None
-           else torch.ones(queue_feats.shape[0], dtype=torch.bool,
-                           device=queue_feats.device))
-    logits = (a_f.float() @ queue_feats.float().T) / spec.temperature
+    if queue_feats is None:
+        c_f, c_l, c_v = a_f, a_l, a_v
+    else:
+        c_f, c_l = queue_feats, queue_labels.to(torch.int32)
+        c_v = (queue_valid if queue_valid is not None
+               else torch.ones(c_f.shape[0], dtype=torch.bool, device=c_f.device))
+    logits = (a_f.float() @ c_f.float().T) / spec.temperature
 
     same = a_l[:, None] == c_l[None, :]
     col_ok = c_v[None, :]
     pos_mask = same & col_ok
     neg_mask = ~same & col_ok
+    if queue_feats is None:
+        off_diag = ~torch.eye(logits.shape[0], dtype=torch.bool, device=logits.device)
+        pos_mask = pos_mask & off_diag
+        neg_mask = neg_mask & off_diag
 
     masked = torch.where(col_ok, logits, _NEG_INF)
     row_max = masked.max(dim=1, keepdim=True).values.detach()
@@ -157,3 +170,21 @@ def contrastive_loss(
     row_ok = a_v & (pos_cnt > 0)
     per_row = -(spec.temperature / spec.base_temperature) * mean_log_prob_pos
     return torch.where(row_ok, per_row, 0.0).sum() / row_ok.sum().clamp(min=1)
+
+
+def pixel_contrast_loss(
+    embed: torch.Tensor,  # [B, H, W, D] NHWC normalized embeddings
+    labels: torch.Tensor,  # [B, Hl, Wl] full-res ground truth
+    predict: torch.Tensor,  # [B, H, W] argmax of stride-level logits
+    spec: ContrastSpec,
+    scores: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Label downscale -> sample -> InfoNCE of the anchors against each
+    other (``PixelContrastLoss.forward``, loss_contrast.py:130-147)."""
+    B, H, W, D = embed.shape
+    labels_s = scale_target_nearest(labels, (H, W)).reshape(B, H * W)
+    anchors = hard_anchor_sample(embed.reshape(B, H * W, D), labels_s,
+                                 predict.reshape(B, H * W), spec,
+                                 scores=scores, generator=generator)
+    return contrastive_loss(anchors, spec)

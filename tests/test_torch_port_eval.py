@@ -123,7 +123,7 @@ def test_evaluator_miou_matches_jax(monkeypatch):
 def test_build_evaluator_refuses_what_is_not_ported():
     cfg = get_preset("smoke_hrnet_w18")
     assert isinstance(build_evaluator(cfg, HRNetSeg(5, "hrnet18")), Evaluator)
-    with pytest.raises(NotImplementedError, match="ROADMAP 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP 6"):
         build_evaluator(cfg.updated("val.evaluator", "segfix"), HRNetSeg(5, "hrnet18"))
 
 

@@ -7,6 +7,8 @@ JAX package and its PyTorch port.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 from pathlib import Path
 
 import jax
@@ -30,9 +32,10 @@ def exact_fp32_reference(monkeypatch) -> None:
       weight gradients by tens of percent against an fp64 reference.  torch
       (and the port) use the two-pass variance.  Patched to
       ``use_fast_variance=False`` here.
-    """
-    import functools
 
+    It also runs the JAX HRNet's blocks compiled (``compiled_hrnet_blocks``),
+    which changes the time of an eager forward, not its values.
+    """
     import contrastiveseg_tpu.models.hrnet as jhrnet
     import contrastiveseg_tpu.models.nets as jnets
     import flax.linen as flax_nn
@@ -45,6 +48,143 @@ def exact_fp32_reference(monkeypatch) -> None:
     monkeypatch.setattr(jnets, "resize_bilinear_align_corners", exact)
     monkeypatch.setattr(flax_nn, "BatchNorm", functools.partial(
         flax_nn.BatchNorm, use_fast_variance=False))
+    compiled_hrnet_blocks(monkeypatch)
+
+
+def compiled(fn):
+    """``fn`` under ``jax.jit``, with jit on even inside ``jax.disable_jit()``:
+    an eager JAX step can call its loss through it, so that the forward of
+    the loss's many small ops (anchor sampling, top-k, the InfoNCE) is one
+    compiled call instead of one dispatch (and, the first time, one
+    compile) each; its backward still runs op by op.  The values are the
+    same to fp32 rounding."""
+    jitted = jax.jit(fn)
+
+    def call(*args, **kwargs):
+        with jax.disable_jit(False):
+            return jitted(*args, **kwargs)
+
+    return call
+
+
+_BLOCK_FNS: dict = {}
+
+
+def _block_fn(block, fields: tuple, train):
+    """The pure function (params, batch_stats, x) -> (y, new batch_stats)
+    of one configuration of ``block``, compiled: its primal, and a custom
+    VJP whose forward (with its residuals) and backward are compiled too.
+    Eager differentiation of a jitted function runs the backward one
+    primitive at a time; this runs it as one compiled call."""
+    key = (block, fields, train)
+    if key not in _BLOCK_FNS:
+        module = block(**dict(fields), parent=None)  # unbound, whoever builds it
+
+        def apply(params, stats, x):
+            if train is True:
+                y, new = module.apply({"params": params, "batch_stats": stats}, x, train,
+                                      mutable=["batch_stats"])
+                return y, new["batch_stats"]
+            return module.apply({"params": params, "batch_stats": stats}, x, train), stats
+
+        primal = jax.jit(apply)
+
+        @jax.jit
+        def fwd(params, stats, x):
+            out, vjp_fn = jax.vjp(lambda p, x: apply(p, stats, x), params, x)
+            return out, (vjp_fn, stats)
+
+        @jax.jit
+        def bwd(res, g):
+            vjp_fn, stats = res
+            d_params, d_x = vjp_fn((g[0], jax.tree.map(jnp.zeros_like, g[1])))
+            return d_params, jax.tree.map(jnp.zeros_like, stats), d_x
+
+        @jax.custom_vjp
+        def fn(params, stats, x):
+            with jax.disable_jit(False):
+                return primal(params, stats, x)
+
+        def fn_fwd(params, stats, x):
+            with jax.disable_jit(False):
+                return fwd(params, stats, x)
+
+        def fn_bwd(res, g):
+            with jax.disable_jit(False):
+                return bwd(res, g)
+
+        fn.defvjp(fn_fwd, fn_bwd)
+        _BLOCK_FNS[key] = fn
+    return _BLOCK_FNS[key]
+
+
+def _put(scope, col: str, tree) -> None:
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            _put(scope.push(k, reuse=True), col, v)
+        else:
+            scope.put_variable(col, k, v)
+
+
+@functools.cache
+def _compiled(block):
+    """A subclass of ``block`` (a flax Module called as ``block(...)(x,
+    train)``) with the same name, fields and variables, whose application
+    (once its variables exist) is ``_block_fn``'s compiled function, and
+    whose new batch statistics are written back to its scope."""
+    fields = [f.name for f in dataclasses.fields(block) if f.name not in ("parent", "name")]
+
+    class Compiled(block):
+        def __call__(self, x, train):
+            if self.is_initializing():
+                return super().__call__(x, train)
+            variables = self.variables
+            stats = variables.get("batch_stats", {})
+            fn = _block_fn(block, tuple((f, getattr(self, f)) for f in fields), train)
+            y, new = fn(variables["params"], stats, x)
+            if train is True and self.is_mutable_collection("batch_stats"):
+                _put(self.scope, "batch_stats", new)
+            return y
+
+    Compiled.__name__ = Compiled.__qualname__ = block.__name__
+    return Compiled
+
+
+def compiled_hrnet_blocks(monkeypatch) -> None:
+    """Run the JAX HRNet's ``HighResolutionModule`` (``models/hrnet.py``)
+    and blocks (``BasicBlock``, ``Bottleneck``, ``ConvBN``;
+    ``models/layers.py``) compiled per configuration and shape, forward and
+    backward, even inside ``jax.disable_jit()``.
+
+    The parity tests run the JAX model eagerly so that no whole-model
+    compile enters them; an eager HRNet then dispatches the ops of its ~300
+    conv + BN blocks one at a time, forward and backward, each op shape
+    compiled on first use (~900 compiles, ~70 s, for an hrnet18 train step
+    at 64x64).  Compiled, a block is one call each way, and the compiles go
+    to the persistent cache that ``shared_jax_compiles`` opens to the other
+    workers.  The blocks' code, names and variables are the JAX package's
+    own, which is unchanged; compiled and eager evaluation agree to fp32
+    rounding.  Blocks on the Pallas conv stay eager: its interpret-mode
+    kernel, traced into a block, takes minutes to compile
+    (``compiled_pallas_conv`` compiles it per conv shape instead).
+    """
+    import contrastiveseg_tpu.models.heads as jheads
+    import contrastiveseg_tpu.models.hrnet as jhrnet
+    import contrastiveseg_tpu.models.layers as jlayers
+
+    def unless_pallas(block):
+        def make(*args, **kwargs):
+            pallas = kwargs.get("pallas") or kwargs.get("pallas_conv")
+            return (block if pallas else _compiled(block))(*args, **kwargs)
+
+        return make
+
+    for mod, source, names in (
+            (jhrnet, jhrnet, ("HighResolutionModule",)),
+            (jhrnet, jlayers, ("BasicBlock", "Bottleneck", "ConvBN")),
+            (jheads, jlayers, ("ConvBN",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, unless_pallas(getattr(source, name)))
 
 
 def random_variables(jax_model, input_shape, seed: int = 1) -> dict:
