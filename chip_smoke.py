@@ -35,8 +35,9 @@ Phases (any failure raises, so the run exits non-zero):
   9. the directory slice: a Cityscapes-layout tree written under
      ``build/chip_smoke_data/`` (8 train and 4 val frames of 1024x2048, raw
      Cityscapes ids, each PNG beside its ``.npy_cache`` sidecar, so that no
-     PNG is decoded and PIL is not needed), then 3 steps of the headline at
-     the recipe's batch 8 from it through the data pipeline (the preset's
+     PNG is decoded and PIL is not needed; the val labels also as
+     ``gtFine/val/<city>/*_gtFine_labelIds.png``), then 3 steps of the
+     headline at the recipe's batch 8 from it through the data pipeline (the preset's
      transforms, ``data.workers`` and pinned prefetch), validation over the
      4 val frames at 2048x1024; >= 3 launches of each K1 kernel, the first
      device batch bit-identical to the pipeline's host batch, segdata loaded
@@ -60,9 +61,26 @@ Phases (any failure raises, so the run exits non-zero):
      ``network.pretrained``, every loaded tensor equal to the file's on the
      device and the bank equal to the queues; 2 steps at batch 2 from the
      MEM file with >= 1 launch of each K1 kernel;
- 13. a JSON line of the six kernels, the card line, and the result line.
+ 13. the test phase: the directory slice's W48 (its ``latest`` checkpoint)
+     restored through ``network.resume`` by ``tools/train_torch.run``:
+     ``--phase val`` and ``--phase test`` in ``ss_test``, ``ms_test``,
+     ``sscrop_test`` and ``mscrop_test`` (crop 1024x512) over the 4 val
+     frames (``test.test_dir``) at batch 1 (``TEST_BATCH``), each mode's
+     seconds an image, peak memory and PNGs written; the official
+     Cityscapes evaluator on the ``ss_test`` label PNGs (read back through
+     ``utils/png.py``) gives ``validate()``'s 19x19 confusion and its mIoU
+     to 1e-6; ``ss_test`` with ``network.pallas_conv=true`` launches K2a
+     and its logits are within 1e-3 (relative L2) of flag off; one timed
+     ``ss_test`` call per scale and batch shows where cuDNN's FFT
+     convolutions make it tens of times slower an image; the model
+     exported (``tools/export_torch.py``, ``--scope ss``, batch 1,
+     1024x2048) and served (``tools/serve_torch.py``) on 127.0.0.1 answers
+     4 ``/segment`` requests with the ``ss_test`` labels on >= 99.99% of
+     the pixels; no PNG goes through PIL;
+ 14. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-12 print their step times, peak memory and wall time.
+Phases 10-13 print their step times (or seconds an image), peak memory and
+wall time.
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
@@ -104,6 +122,11 @@ GRAD_REL_NORM = 2e-2
 # 3xTF32 keeps ~2^-20 relative error per product, inside the rtol 1e-4 that
 # every fp32 kernel here is held to (tests/test_torch_port_k1.py emulates it).
 PEAK_FLOPS = {"fp32": 495e12 / 3, "fp32_simt": 67e12, "bf16": 989e12}
+# Batch of the test phase's validation and tests.  cuDNN's heuristics pick FFT
+# convolutions, ~20 s a forward, at the preset's batch 4 of 1024x2048 and at
+# batch 2 of ms_test's 1280x2560 scale; at batch 1 at none of the three
+# scales (PERF.md section 5; the phase's sweep reads it again).
+TEST_BATCH = 1
 SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]", "train.batch_size=2",
          "contrast.warmup_iters=0", "solver.max_iters=3", "solver.display_iter=1"]
 ROOT = Path(__file__).resolve().parent
@@ -617,51 +640,51 @@ def run_block_bench() -> dict:
     return out
 
 
-def png_bytes(a) -> bytes:
-    """An 8-bit grey (HxW) or RGB (HxWx3) PNG of ``a``, every row filter 0."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    h, w = a.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, -1)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    header = struct.pack(">IIBBBBB", w, h, 8, 2 if a.ndim == 3 else 0, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
-
-
 def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
                   seed: int = 0) -> None:
     """A Cityscapes-layout tree, {root}/{split}/image|label/*.png, each PNG
     beside its ``.npy_cache/<name>.png.npy`` sidecar (the decoded array, as
-    ``tools/cache_dataset.py`` writes it; written after the PNG, so fresh).
-    The frames are the synthetic scenes with raw Cityscapes ids; the bottom
-    sixteenth of each is raw id 0 (unlabeled), which relabels to -1."""
+    ``tools/cache_dataset.py`` writes it; written after the PNG, so fresh),
+    and the val labels again as the official evaluator's ground truth,
+    ``{root}/gtFine/val/frankfurt/<stem>_gtFine_labelIds.png`` and
+    ``_instanceIds.png`` (one instance per class and frame).  The frames are
+    the synthetic scenes with raw Cityscapes ids; the bottom sixteenth of each
+    is raw id 0 (unlabeled), which relabels to -1.  Val frames are named as
+    Cityscapes names them (``frankfurt_000000_<i>_leftImg8bit``), so that the
+    evaluator pairs the tester's outputs with them.  PNGs are written by the
+    port's ``utils/png.py``."""
     import numpy as np
 
     from contrastiveseg_tpu_torch.data.datasets import (
         CITYSCAPES_LABEL_LIST,
         SyntheticSegDataset,
     )
+    from contrastiveseg_tpu_torch.metrics.cityscapes_official import CS_LABELS
+    from contrastiveseg_tpu_torch.utils.png import encode_png
 
     raw_ids = np.asarray(CITYSCAPES_LABEL_LIST, np.uint8)
+    has_instances = np.zeros(256, bool)
+    has_instances[[lab.id for lab in CS_LABELS if lab.has_instances]] = True
     scenes = SyntheticSegDataset(19, hw, n_train + n_val, seed=seed)
+    gt_dir = root / "gtFine" / "val" / "frankfurt"
+    gt_dir.mkdir(parents=True, exist_ok=True)
     for i in range(n_train + n_val):
-        split, name = ("train", f"f{i}") if i < n_train else ("val", f"f{i - n_train}")
+        split, name = (("train", f"f{i}") if i < n_train
+                       else ("val", f"frankfurt_000000_{i - n_train:06d}_leftImg8bit"))
         scene = scenes[i]
         label = raw_ids[scene["label"]]
         label[-(hw[0] // 16):] = 0
         for kind, array in (("image", scene["image"]), ("label", label)):
             d = root / split / kind
             (d / ".npy_cache").mkdir(parents=True, exist_ok=True)
-            (d / f"{name}.png").write_bytes(png_bytes(array))
+            (d / f"{name}.png").write_bytes(encode_png(array, level=1))
             np.save(d / ".npy_cache" / f"{name}.png.npy", array)
+        if split == "val":
+            stem = name.removesuffix("_leftImg8bit")
+            inst = np.where(has_instances[label], label.astype(np.uint16) * 1000, label)
+            (gt_dir / f"{stem}_gtFine_labelIds.png").write_bytes(encode_png(label, level=1))
+            (gt_dir / f"{stem}_gtFine_instanceIds.png").write_bytes(
+                encode_png(inst.astype(np.uint16), level=1))
 
 
 def pipeline_seconds(cfg, workers: int, repeat: int = 4) -> float:
@@ -763,10 +786,11 @@ def run_directory_slice(device) -> dict:
           f"{history[0]['data_seconds'] * 1e3:.1f} ms); pipeline alone "
           f"{host_s[1]:.3f} s a batch at 1 worker, {host_s[4]:.3f} s at 4; peak memory "
           f"{peak / 2**30:.3f} GiB (max_memory_allocated)")
+    latest = trainer.ckpt._path("latest")
     del trainer
     torch.cuda.empty_cache()
     return {"launches": launches, "history": history, "peak": peak, "scores": scores,
-            "host_seconds": host_s, "data_dir": data_dir}
+            "host_seconds": host_s, "data_dir": data_dir, "latest": latest}
 
 
 def directory_config(preset: str, data_dir: Path, ckpt_dir: Path, extra: list[str]):
@@ -973,6 +997,223 @@ def run_pretrained_phase(device, data_dir: Path) -> dict:
     return {"history": history, "peak": peak, "launches": launches}
 
 
+def cudnn_sweep(tester, images, say=print) -> list[dict]:
+    """Seconds an image of one ``ss_test`` call for each (scale, batch), on
+    the host clock around a device sync.  Where cuDNN's heuristics pick FFT
+    convolutions, a call is tens of times slower an image than at batch 1
+    (``tools/profile_torch_step.py --eval --scale`` shows their kernels; the
+    profiler takes minutes to parse one such call, so not here)."""
+    import torch
+
+    rows = []
+    for scale, batches in ((1.0, (1, 2, 4)), (0.75, (1, 2)), (1.25, (1, 2))):
+        base = None
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tester.ss_test(images[:b], scale)
+            torch.cuda.synchronize()
+            per_image = (time.perf_counter() - t0) / b
+            base = base or per_image
+            row = {"scale": scale, "batch": b, "seconds_an_image": per_image,
+                   "vs_batch_1": per_image / base}
+            rows.append(row)
+            say(f"cuDNN sweep: ss_test at scale {scale}, batch {b} "
+                f"({int(images.shape[1] * scale)}x{int(images.shape[2] * scale)}): "
+                f"{per_image:.3f} s an image, {row['vs_batch_1']:.1f}x batch 1's")
+    return rows
+
+
+def run_test_phase(device, data_dir: Path, checkpoint: str) -> dict:
+    """Inference with the directory slice's headline W48, restored through
+    ``network.resume``: ``--phase val``, ``--phase test`` in four modes and
+    with ``network.pallas_conv=true``, the official Cityscapes evaluator on
+    the ``ss_test`` labels, the cuDNN sweep, then export and serving."""
+    import importlib.util
+    import io
+    import sys
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from contrastiveseg_tpu_torch.data.datasets import CITYSCAPES_LABEL_LIST
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.metrics.cityscapes_official import evaluate_dirs, find_pairs
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from contrastiveseg_tpu_torch.utils.png import read_png
+    from tools.export_torch import export_artifact
+    from tools.serve_torch import make_server
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[test phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    pil_loaded = "PIL.Image" in sys.modules
+    out_root = ROOT / "build" / "chip_smoke_test"
+    shutil.rmtree(out_root, ignore_errors=True)
+    cfg = directory_config("cityscapes_hrnet_w48_mem", data_dir,
+                           ROOT / "build" / "chip_smoke_ckpt" / "test", [
+                               f"network.resume={checkpoint}",
+                               f"val.batch_size={TEST_BATCH}", f"test.batch_size={TEST_BATCH}",
+                               f"test.test_dir={data_dir / 'val' / 'image'}",
+                               "test.crop_size=[1024,512]"])
+    say(f"val.batch_size and test.batch_size {TEST_BATCH} (at the preset's 4, and at 2 for "
+        "ms_test's 1.25 scale, cuDNN picks FFT convolutions; the sweep below reads it again)")
+
+    def measured(c, phase):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run(c, phase, device)
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+        out["peak"] = torch.cuda.max_memory_allocated(device)
+        out["launches"] = read_counts()
+        if any(out["launches"][n] for n in k1.KERNELS):
+            raise AssertionError(f"--phase {phase} launched K1: {out['launches']}")
+        return out
+
+    val = measured(cfg, "val")
+    scores = val["scores"]
+    conf_val = val["trainer"].evaluator.score.confusion.copy()
+    if not 0.0 <= scores["miou"] <= 1.0 or conf_val.sum() == 0:
+        raise AssertionError(f"--phase val gave no scores: {scores}")
+    say(f"--phase val (4 frames of 1024x2048, batch {TEST_BATCH}, restored at step "
+          f"{val['trainer'].state.step}): mIoU {scores['miou']:.6f}, pixel_acc "
+          f"{scores['pixel_acc']:.6f}, {scores['images_per_sec']:.3f} images/s, peak "
+          f"{val['peak'] / 2**30:.3f} GiB, phase wall {val['wall']:.1f} s")
+    del val
+
+    modes, keep = {}, {}
+    for mode in ("ss_test", "ms_test", "sscrop_test", "mscrop_test"):
+        c = cfg.updated("test.mode", mode).updated("test.out_dir", str(out_root / mode))
+        out = measured(c, "test")
+        timing, n = out["tester"].timing, out["tester"].timing["images"]
+        pngs = {d: len(list((out_root / mode / d).glob("*.png"))) for d in ("label", "vis")}
+        if n != 4 or pngs != {"label": 4, "vis": 4}:
+            raise AssertionError(f"{mode}: {n} images, PNGs {pngs}; expected 4 of each")
+        modes[mode] = {"seconds_an_image": timing["seconds"] / n,
+                       "infer_seconds_an_image": timing["infer_seconds"] / n,
+                       "peak": out["peak"], "pngs": sum(pngs.values()), "wall": out["wall"]}
+        say(f"--phase test {mode}: {timing['seconds'] / n:.3f} s an image "
+              f"({timing['infer_seconds'] / n:.3f} s in the model and fusion, the rest writing "
+              f"PNGs), peak {out['peak'] / 2**30:.3f} GiB, {sum(pngs.values())} PNGs written "
+              f"(label/ and vis/), phase wall {out['wall']:.1f} s")
+        if mode == "ss_test":
+            keep = out
+        else:
+            del out
+        torch.cuda.empty_cache()
+
+    # The official evaluator on the ss_test labels against validate().
+    label_dir, gt_dir = out_root / "ss_test" / "label", data_dir / "gtFine" / "val"
+    if len(find_pairs(str(label_dir), str(gt_dir))) != 4:
+        raise AssertionError("the official evaluator did not pair 4 predictions")
+    res = evaluate_dirs(str(label_dir), str(gt_dir))
+    ids = np.asarray(CITYSCAPES_LABEL_LIST)
+    conf_official = res["confMatrix"][np.ix_(ids, ids)].astype(np.int64)
+    miou_official = res["averageScoreClasses"]
+    if not np.array_equal(conf_official, conf_val) or abs(miou_official - scores["miou"]) > 1e-6:
+        raise AssertionError(
+            f"the official evaluator disagrees with validate(): mIoU {miou_official} vs "
+            f"{scores['miou']}, confusion entries off by {np.abs(conf_official - conf_val).sum()}")
+    say(f"official Cityscapes evaluator on the ss_test label PNGs: the 19x19 confusion equals "
+          f"validate()'s ({int(conf_val.sum())} pixels); mIoU {miou_official:.6f} vs "
+          f"{scores['miou']:.6f}; iIoU {res['averageScoreInstClasses']:.6f}, categories "
+          f"{res['averageScoreCategories']:.6f}, pixel accuracy {res['pixelAccuracy']:.6f}")
+
+    # ss_test with K2a on branch 0, against the flag-off logits.
+    c = (cfg.updated("network.pallas_conv", True).updated("test.mode", "ss_test")
+         .updated("test.out_dir", str(out_root / "ss_test_pallas_conv")))
+    on = measured(c, "test")
+    launches = on["launches"]
+    if launches["conv3x3_fwd"] < 1 or launches["conv3x3_dw"] or launches["fused_block"]:
+        raise AssertionError(f"the flag-on ss_test launched {launches}; expected K2a only")
+    batch = next(build_pipeline(cfg, "test").epoch_iter(0))
+    images = torch.from_numpy(batch["image"]).to(device)
+    off_logits = keep["tester"].infer(images)
+    on_logits = on["tester"].infer(images)
+    rel = float((on_logits - off_logits).norm() / off_logits.norm())
+    same = float((on_logits.argmax(-1) == off_logits.argmax(-1)).float().mean())
+    if not rel <= 1e-3:
+        raise AssertionError(f"flag-on ss_test logits are {rel:.3e} from flag-off in relative L2")
+    timing = on["tester"].timing
+    modes["ss_test_pallas_conv"] = {"seconds_an_image": timing["seconds"] / 4,
+                                    "infer_seconds_an_image": timing["infer_seconds"] / 4,
+                                    "peak": on["peak"], "pngs": 8, "wall": on["wall"]}
+    say(f"ss_test with network.pallas_conv=true: K2a launched "
+          f"{launches['conv3x3_fwd']} times; {timing['seconds'] / 4:.3f} s an image "
+          f"({timing['infer_seconds'] / 4:.3f} s in the model), peak {on['peak'] / 2**30:.3f} GiB; "
+          f"logits {rel:.3e} from flag-off in relative L2 (bound 1e-3), argmax equal on "
+          f"{same:.6f} of the pixels")
+    del on
+    torch.cuda.empty_cache()
+
+    full = torch.from_numpy(next(build_pipeline(cfg.updated("test.batch_size", 4), "test")
+                                 .epoch_iter(0))["image"]).to(device)
+    sweep = cudnn_sweep(keep["tester"], full, say)
+    hw = tuple(full.shape[1:3])
+    del full, images, off_logits, on_logits
+
+    # Export the same model and serve it.
+    art = out_root / "w48_ss"
+    t0 = time.perf_counter()
+    export_artifact(cfg, str(art), "ss", hw, 1, False, checkpoint, str(device))
+    export_s = time.perf_counter() - t0
+    size = (art.parent / "w48_ss.pt2").stat().st_size
+    say(f"export: --scope ss, batch 1, {hw[0]}x{hw[1]}: {size / 2**20:.1f} MiB in "
+          f"{export_s:.1f} s")
+    t0 = time.perf_counter()
+    httpd = make_server(str(art), 0)
+    load_s = time.perf_counter() - t0
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    latencies, shares = [], []
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.load(r)
+        if health.get("status") != "ok" or health["input"]["shape"] != [1, *hw, 3]:
+            raise AssertionError(f"/healthz: {health}")
+        for path in sorted((data_dir / "val" / "image").glob("*.png")):
+            frame = np.load(path.parent / ".npy_cache" / (path.name + ".npy"))
+            buf = io.BytesIO()
+            np.save(buf, frame)
+            req = urllib.request.Request(url + "/segment", data=buf.getvalue(),
+                                         headers={"Content-Type": "application/x-npy"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                labels = np.load(io.BytesIO(r.read()))
+            latencies.append(time.perf_counter() - t0)
+            want = read_png(label_dir / path.name)
+            shares.append(float((ids[labels] == want).mean()))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    say(f"serve: artifact loaded in {load_s:.1f} s; 4 /segment requests of {hw[0]}x{hw[1]} frames: "
+          f"latency {[round(t, 3) for t in latencies]} s; labels equal to ss_test's on "
+          f"{[round(x, 6) for x in shares]} of the pixels (bound 0.9999)")
+    if len(shares) != 4 or min(shares) < 0.9999:
+        raise AssertionError(f"served labels differ from ss_test's: {shares}")
+
+    if not pil_loaded and "PIL.Image" in sys.modules:
+        raise AssertionError("the test phase wrote or read a PNG through PIL")
+    say(f"no PNG through PIL (importable: "
+          f"{importlib.util.find_spec('PIL') is not None}, not imported)")
+    del keep
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_root, ignore_errors=True)
+    return {"scores": scores, "modes": modes, "launches_k2a": launches["conv3x3_fwd"],
+            "official_miou": miou_official, "sweep": sweep, "artifact_bytes": size,
+            "export_s": export_s, "latencies": latencies, "shares": shares}
+
+
 def main() -> None:
     import torch
 
@@ -1031,6 +1272,9 @@ def main() -> None:
         t0 = time.perf_counter()
         phases[name] = run(device, dr["data_dir"])
         print(f"{name} phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp = run_test_phase(device, dr["data_dir"], dr["latest"])
+    print(f"test phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
@@ -1068,6 +1312,8 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": by, "bound_ms_fp32_simt": bs, "library_ms": lib_ms,
             "shape": "x [2,48,128,256] fp32, w [48,48,3,3]",
         })
+    rows[-2]["launches_test_path"] = tp["launches_k2a"]
+    rows[-1]["launches_test_path"] = 0
     for row in rows[-2:]:
         ms, lib_ms, (b_ms, by), _ = k2["b8"][row["name"]]
         row.update({"ms_b8": ms, "library_ms_b8": lib_ms, "bound_ms_b8": b_ms,

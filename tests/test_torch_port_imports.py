@@ -15,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_TOOLS = ("train_torch.py", "profile_torch_step.py", "bench_block_torch.py",
-              "bench_k1_variants.py", "bench_k2_variants.py")
+              "bench_k1_variants.py", "bench_k2_variants.py", "evaluate_torch.py",
+              "evaluate_cityscapes_torch.py", "export_torch.py", "serve_torch.py")
 PORT_FILES = sorted((ROOT / "contrastiveseg_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / name for name in PORT_TOOLS] + [ROOT / "chip_smoke.py"]
 FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax"}
@@ -51,7 +52,9 @@ def test_port_files_found():
     assert all(p.is_file() for p in PORT_FILES)
     names = {p.name for p in PORT_FILES}
     assert {"contrast_cuda.py", "conv_cuda.py", "block_cuda.py", "queue.py",
-            "trainer.py", "presets.py", "config.py", "chip_smoke.py"} <= names
+            "trainer.py", "presets.py", "config.py", "chip_smoke.py", "tester.py", "png.py",
+            "palette.py", "cityscapes_official.py", "dataset_evaluators.py",
+            "export_torch.py", "serve_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -36,6 +36,9 @@ _spec.loader.exec_module(prof)
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>", "convolution"),
     ("void cudnn::batchnorm_bwtr_nhwc_semiPersist<float, float, float>", "batchnorm"),
     ("ampere_sgemm_128x64_nn", "gemm"),
+    ("void fft2d_r2c_32x32<float, false, 1u, false>(float2*, float const*)", "FFT"),
+    ("sm80_xmma_gemm_cf32cf32_cf32f32_f32_nn_n_tilesize64x64x8", "FFT"),
+    ("void cgemm_strided_batched_sm80_kernel<float2>", "FFT"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::Binary>", "elementwise"),
 ])
 def test_each_kernel_name_gets_one_category(name, want):

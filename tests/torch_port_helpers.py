@@ -348,3 +348,16 @@ def write_tree(root: Path, n_train: int = 6, n_val: int = 2, hw=(96, 192), seed:
             Image.fromarray(image).save(root / split / "image" / f"f{i}.png")
             Image.fromarray(label).save(root / split / "label" / f"f{i}.png")
     return root
+
+
+def tiny_hrnet(monkeypatch) -> None:
+    """Build the port's hrnet18 as a tiny HRNet: the same topology (four
+    stages, every fuse) at one block a stage and widths 8-64, for tests
+    whose cost grows with the number of ops (``torch.export`` traces it in
+    seconds) and that compare the port with itself."""
+    from contrastiveseg_tpu_torch.models import hrnet
+    from contrastiveseg_tpu_torch.models.hrnet import HRNetSpec, StageSpec
+
+    monkeypatch.setitem(hrnet.HRNET_SPECS, "hrnet18", HRNetSpec(
+        16, 1, 16, StageSpec(1, 1, (8, 16)), StageSpec(1, 1, (8, 16, 32)),
+        StageSpec(1, 1, (8, 16, 32, 64))))

@@ -2,7 +2,8 @@
 """Where the time of the port's train step goes, on one CUDA device.
 
     python tools/profile_torch_step.py [--preset cityscapes_hrnet_w48_mem]
-        [--steps 6] [--warmup 3] [--eval] [--cudnn-benchmark] [key.path=value ...]
+        [--steps 6] [--warmup 3] [--eval [--scale S]] [--cudnn-benchmark]
+        [key.path=value ...]
 
 Defaults: the headline preset at full HRNet-W48 width, batch 2 of 512x1024
 synthetic scenes, contrast live from step 0 (the ``chip_smoke.py`` slice).
@@ -23,7 +24,9 @@ numbers.  TF32 is off for matmuls and cuDNN, as in ``tools/train_torch.py``.
 With ``--eval`` a "step" is the evaluator's work on one val batch instead
 (``Evaluator.confusion``: the eval-mode forward, the upsample of the logits
 to the label's size, argmax and confusion), at ``val.batch_size`` from the
-val pipeline (the headline pads the scenes to 2048x1024).  With
+val pipeline (the headline pads the scenes to 2048x1024); ``--scale S``
+resizes the images by S first (align-corners bilinear), as the ``Tester``'s
+``ss_test`` does at that scale (``ms_test`` runs 0.75, 1.0 and 1.25).  With
 ``--cudnn-benchmark``, cuDNN times its algorithms for each new shape and
 keeps the fastest (``torch.backends.cudnn.benchmark``) instead of taking
 its heuristics' pick; the warm-up steps absorb that search.
@@ -53,6 +56,8 @@ CATEGORIES = (  # K2 before K1 and the convolutions: its names hold theirs
     ("K2", K2_KERNELS),
     ("K3", ("fused_block",)),
     ("K1", ("contrast_infonce",) + K1_KERNELS),
+    # cuDNN's FFT convolutions: their transforms and complex-valued GEMMs.
+    ("FFT convolution (transforms, complex GEMMs)", ("fft", "cgemm", "cf32")),
     ("convolution (cuDNN, with its layout transforms)",
      ("conv", "dgrad", "wgrad", "fprop", "nhwctonchw", "nchwtonhwc")),
     ("batchnorm", ("batchnorm", "batch_norm", "bn_fw", "bn_bw")),
@@ -106,6 +111,8 @@ def main() -> None:
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--eval", action="store_true",
                     help="profile the evaluator on val batches, not the train step")
+    ap.add_argument("--scale", type=float, default=1.0,
+                    help="with --eval: resize the val images by this factor first")
     ap.add_argument("--cudnn-benchmark", action="store_true",
                     help="let cuDNN time its algorithms per shape (torch.backends.cudnn.benchmark)")
     ap.add_argument("overrides", nargs="*", help="key.path=value, after the slice's")
@@ -117,6 +124,7 @@ def main() -> None:
     from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
     from contrastiveseg_tpu_torch.engine.prefetch import device_batches
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners
     from tools.train_torch import build_config, require_device
 
     device = require_device("cuda")
@@ -132,6 +140,12 @@ def main() -> None:
     batches.close()
     if args.eval:
         trainer.state.model.eval()
+
+    if args.eval and args.scale != 1.0:
+        for b in bs:
+            h, w = b["image"].shape[1:3]
+            b["image"] = resize_bilinear_align_corners(
+                b["image"], (int(h * args.scale), int(w * args.scale)))
 
     def step(i):
         if args.eval:
@@ -186,7 +200,7 @@ def main() -> None:
     print(f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
     print(json.dumps({
         "device": torch.cuda.get_device_name(device),
-        "eval": args.eval, "cudnn_benchmark": args.cudnn_benchmark,
+        "eval": args.eval, "scale": args.scale, "cudnn_benchmark": args.cudnn_benchmark,
         "batch_shape": list(bs[0]["image"].shape), "steps": n, "step_ms": step_ms, "profiled_wall_ms": wall_ms,
         "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "device_ms_per_step": {c: ms / n for c, ms in cats.items()},
