@@ -77,9 +77,23 @@ Phases (any failure raises, so the run exits non-zero):
      1024x2048) and served (``tools/serve_torch.py``) on 127.0.0.1 answers
      4 ``/segment`` requests with the ``ss_test`` labels on >= 99.99% of
      the pixels; no PNG goes through PIL;
- 14. a JSON line of the six kernels, the card line, and the result line.
+ 14. the models phase: the paper's DeepLab-V3 and HRNet-W48 + OCR rows,
+     ``cityscapes_deeplab_v3``, ``cityscapes_deeplab_v3_contrast``,
+     ``cityscapes_hrnet_w48_ocr`` and ``cityscapes_hrnet_w48_ocr_contrast``,
+     each at full width (ResNet-101 with its 2048-channel layer4, HRNet-W48,
+     19 classes) for 3 steps at the preset's batch 8 from the same tree
+     (contrast live from step 0): step times, data wait, peak memory, the
+     losses, the anchor count M of the contrast presets, and 0 launches of
+     K1, K2 and K3; each trained model's eval forward on a 1x128x256 input
+     within 1e-4 (relative L2) of the same weights on the CPU; the two
+     contrast trainers' ``latest`` restored bit for
+     bit, then ``--phase val`` and ``ss_test`` at batch 1 from it over the 4
+     val frames; a deep-base ResNet-101 ImageNet ``.pth`` in the reference's
+     layout (``resinit.*``, ``layer*``, ``fc.*``) written from a seeded model
+     and loaded through ``network.pretrained`` bit for bit, then one step;
+ 15. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-13 print their step times (or seconds an image), peak memory and
+Phases 10-14 print their step times (or seconds an image), peak memory and
 wall time.
 
 The slices read their batches through the port's data pipeline
@@ -102,6 +116,7 @@ the bound that PRs 1-2 reported.
 
 from __future__ import annotations
 
+import collections
 import json
 import re
 import shutil
@@ -913,6 +928,9 @@ def run_contrast_phase(device, data_dir: Path) -> dict:
     no_k1(launches, "the contrast phase")
     m = [(rows, int(valid)) for rows, valid in anchors]
     print(f"contrast phase anchors (rows, valid rows M) per step: {m}")
+    if len(m) != len(history):
+        raise AssertionError(f"contrast phase: {len(m)} anchor draws seen for "
+                             f"{len(history)} steps")
     for row, (_, valid) in zip(history, m):
         if not (row["loss_contrast"] > 0 and valid > 0):
             raise AssertionError(f"contrast phase: no anchors or no contrast term: {row}, M={valid}")
@@ -995,6 +1013,213 @@ def run_pretrained_phase(device, data_dir: Path) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
     return {"history": history, "peak": peak, "launches": launches}
+
+
+MODEL_PRESETS = ("cityscapes_deeplab_v3", "cityscapes_deeplab_v3_contrast",
+                 "cityscapes_hrnet_w48_ocr", "cityscapes_hrnet_w48_ocr_contrast")
+
+
+def run_models_phase(device, data_dir: Path) -> dict:
+    """The paper's DeepLab-V3 and HRNet-W48 + OCR rows, with and without
+    contrast: each preset at full width and its batch 8 for 3 steps from the
+    directory (no K1, K2 or K3 on this path); the two contrast trainers
+    round-trip ``latest`` and run ``--phase val`` and ``ss_test`` at batch 1
+    from it; a deep-base ResNet-101 ImageNet ``.pth`` in the reference's
+    layout starts ``cityscapes_deeplab_v3`` bit for bit and takes a step."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.state import init_weights
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.models.nets import DeepLabV3, HRNetOCRSeg, build_model
+    from contrastiveseg_tpu_torch.ops import contrast
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[models phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_models"
+    shutil.rmtree(root, ignore_errors=True)
+    sample, anchors = contrast.hard_anchor_sample, []
+
+    def counted(*args, **kwargs):  # each step's anchor rows, no sync
+        out = sample(*args, **kwargs)
+        anchors.append((out.valid.shape[0], out.valid.sum()))
+        return out
+
+    results, total = {}, collections.Counter()
+
+    def no_launch(launches: dict, what: str) -> None:  # and adds them up for the kernels line
+        total.update(launches)
+        if any(launches.values()):
+            raise AssertionError(f"{what} launched a kernel of K1-K3: {launches}")
+
+    for preset in MODEL_PRESETS:
+        contrastive = preset.endswith("_contrast")
+        cfg = directory_config(preset, data_dir, root / preset, [
+            "solver.max_iters=3"] + (["contrast.warmup_iters=0"] if contrastive else []))
+        want = (8, 19, "deepbase_resnet101_dilated8" if "deeplab" in preset else "hrnet48")
+        got = (cfg.get("train.batch_size"), cfg.get("data.num_classes"),
+               cfg.get("network.backbone"))
+        if got != want:
+            raise AssertionError(f"{preset}: batch, classes, backbone {got}; want {want}")
+        trainer = Trainer(cfg, device)
+        model = trainer.state.model
+        if not isinstance(model, DeepLabV3 if "deeplab" in preset else HRNetOCRSeg) or (
+                (model.proj_head is not None) != contrastive) or trainer.state.bank is not None:
+            raise AssertionError(f"{preset} built {type(model).__name__} with the wrong heads")
+        n_params = sum(p.numel() for p in model.parameters())
+        say(f"{preset}: {type(model).__name__}, {n_params / 1e6:.2f} M parameters, "
+            f"{cfg.get('loss.loss_type')}, batch {cfg.get('train.batch_size')} of "
+            f"{cfg.get('train_trans.random_crop.crop_size')} crops")
+        anchors.clear()
+        contrast.hard_anchor_sample = counted
+        try:
+            history, launches, peak = train_phase(trainer, device, preset)
+        finally:
+            contrast.hard_anchor_sample = sample
+        no_launch(launches, preset)
+        m = [(rows, int(valid)) for rows, valid in anchors]
+        if contrastive:
+            say(f"{preset} anchors (rows, valid rows M) per step: {m}")
+            if len(m) != len(history):
+                raise AssertionError(f"{preset}: {len(m)} anchor draws seen for "
+                                     f"{len(history)} steps")
+            for row, (_, valid) in zip(history, m):
+                if not (row["loss_contrast"] > 0 and valid > 0):
+                    raise AssertionError(f"{preset}: no anchors or no contrast term: {row}")
+        if not all(r["loss_seg"] > 0 for r in history):
+            raise AssertionError(f"{preset}: a seg loss is not positive: {history}")
+        same_on_the_cpu(model, preset, say)
+        results[preset] = {"history": history, "peak": peak, "anchors": m,
+                           "params": n_params}
+        if contrastive:
+            results[preset].update(infer_from_latest(trainer, cfg, device, run, say))
+            for phase in ("val", "ss_test"):
+                no_launch(results[preset][phase]["launches"], f"{preset} {phase}")
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    # A deep-base ResNet-101 ImageNet .pth in the reference's layout.
+    cfg = directory_config("cityscapes_deeplab_v3", data_dir, root / "pretrained",
+                           ["solver.max_iters=1", "train.batch_size=2"])
+    source = build_model(cfg)
+    g = torch.Generator().manual_seed(2025)
+    init_weights(source, g)
+    with torch.no_grad():
+        for mod in source.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                for t in (mod.weight, mod.bias, mod.running_mean, mod.running_var):
+                    t.add_(0.1 * torch.rand(t.shape, generator=g))
+    sd = {k.removeprefix("backbone."): v for k, v in source.state_dict().items()
+          if k.startswith("backbone.")}
+    sd.update({"fc.weight": torch.ones(1000, 2048), "fc.bias": torch.zeros(1000)})
+    path = root / "deepbase_resnet101_imagenet.pth"
+    torch.save(sd, path)
+    trainer = Trainer(cfg.updated("network.pretrained", str(path)), device)
+    loaded = trainer.state.model.state_dict()
+    bad = [k for k, v in source.state_dict().items()
+           if k.startswith("backbone.") and not torch.equal(loaded[k], v.to(device))]
+    if bad or not any(k.startswith("backbone.resinit.conv3") for k in loaded):
+        raise AssertionError(f"the ResNet-101 .pth did not load bit for bit: {bad[:5]}")
+    n = sum(k.startswith("backbone.") for k in loaded)
+    history, launches, _ = train_phase(trainer, device, "cityscapes_deeplab_v3 from the .pth")
+    no_launch(launches, "cityscapes_deeplab_v3 from the .pth")
+    say(f"deep-base ResNet-101 ImageNet .pth ({path.stat().st_size / 2**20:.1f} MiB, "
+        f"{len(sd)} tensors with fc.*): {n} backbone tensors equal the file's bit for bit "
+        f"on the device; one step at batch 2, loss {history[0]['loss']:.6f}")
+    results["pretrained"] = {"history": history, "tensors": n}
+    del trainer, source
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    results["launches"] = dict(total)
+    return results
+
+
+def same_on_the_cpu(model, what: str, say) -> None:
+    """The trained model's eval forward on the card against the same weights
+    on the CPU, on a seeded 1x128x256 input: every output of the expected
+    shape, finite, and within 1e-4 of the CPU's in relative L2 (fp32 on
+    both, TF32 off; cuDNN and the CPU sum in other orders)."""
+    import copy
+
+    import torch
+
+    x = torch.randn((1, 128, 256, 3), generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        got = model.eval()(x.to(next(model.parameters()).device))
+        want = copy.deepcopy(model).cpu()(x)
+    model.train()
+    errs = {}
+    for k, w in want.items():
+        g = got[k].cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{what} {k}: shape {tuple(g.shape)} vs {tuple(w.shape)}, "
+                                 f"finite {bool(torch.isfinite(g).all())}")
+        errs[k] = float((g - w).norm() / w.norm())
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"{what}: the card's eval forward is off the CPU's: {errs}")
+    say(f"{what}: eval forward on the card vs the CPU (1x128x256): shapes "
+        f"{ {k: tuple(v.shape) for k, v in want.items()} }, relative L2 "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (bound 1e-4)")
+
+
+def infer_from_latest(trainer, cfg, device, run, say) -> dict:
+    """``latest`` of ``trainer`` restored bit for bit into a new trainer,
+    then ``--phase val`` and ``ss_test`` at batch 1 from it, over the 4 val
+    frames of 1024x2048."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+
+    preset = cfg.get("network.model_name")
+    path = trainer.ckpt._path("latest")  # saved at the end of train()
+    resumed = Trainer(cfg.updated("network.resume", path), device)
+    if resumed.state.step != 3 or not same_state(trainer.state, resumed.state):
+        raise AssertionError(f"{preset}: the checkpoint did not restore the trained state")
+    say(f"{preset}: {Path(path).name} ({Path(path).stat().st_size / 2**20:.1f} MiB) restored "
+        "at step 3, every weight, BN statistic and momentum buffer equal")
+    del resumed
+    out = {}
+    data_dir = Path(cfg.get("data.data_dir"))
+    c = (cfg.updated("network.resume", path).updated("val.batch_size", 1)
+         .updated("test.batch_size", 1).updated("test.mode", "ss_test")
+         .updated("test.test_dir", str(data_dir / "val" / "image"))
+         .updated("test.out_dir", str(Path(path).parent / "ss_test")))
+    for phase in ("val", "test"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(c, phase, device)
+        torch.cuda.synchronize()
+        wall, peak, launches = (time.perf_counter() - t0,
+                                torch.cuda.max_memory_allocated(device), read_counts())
+        if phase == "val":
+            scores = res["scores"]
+            if not 0.0 <= scores["miou"] <= 1.0:
+                raise AssertionError(f"{preset} --phase val gave no mIoU: {scores}")
+            out["val"] = {"images_per_sec": scores["images_per_sec"], "miou": scores["miou"],
+                          "peak": peak, "wall": wall, "launches": launches}
+            say(f"{preset} --phase val (4 frames of 1024x2048, batch 1): mIoU "
+                f"{scores['miou']:.6f}, {scores['images_per_sec']:.3f} images/s "
+                f"({1 / scores['images_per_sec']:.3f} s an image), peak {peak / 2**30:.3f} GiB, "
+                f"wall {wall:.1f} s")
+        else:
+            timing = res["tester"].timing
+            labels = list((Path(path).parent / "ss_test" / "label").glob("*.png"))
+            if timing["images"] != 4 or len(labels) != 4:
+                raise AssertionError(f"{preset} ss_test wrote {len(labels)} label PNGs")
+            out["ss_test"] = {"seconds_an_image": timing["seconds"] / 4,
+                              "infer_seconds_an_image": timing["infer_seconds"] / 4,
+                              "peak": peak, "wall": wall, "launches": launches}
+            say(f"{preset} --phase test ss_test (batch 1): {timing['seconds'] / 4:.3f} s an "
+                f"image ({timing['infer_seconds'] / 4:.3f} s in the model), peak "
+                f"{peak / 2**30:.3f} GiB, 4 label PNGs, wall {wall:.1f} s")
+        del res
+        torch.cuda.empty_cache()
+    return out
 
 
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
@@ -1275,6 +1500,9 @@ def main() -> None:
     t0 = time.perf_counter()
     tp = run_test_phase(device, dr["data_dir"], dr["latest"])
     print(f"test phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mp = run_models_phase(device, dr["data_dir"])
+    print(f"models phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
@@ -1288,6 +1516,10 @@ def main() -> None:
           f"{phases['plain']['peak'] / 2**30:.3f} GiB; cityscapes_hrnet_w48_contrast: steps 2-3 "
           f"{[round(r['seconds'] * 1e3, 1) for r in phases['contrast']['history'][1:]]} ms, "
           f"peak {phases['contrast']['peak'] / 2**30:.3f} GiB (same call, same card)")
+    print("models phase at batch 8 from the directory: " + "; ".join(
+        f"{p}: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in mp[p]['history'][1:]]} ms, "
+        f"data wait {[round(r['data_seconds'] * 1e3, 1) for r in mp[p]['history'][1:]]} ms, "
+        f"peak {mp[p]['peak'] / 2**30:.3f} GiB" for p in MODEL_PRESETS) + " (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -1338,6 +1570,8 @@ def main() -> None:
         "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
         "max_abs_err_fp32": k3["errs"]["fp32"],
     })
+    for row in rows:  # summed over every run of the models phase, each of which fails on one
+        row["launches_models_phase"] = mp["launches"][row["name"]]
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -18,7 +18,8 @@ Rules of the port:
     launches the kernel or raises;
   * public functions keep the JAX package's layouts (NHWC for ``seg`` and
     ``embed``, ``[B, N, D]`` for the sampler and the enqueue); the model
-    runs NCHW inside and permutes once at the ``HRNetSeg`` boundary.
+    runs NCHW inside and permutes once at the segmentor's boundary
+    (``models/nets.py``).
 """
 
 __version__ = "0.1.0"

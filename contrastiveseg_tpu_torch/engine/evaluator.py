@@ -3,9 +3,10 @@
 Counterpart of ``Evaluator`` and ``build_evaluator`` in
 ``contrastiveseg_tpu/engine/evaluator.py`` (:41-138, :298-320; the
 reference's SegTask): the eval-mode forward, the optional flip average with
-left/right class swaps, the stride-4 logits resized to the label's size
-(bilinear, align_corners), argmax, and the confusion matrix accumulated on
-the device, read once at the end of the run.
+left/right class swaps, the model's ``seg`` logits (at the network's
+stride for the contrast nets, at the input size for the others) resized to
+the label's size (bilinear, align_corners), argmax, and the confusion
+matrix accumulated on the device, read once at the end of the run.
 
 Not ported yet (ROADMAP 6): the SegFix and multi-label direction
 evaluators, the diverse-size (per-image) batches and the mesh padding of

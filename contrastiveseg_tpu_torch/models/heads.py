@@ -47,3 +47,43 @@ class ProjectionHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.proj(x).float()
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp(min=1e-12)
+
+
+def conv_bn_relu(in_ch: int, out_ch: int, kernel_size: int, dilation: int = 1,
+                 bias: bool = False) -> nn.Sequential:
+    """conv -> BNReLU, the reference's ``nn.Sequential(conv,
+    ModuleHelper.BNReLU(...))``: slots ``0`` and ``1.0``."""
+    return nn.Sequential(conv(in_ch, out_ch, kernel_size, bias=bias, dilation=dilation),
+                         nn.Sequential(TorchBatchNorm(out_ch), nn.ReLU()))
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling of DeepLab-V3 (JAX ``heads.ASPP``,
+    :62-103; the reference's ASPPModule, decoder_block.py:39-85): a 1x1
+    branch ``b0``, 3x3 branches ``b1``-``b3`` at rates 12, 24 and 36, and the
+    image-pool branch ``b4`` (global mean, 1x1 ConvBNReLU, broadcast back);
+    concat, then the 3x3 ``project``.  No dropout, as in the JAX default.
+
+    The image-pool BN normalises B values a channel, so in training it needs
+    B >= 2: torch's BN refuses one value, where flax's returns zeros."""
+
+    def __init__(self, in_channels: int, out_channels: int = 512,
+                 rates: tuple[int, ...] = (12, 24, 36)):
+        super().__init__()
+        self.b0 = conv_bn_relu(in_channels, out_channels, 1)
+        for i, r in enumerate(rates, 1):
+            self.add_module(f"b{i}", conv_bn_relu(in_channels, out_channels, 3, dilation=r))
+        self.n_rates = len(rates)
+        self.b4 = nn.Sequential(nn.AdaptiveAvgPool2d(1),
+                                *conv_bn_relu(in_channels, out_channels, 1))
+        self.project = conv_bn_relu((len(rates) + 2) * out_channels, out_channels, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and x.shape[0] < 2:
+            raise ValueError(
+                "ASPP's image-pool BatchNorm normalises one value a channel at batch 1 "
+                "and cannot train: use train.batch_size >= 2 with DeepLab-V3")
+        h, w = x.shape[2], x.shape[3]
+        branches = [getattr(self, f"b{i}")(x) for i in range(self.n_rates + 1)]
+        branches.append(self.b4(x).expand(-1, -1, h, w))
+        return self.project(torch.cat(branches, dim=1))

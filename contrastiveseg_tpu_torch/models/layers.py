@@ -66,18 +66,23 @@ class PallasConv3x3(nn.Conv2d):
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-         bias: bool = False, pallas: bool = False) -> nn.Conv2d:
+         bias: bool = False, pallas: bool = False, dilation: int = 1) -> nn.Conv2d:
+    """Padding ``dilation * (k - 1) // 2`` on both sides, as the JAX
+    ``ConvBN`` pads (``models/layers.py:104-112``): not XLA's "SAME", which
+    pads a strided even-sized input asymmetrically."""
     cls = PallasConv3x3 if pallas and not bias else nn.Conv2d
     return cls(in_ch, out_ch, kernel_size, stride=stride,
-               padding=(kernel_size - 1) // 2, bias=bias)
+               padding=dilation * (kernel_size - 1) // 2, dilation=dilation, bias=bias)
 
 
 class ConvBN(nn.Sequential):
     """Conv2d (no bias) -> BN [-> ReLU]; state_dict slots ``0`` and ``1``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 1, use_relu: bool = True, pallas: bool = False):
-        layers = [conv(in_ch, out_ch, kernel_size, stride, pallas=pallas),
+                 stride: int = 1, use_relu: bool = True, pallas: bool = False,
+                 dilation: int = 1):
+        layers = [conv(in_ch, out_ch, kernel_size, stride, pallas=pallas,
+                       dilation=dilation),
                   TorchBatchNorm(out_ch)]
         if use_relu:
             layers.append(nn.ReLU())
@@ -86,14 +91,15 @@ class ConvBN(nn.Sequential):
 
 class BasicBlock(nn.Module):
     """HRNet/ResNet basic residual block (3x3, 3x3), expansion 1
-    (hrnet_backbone.py:35-66)."""
+    (hrnet_backbone.py:35-66); both 3x3 convs at ``dilation``, as in the JAX
+    ``BasicBlock``."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, pallas: bool = False):
+                 downsample: bool = False, pallas: bool = False, dilation: int = 1):
         super().__init__()
-        self.conv1 = conv(inplanes, planes, 3, stride, pallas=pallas)
+        self.conv1 = conv(inplanes, planes, 3, stride, pallas=pallas, dilation=dilation)
         self.bn1 = TorchBatchNorm(planes)
-        self.conv2 = conv(planes, planes, 3, pallas=pallas)
+        self.conv2 = conv(planes, planes, 3, pallas=pallas, dilation=dilation)
         self.bn2 = TorchBatchNorm(planes)
         self.relu = nn.ReLU()
         self.downsample = (ConvBN(inplanes, planes, 1, stride, use_relu=False)
@@ -108,16 +114,17 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """Bottleneck residual block (1x1, 3x3, 1x1 x4), expansion 4
-    (hrnet_backbone.py:68-106)."""
+    (hrnet_backbone.py:68-106; resnet_models.py Bottleneck); the 3x3 at
+    ``dilation``."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dilation: int = 1):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 1)
         self.bn1 = TorchBatchNorm(planes)
-        self.conv2 = conv(planes, planes, 3, stride)
+        self.conv2 = conv(planes, planes, 3, stride, dilation=dilation)
         self.bn2 = TorchBatchNorm(planes)
         self.conv3 = conv(planes, planes * 4, 1)
         self.bn3 = TorchBatchNorm(planes * 4)

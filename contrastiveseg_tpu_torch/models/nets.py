@@ -1,19 +1,27 @@
-"""The HRNet segmentors and the port's model registry.
+"""The segmentors of the port and its model registry.
 
-Counterpart of ``HRNetSeg`` in ``contrastiveseg_tpu/models/nets.py``
-(:34-115; reference HRNet_W48 and HRNet_W48_CONTRAST,
-lib/models/nets/hrnet.py:24-95), NHWC in and out like the JAX package;
-inside, the model runs NCHW and permutes once, here.
+Counterpart of ``contrastiveseg_tpu/models/nets.py``, NHWC in and out like
+the JAX package; inside, the models run NCHW and permute once, here.
 
-* The contrast nets (``hrnet_w{18,32,48,64}_contrast``) return
-  ``{"seg": stride-4 logits, "embed": L2-normalized stride-4
-  projections}``; the loss upsamples ``seg``.  ``hrnet_w*_mem`` is the same
-  module: the memory bank lives in the train state.
-* The plain nets (``hrnet_w{18,32,48,64}``) have no projection head and
-  return ``{"seg": logits upsampled to the input size}`` (``upsample_out``).
+* ``HRNetSeg`` (:34-115; reference HRNet_W48 and HRNet_W48_CONTRAST,
+  lib/models/nets/hrnet.py:24-95).  The contrast nets
+  (``hrnet_w{18,32,48,64}_contrast``) return ``{"seg": stride-4 logits,
+  "embed": L2-normalized stride-4 projections}``; the loss upsamples
+  ``seg``.  ``hrnet_w*_mem`` is the same module: the memory bank lives in
+  the train state.  The plain nets (``hrnet_w{18,32,48,64}``) have no
+  projection head and return ``{"seg": logits upsampled to the input
+  size}``.
+* ``HRNetOCRSeg`` (:118-187; reference HRNet_W48_OCR[_B][_CONTRAST]):
+  ``hrnet_w*_ocr``, ``_ocr_contrast`` and ``_ocr_b``, with an aux head
+  (``seg_aux``).
+* ``DeepLabV3`` (:226-272; reference DeepLabV3[Contrast]) on a dilated
+  ResNet (``network.backbone``): ``deeplab_v3`` and ``deeplab_v3_contrast``,
+  with the ``layer_dsn`` aux head on c3.
 
-Module names follow the reference's torch keys, so the cls head has the
-same keys in both.
+With a projection head, ``seg`` and ``seg_aux`` stay at the network's
+stride (4 for HRNet, 8 for DeepLab) and the loss upsamples them; without,
+both are upsampled to the input here.  Module names follow the reference's
+torch keys.
 """
 
 from __future__ import annotations
@@ -21,9 +29,31 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from contrastiveseg_tpu_torch.models.heads import ClsHead, ProjectionHead
+from contrastiveseg_tpu_torch.models.heads import ASPP, ClsHead, ProjectionHead, conv_bn_relu
 from contrastiveseg_tpu_torch.models.hrnet import HRNET_SPECS, HRNet
+from contrastiveseg_tpu_torch.models.layers import TorchBatchNorm, conv
+from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR
+from contrastiveseg_tpu_torch.models.resnet import ResNet, backbone_spec
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+
+
+def _outputs(out: dict[str, torch.Tensor], proj_head: nn.Module | None,
+             feats: torch.Tensor, size: tuple[int, int]) -> dict[str, torch.Tensor]:
+    """NHWC outputs: with a projection head, the logits stay at the
+    network's stride and ``embed`` projects ``feats``; without one, the
+    logits are upsampled to the input ``size``."""
+    if proj_head is not None:
+        out = {**out, "embed": proj_head(feats)}
+    else:
+        out = {k: resize_bilinear_align_corners_nchw(v, size) for k, v in out.items()}
+    return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
+
+
+def _fuse(feats: list[torch.Tensor]) -> torch.Tensor:
+    """HRNet's four branches concatenated at stride 4 (align-corners upsample)."""
+    h, w = feats[0].shape[2], feats[0].shape[3]
+    return torch.cat([feats[0]] + [resize_bilinear_align_corners_nchw(f, (h, w))
+                                   for f in feats[1:]], dim=1)
 
 
 class HRNetSeg(nn.Module):
@@ -43,18 +73,75 @@ class HRNetSeg(nn.Module):
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """``x``: NHWC images -> NHWC ``seg`` (and ``embed``) at stride 4, or
         ``seg`` at the input size without the projection head."""
-        feats = self.backbone(x.permute(0, 3, 1, 2))
-        h, w = feats[0].shape[2], feats[0].shape[3]
-        cat = torch.cat(
-            [feats[0]] + [resize_bilinear_align_corners_nchw(f, (h, w))
-                          for f in feats[1:]], dim=1)
-        seg = self.cls_head(cat)
-        if self.proj_head is None:
-            seg = resize_bilinear_align_corners_nchw(seg, (x.shape[1], x.shape[2]))
-            return {"seg": seg.permute(0, 2, 3, 1)}
-        embed = self.proj_head(cat)
-        return {"seg": seg.permute(0, 2, 3, 1),
-                "embed": embed.permute(0, 2, 3, 1)}
+        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+        return _outputs({"seg": self.cls_head(cat)}, self.proj_head, cat, x.shape[1:3])
+
+
+class HRNetOCRSeg(nn.Module):
+    """HRNet + OCR: the aux head on the fused 720 channels gives the class
+    maps that ``SpatialGather`` pools the ``conv3x3`` features with;
+    ``SpatialOCR`` distributes the contexts back; ``cls_head``.  The contrast
+    net projects the fused features.  Without ``height_attention`` (the
+    ``_ocr_b_ha`` nets, refused)."""
+
+    def __init__(self, num_classes: int, arch: str = "hrnet48", with_proj: bool = False,
+                 proj_dim: int = 256, mid_channels: int = 512, key_channels: int = 256,
+                 aux_channels: int | None = None):
+        super().__init__()
+        spec = HRNET_SPECS[arch]
+        width = sum(spec.out_channels)
+        aux_channels = aux_channels or width
+        self.backbone = HRNet(spec)
+        self.aux_head = nn.Sequential(*conv_bn_relu(width, aux_channels, 3),
+                                      conv(aux_channels, num_classes, 1, bias=True))
+        self.conv3x3 = conv_bn_relu(width, mid_channels, 3)
+        self.ocr_gather_head = SpatialGather()
+        self.ocr_distri_head = SpatialOCR(mid_channels, key_channels, mid_channels, 0.05)
+        self.cls_head = conv(mid_channels, num_classes, 1, bias=True)
+        self.proj_head = ProjectionHead(width, proj_dim) if with_proj else None
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+        aux = self.aux_head(cat)
+        feats = self.conv3x3(cat)
+        feats = self.ocr_distri_head(feats, self.ocr_gather_head(feats, aux))
+        return _outputs({"seg": self.cls_head(feats), "seg_aux": aux}, self.proj_head, cat,
+                        x.shape[1:3])
+
+
+class DeepLabHead(nn.Module):
+    """The reference's DeepLabHead (decoder_block.py:151-179): ``layer_dsn``
+    (3x3 ConvBNReLU of 256, 1x1 with bias) on c3; ``layer_aspp`` on c4,
+    then ``refine`` (3x3 ConvBN of 512 with no ReLU, 1x1 ``cls`` with bias)."""
+
+    def __init__(self, c3: int, c4: int, num_classes: int):
+        super().__init__()
+        self.layer_dsn = nn.Sequential(*conv_bn_relu(c3, 256, 3),
+                                       conv(256, num_classes, 1, bias=True))
+        self.layer_aspp = ASPP(c4, 512)
+        self.refine = nn.Sequential(conv(512, 512, 3), TorchBatchNorm(512),
+                                    conv(512, num_classes, 1, bias=True))
+
+    def forward(self, c3: torch.Tensor, c4: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.refine(self.layer_aspp(c4)), self.layer_dsn(c3)
+
+
+class DeepLabV3(nn.Module):
+    """DeepLab-V3 on a dilated ResNet: the decoder on (c3, c4) and, with
+    ``with_proj``, the projection head on c4."""
+
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8",
+                 with_proj: bool = False, proj_dim: int = 256):
+        super().__init__()
+        self.backbone = ResNet(backbone_spec(arch))
+        c3, c4 = self.backbone.channels[2:]
+        self.decoder = DeepLabHead(c3, c4, num_classes)
+        self.proj_head = ProjectionHead(c4, proj_dim) if with_proj else None
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
+        seg, aux = self.decoder(c3, c4)
+        return _outputs({"seg": seg, "seg_aux": aux}, self.proj_head, c4, x.shape[1:3])
 
 
 def _hrnet(arch: str, with_proj: bool):
@@ -71,10 +158,46 @@ def _hrnet(arch: str, with_proj: bool):
     return build
 
 
+def _hrnet_ocr(arch: str, with_proj: bool = False, **heads):
+    def build(cfg) -> HRNetOCRSeg:
+        return HRNetOCRSeg(cfg.get("data.num_classes"), arch, with_proj=with_proj,
+                           proj_dim=cfg.get("contrast.proj_dim", default=256), **heads)
+
+    return build
+
+
+def _deeplab(with_proj: bool):
+    # JAX `_deeplab_variant` passes no multi_grid (nets.py:301-312): the spec's (1, 1, 1).
+    def build(cfg) -> DeepLabV3:
+        return DeepLabV3(cfg.get("data.num_classes"),
+                         cfg.get("network.backbone", default="resnet101_dilated8"),
+                         with_proj=with_proj,
+                         proj_dim=cfg.get("contrast.proj_dim", default=256))
+
+    return build
+
+
 MODELS = {f"hrnet_w{w}{kind}": _hrnet(f"hrnet{w}", with_proj=bool(kind))
           for w in (18, 32, 48, 64) for kind in ("", "_contrast", "_mem")}
+_HRNET_SEG = frozenset(MODELS)  # the nets that take network.pallas_conv
+for _w in (18, 32, 48, 64):
+    MODELS[f"hrnet_w{_w}_ocr"] = _hrnet_ocr(f"hrnet{_w}")
+    MODELS[f"hrnet_w{_w}_ocr_contrast"] = _hrnet_ocr(f"hrnet{_w}", with_proj=True)
+    # OCR "B": the cheaper 256-channel head (nets/hrnet.py:249-299).
+    MODELS[f"hrnet_w{_w}_ocr_b"] = _hrnet_ocr(f"hrnet{_w}", mid_channels=256,
+                                              key_channels=128, aux_channels=256)
+MODELS["deeplab_v3"] = _deeplab(with_proj=False)
+MODELS["deeplab_v3_contrast"] = _deeplab(with_proj=True)
 
-# Config switches of the JAX HRNetSeg that the port does not have yet; a
+# Models of the JAX registry that the port refuses by name until they are ported.
+_LATER_MODELS = {
+    **{f"hrnet_w{w}_ocr_b_ha": "ROADMAP 7 (HANet height attention)" for w in (18, 32, 48, 64)},
+    **{name: "ROADMAP 7 (the oracle OCR nets: ground-truth gt_sim and use_bg)"
+       for name in ("ideal_spatial_ocrnet", "ideal_spatial_ocrnet_b", "ideal_spatial_ocrnet_c",
+                    "ideal_gather_ocrnet", "ideal_distribute_ocrnet")},
+}
+
+# Config switches of the JAX models that the port does not have yet; a
 # config that turns one on is refused rather than silently ignored.
 _NOT_PORTED = {
     "network.bf16": "ROADMAP 5 (training extras: bf16 compute)",
@@ -85,12 +208,18 @@ _NOT_PORTED = {
 }
 
 
-def build_model(cfg) -> HRNetSeg:
+def build_model(cfg) -> nn.Module:
     """ModelManager.semantic_segmentor for the models the port has."""
     name = cfg.get("network.model_name")
+    if name in _LATER_MODELS:
+        raise NotImplementedError(f"model {name!r} is not ported yet: {_LATER_MODELS[name]}")
     if name not in MODELS:
         raise KeyError(f"unknown model {name!r}; the port has {sorted(MODELS)}")
     for key, what in _NOT_PORTED.items():
         if cfg.get(key, default=False):
             raise NotImplementedError(f"{key}=true is not ported yet: {what}")
+    if cfg.get("network.pallas_conv", default=False) and name not in _HRNET_SEG:
+        raise NotImplementedError(
+            f"network.pallas_conv=true on {name!r}: K2 runs in the HRNetSeg nets only; the "
+            "JAX package's OCR and DeepLab nets take no pallas_conv")
     return MODELS[name](cfg)

@@ -1,0 +1,89 @@
+"""OCR (object-contextual representations) modules (NCHW).
+
+Counterpart of ``contrastiveseg_tpu/models/ocr.py`` (:26-150; the
+reference's spatial_ocr_block.py):
+
+  * ``SpatialGather``: the context of each class, softmax over the pixels
+    of its probability map times the features, ``[B, K, C]``;
+  * ``ObjectAttention``: pixel queries against object keys, scaled by
+    1/sqrt(key_channels), softmax over the objects, and the weighted object
+    values projected back to C channels;
+  * ``SpatialOCR``: that context concatenated with the features, then a
+    1x1 ConvBNReLU and element-wise dropout (``nn.Dropout``, as in the JAX
+    package, not the reference's ``Dropout2d``).
+
+The two products are batched matmuls (``torch.bmm``), as they are XLA
+einsums in the JAX package.  Only the learned similarity is ported: the
+oracle nets' ground-truth similarity (``gt_sim``) and background context
+(``use_bg``) are ROADMAP 7, and ``models/nets.build_model`` refuses them.
+
+Module names are the reference's torch keys (``utils/torch_import.
+_ocr_distri``, ``_object_attention``): ``object_context_block.f_pixel``,
+``.f_object`` (``[conv, BNReLU, conv, BNReLU]``), ``.f_down``, ``.f_up``
+(``[conv, BNReLU]``) and ``conv_bn_dropout``.  The attention's 1x1 convs
+carry a bias, as the JAX package's do.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from contrastiveseg_tpu_torch.models.heads import conv_bn_relu
+
+
+class SpatialGather(nn.Module):
+    """``context[b, k] = softmax_hw(scale * probs[b, k]) @ feats[b]``."""
+
+    def __init__(self, scale: float = 1.0):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, feats: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+        """``feats`` [B, C, H, W], ``probs`` [B, K, H, W] -> [B, K, C]."""
+        p = torch.softmax(self.scale * probs.flatten(2), dim=2)
+        return torch.bmm(p, feats.flatten(2).transpose(1, 2))
+
+
+class ObjectAttention(nn.Module):
+    """Pixel-to-object attention (ObjectAttentionBlock2D)."""
+
+    def __init__(self, in_channels: int, key_channels: int):
+        super().__init__()
+        self.key_channels = key_channels
+
+        def double(cin):
+            return nn.Sequential(*conv_bn_relu(cin, key_channels, 1, bias=True),
+                                 *conv_bn_relu(key_channels, key_channels, 1, bias=True))
+
+        self.f_pixel = double(in_channels)
+        self.f_object = double(in_channels)
+        self.f_down = conv_bn_relu(in_channels, key_channels, 1, bias=True)
+        self.f_up = conv_bn_relu(key_channels, in_channels, 1, bias=True)
+
+    def forward(self, x: torch.Tensor, proxy: torch.Tensor) -> torch.Tensor:
+        """``x`` [B, C, H, W] pixels, ``proxy`` [B, K, C] objects -> [B, C, H, W]."""
+        B, _, H, W = x.shape
+        objects = proxy.transpose(1, 2).unsqueeze(-1)  # [B, C, K, 1]
+        query = self.f_pixel(x).flatten(2).transpose(1, 2)  # [B, HW, key]
+        key = self.f_object(objects).flatten(2)  # [B, key, K]
+        value = self.f_down(objects).flatten(2).transpose(1, 2)  # [B, K, key]
+        sim = torch.softmax(torch.bmm(query, key) * self.key_channels ** -0.5, dim=-1)
+        ctx = torch.bmm(sim, value).transpose(1, 2).reshape(B, self.key_channels, H, W)
+        return self.f_up(ctx)
+
+
+class SpatialOCR(nn.Module):
+    """ObjectAttention, concat ``[context, feats]``, 1x1 ConvBNReLU, dropout
+    (SpatialOCR_Module, spatial_ocr_block.py:237-310)."""
+
+    def __init__(self, in_channels: int, key_channels: int, out_channels: int,
+                 dropout: float = 0.05):
+        super().__init__()
+        self.object_context_block = ObjectAttention(in_channels, key_channels)
+        self.conv_bn_dropout = nn.Sequential(
+            *conv_bn_relu(2 * in_channels, out_channels, 1), nn.Dropout(dropout))
+
+    def forward(self, feats: torch.Tensor, proxy: torch.Tensor) -> torch.Tensor:
+        ctx = self.object_context_block(feats, proxy)
+        return self.conv_bn_dropout(torch.cat([ctx, feats], dim=1))

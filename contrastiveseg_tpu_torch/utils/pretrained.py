@@ -12,20 +12,25 @@ reference's own ``--pretrained`` takes it, and no import tool is needed.
 Which source a file is, from its keys alone:
 
 * keys under ``backbone.`` or ``encoder_q.backbone.``: a full segmentor
-  (HRNet_W48, HRNet_W48_CONTRAST, or HRNet_W48_MEM with its ``encoder_q.``
-  prefix and its four queue buffers, which seed the bank);
-* otherwise an ImageNet backbone (``hrnetv2_w48_imagenet_pretrained.pth``):
-  the classification head's keys (``IMAGENET_HEAD_PREFIXES``) are dropped
-  and the rest prefixed with ``backbone.``.  The heads keep their init.
+  (HRNet_W48[_CONTRAST], HRNet_W48_OCR[_B][_CONTRAST], DeepLabV3[Contrast],
+  or HRNet_W48_MEM with its ``encoder_q.`` prefix and its four queue
+  buffers, which seed the bank);
+* otherwise an ImageNet backbone (``hrnetv2_w48_imagenet_pretrained.pth``,
+  a deep-base ResNet's ``resinit.*`` file, or a torchvision-style ResNet
+  whose ``conv1.``/``bn1.`` stem becomes ``resinit.conv1.``/``resinit.bn1.``
+  as in ``tools/import_torch_ckpt.py:97-106``): the classification head's
+  keys (``IMAGENET_HEAD_PREFIXES``) are dropped and the rest prefixed with
+  ``backbone.``.  The heads keep their init.
 
 The load is strict: every tensor of the model that the source covers (the
 backbone for ImageNet files, everything for a segmentor) must be in the
 file with its shape, and no key may be left over.  BN
 ``num_batches_tracked`` counters are loaded where the file has them and
-kept otherwise.  The reference cls head's 3x3 conv has a bias that the
-port's has not (it feeds a BN); as in ``utils/torch_import``, it is folded
-into that BN's running mean.  Half a set of queue buffers, or queues for a
-preset without memory, raise.
+kept otherwise.  A reference conv may have a bias where the port's conv has
+none because a BN follows it (the HRNet cls head's 3x3 conv, for one): as
+in ``utils/torch_import._convbn``, the bias folds into that BN's running
+mean (``conv_bn_pairs`` finds the BN).  Half a set of queue buffers, or
+queues for a preset without memory, raise.
 """
 
 from __future__ import annotations
@@ -40,8 +45,9 @@ from torch import nn
 IMAGENET_HEAD_PREFIXES = (
     "incre_modules", "downsamp_modules", "final_layer", "classifier", "fc.")
 QUEUE_KEYS = ("segment_queue", "segment_queue_ptr", "pixel_queue", "pixel_queue_ptr")
-# Reference conv biases that the port folds into the BN after the conv.
-FOLDED_BIASES = {"cls_head.0.bias": "cls_head.1.0.running_mean"}
+# A torchvision-style ResNet's 7x7 stem, and its names in the port.
+TORCHVISION_STEM = {"backbone.conv1.": "backbone.resinit.conv1.",
+                    "backbone.bn1.": "backbone.resinit.bn1."}
 
 
 def load_torch_state(path: str) -> dict[str, torch.Tensor]:
@@ -59,8 +65,8 @@ def load_torch_state(path: str) -> dict[str, torch.Tensor]:
 
 def split_source(sd: dict[str, torch.Tensor]
                  ) -> tuple[dict[str, torch.Tensor], Optional[dict[str, torch.Tensor]], bool]:
-    """-> (weights keyed like ``HRNetSeg``, the queue buffers or None,
-    whether the file is an ImageNet backbone)."""
+    """-> (weights keyed like the port's segmentors, the queue buffers or
+    None, whether the file is an ImageNet backbone)."""
     if not any(k.startswith(("backbone.", "encoder_q.backbone.")) for k in sd):
         return ({f"backbone.{k}": v for k, v in sd.items()
                  if not k.startswith(IMAGENET_HEAD_PREFIXES)}, None, True)
@@ -74,10 +80,30 @@ def split_source(sd: dict[str, torch.Tensor]
     return weights, queues, False
 
 
-def _fold_biases(weights: dict[str, torch.Tensor], model_keys) -> dict[str, torch.Tensor]:
+def conv_bn_pairs(model: nn.Module) -> dict[str, str]:
+    """{bias-free conv: the BN right after it} over ``model``: a conv
+    followed, among its parent's children, by a ``BatchNorm2d`` or by a
+    ``Sequential`` that starts with one (a BNReLU)."""
+    pairs = {}
+    for prefix, parent in model.named_modules():
+        children = list(parent.named_children())
+        for (name, mod), (next_name, nxt) in zip(children, children[1:]):
+            if not isinstance(mod, nn.Conv2d) or mod.bias is not None:
+                continue
+            if isinstance(nxt, nn.Sequential) and len(nxt) and isinstance(nxt[0], nn.BatchNorm2d):
+                next_name += ".0"
+            elif not isinstance(nxt, nn.BatchNorm2d):
+                continue
+            base = f"{prefix}." if prefix else ""
+            pairs[base + name] = base + next_name
+    return pairs
+
+
+def _fold_biases(weights: dict[str, torch.Tensor], model: nn.Module) -> dict[str, torch.Tensor]:
     weights = dict(weights)
-    for bias, mean in FOLDED_BIASES.items():
-        if bias in weights and bias not in model_keys and mean in weights:
+    for conv, bn in conv_bn_pairs(model).items():
+        bias, mean = f"{conv}.bias", f"{bn}.running_mean"
+        if bias in weights and mean in weights:
             weights[mean] = weights[mean] - weights.pop(bias)
     return weights
 
@@ -87,12 +113,16 @@ def _first(keys: list[str]) -> str:
 
 
 def load_pretrained(model: nn.Module, path: str) -> Optional[dict[str, torch.Tensor]]:
-    """Fill ``model`` (an ``HRNetSeg``) from the ``.pth`` at ``path``;
-    returns the file's queue buffers (CPU tensors keyed by ``QUEUE_KEYS``),
-    or None when it has none."""
+    """Fill ``model`` (any of the port's segmentors) from the ``.pth`` at
+    ``path``; returns the file's queue buffers (CPU tensors keyed by
+    ``QUEUE_KEYS``), or None when it has none."""
     weights, queues, imagenet = split_source(load_torch_state(path))
     target = model.state_dict()
-    weights = _fold_biases(weights, target)
+    if (imagenet and any(k.startswith("backbone.resinit.") for k in target)
+            and not any(k.startswith("backbone.resinit.") for k in weights)):
+        weights = {next((k.replace(a, b, 1) for a, b in TORCHVISION_STEM.items()
+                         if k.startswith(a)), k): v for k, v in weights.items()}
+    weights = _fold_biases(weights, model)
     covered = [k for k in target if not imagenet or k.startswith("backbone.")]
     missing = [k for k in covered
                if k not in weights and not k.endswith("num_batches_tracked")]

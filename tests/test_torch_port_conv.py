@@ -3,8 +3,9 @@ package's Pallas conv, and the ``network.pallas_conv`` path of the model.
 
 On the CPU the K2 wrappers take their plain versions (``F.conv2d`` and
 ``conv2d_weight``); the JAX side runs the Pallas kernels in interpret mode,
-as ``tests/test_conv_pallas.py`` does.  Inputs come from one numpy seed,
-NHWC/HWIO for JAX and transposed to NCHW/OIHW for the port.
+as ``tests/test_conv_pallas.py`` does, compiled with most of XLA's
+optimizations off (``unoptimized_jax_compiles``).  Inputs come from one
+numpy seed, NHWC/HWIO for JAX and transposed to NCHW/OIHW for the port.
 
 Tolerances: atol/rtol 1e-4 on the forward, dX and dW (fp32 sums in another
 order; dW sums B·H·W products); the model at the model test's atol/rtol
@@ -34,6 +35,7 @@ from torch_port_helpers import (
     one_torch_thread,
     random_variables,
     shared_jax_compiles,
+    unoptimized_jax_compiles,
 )
 
 SHAPES = [  # tests/test_conv_pallas.py:27-31 (B, H, W, C, Co)
@@ -61,9 +63,11 @@ def _inputs(shape, seed):
     return x, w, tgt
 
 
-@pytest.fixture(autouse=True)
-def _shared_compiles():
-    with shared_jax_compiles():
+@pytest.fixture(scope="module", autouse=True)
+def _shared_quick_compiles():
+    """Every JAX compile shared and unoptimized (the interpret-mode kernels
+    are compiled once per shape and run once)."""
+    with shared_jax_compiles(), unoptimized_jax_compiles():
         yield
 
 
@@ -222,18 +226,22 @@ def weights():
 
 def test_train_forward_with_pallas_conv_matches_jax(weights, monkeypatch):
     """hrnet18 at 64x64 with ``pallas_conv`` on both sides: branches 0 and 1
-    (C=18, 36) go through the JAX Pallas conv (interpret mode) and the
+    (C=18, 36) go through the JAX Pallas conv (interpret mode, each launch a
+    host call from the compiled blocks: ``compiled_pallas_conv``) and the
     port's K2 wrappers; train-mode outputs and BN statistics agree.  torch
     runs on one thread (the 1e-3 tolerance is far above summation order)."""
     from contrastiveseg_tpu_torch.utils.jax_weights import flatten, hrnet_seg_key
 
     exact_fp32_reference(monkeypatch)
-    compiled_pallas_conv(monkeypatch)
+    calls = compiled_pallas_conv(monkeypatch)
     jm, variables = weights
     x = np.random.default_rng(5).standard_normal((2, 64, 64, 3)).astype(np.float32)
     with jax.disable_jit():
         want, mut = jm.apply(variables, jnp.asarray(x), train=True,
                              mutable=["batch_stats"], rngs={"dropout": jax.random.key(0)})
+    # Every 3x3 conv of the blocks of branches 0 and 1: 2 a block, 4 blocks
+    # a branch, 8 modules.
+    assert len(calls) == 128 and set(calls) == {(2, 16, 16, 18), (2, 8, 8, 36)}
     pm = HRNetSeg(5, "hrnet18", head_dropout=0.0, pallas_conv=True)
     load_jax_variables(pm, variables)
     with torch.no_grad(), one_torch_thread():

@@ -54,7 +54,7 @@ def test_port_files_found():
     assert {"contrast_cuda.py", "conv_cuda.py", "block_cuda.py", "queue.py",
             "trainer.py", "presets.py", "config.py", "chip_smoke.py", "tester.py", "png.py",
             "palette.py", "cityscapes_official.py", "dataset_evaluators.py",
-            "export_torch.py", "serve_torch.py"} <= names
+            "export_torch.py", "serve_torch.py", "resnet.py", "ocr.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

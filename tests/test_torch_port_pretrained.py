@@ -1,7 +1,8 @@
 """``network.pretrained`` on the port against the JAX package's import route.
 
-The ``.pth`` files are written here from a port hrnet18 with seeded random
-weights (nothing is downloaded), in the reference's layouts:
+The ``.pth`` files are written here from a port hrnet18 (shallow:
+``torch_port_helpers.shallow_hrnet18``) with seeded random weights (nothing
+is downloaded), in the reference's layouts:
 
 * an ImageNet backbone (``hrnetv2_w48_imagenet_pretrained.pth``): backbone
   keys without ``backbone.``, plus classification-head tensors that the
@@ -15,7 +16,7 @@ The JAX route is ``tools/import_torch_ckpt.load_torch_state`` (imported by
 path), its ImageNet filter, then ``utils/torch_import.convert_state_dict``
 with ``mapper_for_model``, and ``extract_memory_queues`` for the queues.
 Loaded tensors are compared bit for bit; the ImageNet-initialised forward
-(same heads on both sides, JAX eager under ``exact_fp32_reference``) at
+(same heads on both sides, JAX jitted under ``exact_fp32_reference``) at
 atol 1e-3 / rtol 1e-3, as in the model test.
 """
 
@@ -44,6 +45,7 @@ from torch_port_helpers import (
     exact_fp32_reference,
     one_torch_thread,
     random_variables,
+    shallow_hrnet18,
     shared_jax_compiles,
 )
 
@@ -54,9 +56,14 @@ _TOOL = Path(__file__).resolve().parent.parent / "tools" / "import_torch_ckpt.py
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _one_thread():
+def _shallow_one_thread():
+    """The shallow hrnet18 in both packages (the files' layouts do not
+    depend on the depth), and torch on one thread."""
+    mp = pytest.MonkeyPatch()
+    shallow_hrnet18(mp)
     with one_torch_thread():
         yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +173,7 @@ def test_imagenet_load_matches_the_jax_import_route(imagenet, jax_models):
           if not k.startswith(tool._IMAGENET_HEAD_PREFIXES)}
     jmodel, variables = jax_models["plain"]
     mp = pytest.MonkeyPatch()
-    exact_fp32_reference(mp)
+    exact_fp32_reference(mp, compiled_blocks=False)
     try:
         variables, report = ti.convert_state_dict(
             variables, sd, ti.mapper_for_model("hrnet_w18"), strict=True)
@@ -186,9 +193,10 @@ def test_imagenet_load_matches_the_jax_import_route(imagenet, jax_models):
                 else:
                     _set(variables[col], p, t)  # same heads on both sides
         x = np.random.default_rng(0).standard_normal((B, H, W, 3)).astype(np.float32)
-        with shared_jax_compiles(), jax.disable_jit():
-            out, _ = jmodel.apply(variables, jnp.asarray(x), train=True,
-                                  mutable=["batch_stats"], rngs={"dropout": jax.random.key(0)})
+        with shared_jax_compiles():
+            out, _ = jax.jit(lambda v, x: jmodel.apply(
+                v, x, train=True, mutable=["batch_stats"],
+                rngs={"dropout": jax.random.key(0)}))(variables, jnp.asarray(x))
             want = np.asarray(out["seg"])
     finally:
         mp.undo()

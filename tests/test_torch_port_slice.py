@@ -1,30 +1,33 @@
 """The slice end to end: one train step of the port against ``make_train_step``.
 
-The ``smoke_hrnet_w18`` preset (hrnet18, 5 classes, memory bank of 50 rows
-per class and queue, 64 anchors, warmup 0 so the contrast term and its
-gradient are live), batch 2 of 64x64 synthetic scenes, dropout 0, exact
-top-k sampling.  Both steps (``network.pallas_conv`` off and on) run at the
-same size, so the second reuses the JAX primitives the first compiled.
-Both packages start from the same numpy weights and bank
-and get the same random draws: the test re-derives the JAX step's draws
-(``train_step.py:74``, ``contrast.py:101-103``, ``queue.py:127``) and hands
-them to the port.  The JAX step runs eagerly (``jax.disable_jit``), so no
-train-step compile enters the test.
+The ``smoke_hrnet_w18`` preset (5 classes, memory bank of 50 rows per class
+and queue, 64 anchors, warmup 0 so the contrast term and its gradient are
+live) on a shallow hrnet18 (``torch_port_helpers.shallow_hrnet18``: the W18
+widths and every fuse, one module of one block a stage), batch 2 of 64x64
+synthetic scenes, dropout 0, exact top-k sampling.  Both packages start
+from the same numpy weights and bank and get the same random draws: the
+test re-derives the JAX step's draws (``train_step.py:74``,
+``contrast.py:101-103``, ``queue.py:127``) and hands them to the port.  The
+JAX step runs jitted whole, with ``network.pallas_conv`` too
+(``compiled_pallas_conv`` makes each kernel launch one host call), and
+compiled with most of XLA's optimizations off
+(``unoptimized_jax_compiles``); torch runs on one thread.
 
-Tolerances, against readings at 64x64 with torch on 1, 3 and 8 threads
-(flag off and on alike): losses rtol 1e-4; bank pointers exactly equal and
-rows atol 3.5e-5 (the enqueued rows are the two forwards' unit embeddings,
-which differ by up to 1.6e-5 after ~100 convs in another summation order);
-post-step parameters atol 5e-4 (read: 2.0e-4 to 4.0e-4, stem weights,
-|w| ~ 0.6, lr 0.01), and each tensor's update (new - old) within 4e-2 of
-the JAX update in relative norm (read: 1.86e-2 to 1.92e-2).  These two are
-fp32's bounds for this network, not the port's: at random init the CE
-gradient is mostly a per-class constant that every BN backward subtracts
-out, so weight gradients lose about three digits to cancellation: at
-64x128, against an fp64 run of the port, the fp32 port's gradients were
-off by up to 3e-3 in relative norm and the fp32 JAX step's by more.  A wrong term in the
-update (sign, weight decay, momentum, a missing gradient path) moves the
-relative error to order 1.
+Tolerances: losses rtol 1e-4; bank pointers exactly equal and rows atol
+3.5e-5 (the enqueued rows are the two forwards' unit embeddings, which
+differ in summation order); post-step parameters atol 5e-4, and each
+tensor's update (new - old) within 4e-2 of the JAX update in relative norm.
+Read at this size with torch on 1, 3 and 8 threads, flag off and on alike,
+and XLA's optimizations on and off: losses within 7.8e-7, bank rows
+1.8e-6, parameters 5.6e-7, updates 2.0e-4 to 8.3e-4.  The bounds are
+fp32's for a deep HRNet, not the port's: at random init the CE gradient is
+mostly a per-class constant that every BN backward subtracts out, so weight
+gradients lose digits to cancellation.  With the full hrnet18 the same
+readings were parameters 2.0e-4 to 4.0e-4 and updates 1.86e-2 to 1.92e-2;
+at 64x128, against an fp64 run of the port, the fp32 port's gradients were
+off by up to 3e-3 in relative norm and the fp32 JAX step's by more.  A
+wrong term in the update (sign, weight decay, momentum, a missing gradient
+path) moves the relative error to order 1.
 """
 
 from __future__ import annotations
@@ -60,17 +63,25 @@ from contrastiveseg_tpu_torch.utils.jax_weights import (
 from torch_port_helpers import (
     compiled_pallas_conv,
     exact_fp32_reference,
+    one_torch_thread,
     random_variables,
+    shallow_hrnet18,
     shared_jax_compiles,
+    unoptimized_jax_compiles,
 )
 
 H, W, B = 64, 64, 2
 
 
-@pytest.fixture(autouse=True)
-def _shared_compiles():
-    with shared_jax_compiles():
+@pytest.fixture(scope="module", autouse=True)
+def _shallow_quick():
+    """The shallow hrnet18 in both packages, the JAX compiles shared and
+    unoptimized, torch on one thread (the checks hold on 1, 3 and 8)."""
+    mp = pytest.MonkeyPatch()
+    shallow_hrnet18(mp)
+    with shared_jax_compiles(), unoptimized_jax_compiles(), one_torch_thread():
         yield
+    mp.undo()
 
 
 def _config(pallas_conv=False):
@@ -128,8 +139,7 @@ def _step_against_jax(pallas_conv, h, w):
         exact_sampling=True)
     jbatch = {"image": jnp.asarray(batch["image"].numpy()),
               "label": jnp.asarray(batch["label"].numpy().astype(np.int32))}
-    with jax.disable_jit():
-        s1, jmetrics = jstep(s0, jbatch)
+    s1, jmetrics = jstep(s0, jbatch)
 
     # --- the JAX step's draws.
     _, _, r_sample, r_queue = jax.random.split(rng, 4)
@@ -184,17 +194,22 @@ def _step_against_jax(pallas_conv, h, w):
 
 
 def test_one_train_step_matches_jax(monkeypatch):
-    exact_fp32_reference(monkeypatch)
+    """The JAX step jitted whole."""
+    exact_fp32_reference(monkeypatch, compiled_blocks=False)
     _step_against_jax(False, H, W)
 
 
 def test_one_train_step_with_pallas_conv_matches_jax(monkeypatch):
     """``network.pallas_conv`` on both sides: branches 0 and 1 (C=18, 36) run
-    the JAX Pallas conv (interpret mode, compiled per shape) and the port's
-    K2 wrappers, forward, dX and dW; same tolerances."""
-    exact_fp32_reference(monkeypatch)
-    compiled_pallas_conv(monkeypatch)
+    the JAX Pallas conv (interpret mode, each launch a host call inside the
+    jitted step: ``compiled_pallas_conv``) and the port's K2 wrappers,
+    forward, dX and dW; same tolerances."""
+    exact_fp32_reference(monkeypatch, compiled_blocks=False)
+    calls = compiled_pallas_conv(monkeypatch)
     _step_against_jax(True, H, W)
+    # Forward, dX and dW of every branch-0 and branch-1 3x3 conv.
+    assert {shape[1:] for shape in calls} == {(16, 16, 18), (8, 8, 36)}
+    assert len(calls) == 3 * 12, len(calls)  # 12 such convs
 
 
 def test_lr_schedule_matches_optax_count():

@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def exact_fp32_reference(monkeypatch) -> None:
-    """Hold the JAX HRNet to exact fp32 in two places where it trades
+def exact_fp32_reference(monkeypatch, compiled_blocks: bool = True) -> None:
+    """Hold the JAX models to exact fp32 in two places where they trade
     precision for TPU speed; the JAX package itself is unchanged.
 
     * Fuse upsamples: the JAX fuse path calls
@@ -33,8 +33,12 @@ def exact_fp32_reference(monkeypatch) -> None:
       (and the port) use the two-pass variance.  Patched to
       ``use_fast_variance=False`` here.
 
-    It also runs the JAX HRNet's blocks compiled (``compiled_hrnet_blocks``),
-    which changes the time of an eager forward, not its values.
+    The resize patch covers every net of ``models/nets.py`` (``HRNetSeg``,
+    ``HRNetOCRSeg`` and ``DeepLabV3`` call it there), the BN patch every
+    flax BatchNorm.  With ``compiled_blocks`` it also runs the JAX HRNet's
+    blocks compiled (``compiled_hrnet_blocks``), which changes the time of an
+    eager forward, not its values; a test that jits the whole model needs
+    no such patch.
     """
     import contrastiveseg_tpu.models.hrnet as jhrnet
     import contrastiveseg_tpu.models.nets as jnets
@@ -48,7 +52,8 @@ def exact_fp32_reference(monkeypatch) -> None:
     monkeypatch.setattr(jnets, "resize_bilinear_align_corners", exact)
     monkeypatch.setattr(flax_nn, "BatchNorm", functools.partial(
         flax_nn.BatchNorm, use_fast_variance=False))
-    compiled_hrnet_blocks(monkeypatch)
+    if compiled_blocks:
+        compiled_hrnet_blocks(monkeypatch)
 
 
 def compiled(fn):
@@ -164,27 +169,20 @@ def compiled_hrnet_blocks(monkeypatch) -> None:
     to the persistent cache that ``shared_jax_compiles`` opens to the other
     workers.  The blocks' code, names and variables are the JAX package's
     own, which is unchanged; compiled and eager evaluation agree to fp32
-    rounding.  Blocks on the Pallas conv stay eager: its interpret-mode
-    kernel, traced into a block, takes minutes to compile
-    (``compiled_pallas_conv`` compiles it per conv shape instead).
+    rounding.  A model on the Pallas conv needs ``compiled_pallas_conv``
+    too: the interpret-mode kernel body, traced into a block, takes minutes
+    to compile.
     """
     import contrastiveseg_tpu.models.heads as jheads
     import contrastiveseg_tpu.models.hrnet as jhrnet
     import contrastiveseg_tpu.models.layers as jlayers
-
-    def unless_pallas(block):
-        def make(*args, **kwargs):
-            pallas = kwargs.get("pallas") or kwargs.get("pallas_conv")
-            return (block if pallas else _compiled(block))(*args, **kwargs)
-
-        return make
 
     for mod, source, names in (
             (jhrnet, jhrnet, ("HighResolutionModule",)),
             (jhrnet, jlayers, ("BasicBlock", "Bottleneck", "ConvBN")),
             (jheads, jlayers, ("ConvBN",))):
         for name in names:
-            monkeypatch.setattr(mod, name, unless_pallas(getattr(source, name)))
+            monkeypatch.setattr(mod, name, _compiled(getattr(source, name)))
 
 
 def random_variables(jax_model, input_shape, seed: int = 1) -> dict:
@@ -237,31 +235,46 @@ def bn_counts(torch_model, x):
     return counts
 
 
-def compiled_pallas_conv(monkeypatch) -> None:
-    """Run the JAX package's Pallas conv (``ops/conv_pallas.py``) compiled,
-    in interpret mode, even inside ``jax.disable_jit()``.
+def compiled_pallas_conv(monkeypatch) -> list:
+    """Run the JAX package's Pallas conv (``ops/conv_pallas.py``), in
+    interpret mode, as one opaque call per kernel launch, compiled once per
+    conv shape; returns the list that each launch appends its input shape
+    to.
 
-    The parity tests run the JAX model eagerly under ``jax.disable_jit`` so
-    that no HRNet compile enters them; the Pallas conv's interpret mode then
-    evaluates its kernel body op by op, minutes for an hrnet18 forward.
-    This re-enables jit for the two kernel calls only (a test-time patch; the
-    JAX package is unchanged), so each conv shape compiles once.
+    Traced into a model, the interpret-mode kernel body unrolls into a
+    graph that takes minutes to compile, and run eagerly it evaluates op by
+    op.  Here the two kernel calls (the forward, which the custom VJP also
+    runs for dX, and dW) are ``jax.pure_callback``s to their own compiled
+    functions, so a jitted model or train step holds them as host calls
+    (a test-time patch; the JAX package is unchanged).  The values are the
+    kernels' own.
     """
     import contrastiveseg_tpu.ops.conv_pallas as jconv
 
-    fwd = jconv.conv3x3_small_c
-    dw = jax.jit(jconv._conv3x3_dw, static_argnames=("block_h", "sub_h", "interpret"))
+    statics = ("block_h", "sub_h", "interpret")
+    fwd = jax.jit(jconv.conv3x3_small_c, static_argnames=statics)
+    dw = jax.jit(jconv._conv3x3_dw, static_argnames=statics)
+    calls = []
+
+    def opaque(fn, shape, *args, **static):
+        def host(*arrays):
+            calls.append(tuple(arrays[0].shape))
+            with jax.disable_jit(False):
+                return np.asarray(fn(*arrays, **static))
+
+        return jax.pure_callback(host, shape, *args)
 
     def conv3x3_small_c(x, w, block_h=32, sub_h=8, interpret=False):
-        with jax.disable_jit(False):
-            return fwd(x, w, block_h=block_h, sub_h=sub_h, interpret=interpret)
+        shape = jax.ShapeDtypeStruct((*x.shape[:3], w.shape[-1]), x.dtype)
+        return opaque(fwd, shape, x, w, block_h=block_h, sub_h=sub_h, interpret=interpret)
 
     def conv3x3_dw(x, g, block_h, sub_h, interpret=False):
-        with jax.disable_jit(False):
-            return dw(x, g, block_h=block_h, sub_h=sub_h, interpret=interpret)
+        shape = jax.ShapeDtypeStruct((3, 3, x.shape[-1], g.shape[-1]), jnp.float32)
+        return opaque(dw, shape, x, g, block_h=block_h, sub_h=sub_h, interpret=interpret)
 
     monkeypatch.setattr(jconv, "conv3x3_small_c", conv3x3_small_c)
     monkeypatch.setattr(jconv, "_conv3x3_dw", conv3x3_dw)
+    return calls
 
 
 @contextlib.contextmanager
@@ -286,14 +299,34 @@ def shared_jax_compiles():
 
 
 @contextlib.contextmanager
+def unoptimized_jax_compiles():
+    """Compile the JAX side inside the block with most of XLA's
+    optimizations off (``jax_disable_most_optimizations``).
+
+    A parity test runs each JAX program once, on inputs of a few hundred
+    kilobytes, so its compile is most of its cost: for the jitted gradient
+    of a shallow HRNet-OCR, 6.7 s optimized and 3.4 s not, against 0.3 s to
+    run.  The program computes the same fp32 values up to the order of its
+    sums: for tests whose tolerances stand far above that order, as their
+    readings show."""
+    key = "jax_disable_most_optimizations"
+    old = jax.config.values[key]
+    jax.config.update(key, True)
+    try:
+        yield
+    finally:
+        jax.config.update(key, old)
+
+
+@contextlib.contextmanager
 def one_torch_thread():
     """Run torch on one intra-op thread inside the block.
 
     The suite runs in several worker processes on a few cores, and torch's
     thread pool in each of them oversubscribes the cores and stalls at its
     barriers: the checkpoint test, 7 s alone, took 238 s beside five busy
-    workers.  Only for tests whose checks do not depend on the summation
-    order that the thread count sets (the slice test's tolerances do).
+    workers.  Only for tests whose checks hold at any summation order that
+    the thread count sets, as their readings on 1 and 8 threads show.
     """
     import torch
 
@@ -348,6 +381,21 @@ def write_tree(root: Path, n_train: int = 6, n_val: int = 2, hw=(96, 192), seed:
             Image.fromarray(image).save(root / split / "image" / f"f{i}.png")
             Image.fromarray(label).save(root / split / "label" / f"f{i}.png")
     return root
+
+
+def shallow_hrnet18(monkeypatch) -> None:
+    """Put a shallow hrnet18 into both packages' ``HRNET_SPECS["hrnet18"]``:
+    the W18 widths (stem 64; branches 18, 36, 72, 144) and every fuse, at
+    one module of one block a stage.  A whole hrnet18 takes the JAX package
+    ~90 s to compile on the CPU, this one a few seconds."""
+    import contrastiveseg_tpu.models.hrnet as jhrnet
+
+    from contrastiveseg_tpu_torch.models import hrnet
+
+    for mod in (jhrnet, hrnet):
+        monkeypatch.setitem(mod.HRNET_SPECS, "hrnet18", mod.HRNetSpec(
+            64, 1, 64, mod.StageSpec(1, 1, (18, 36)), mod.StageSpec(1, 1, (18, 36, 72)),
+            mod.StageSpec(1, 1, (18, 36, 72, 144))))
 
 
 def tiny_hrnet(monkeypatch) -> None:
