@@ -91,9 +91,30 @@ Phases (any failure raises, so the run exits non-zero):
      val frames; a deep-base ResNet-101 ImageNet ``.pth`` in the reference's
      layout (``resinit.*``, ``layer*``, ``fc.*``) written from a seeded model
      and loaded through ``network.pretrained`` bit for bit, then one step;
- 15. a JSON line of the six kernels, the card line, and the result line.
+ 15. the context phase: the dilated-ResNet-101 context-head nets, the
+     Cityscapes presets ``cityscapes_{fcnet,fcnet_wo_dsn,spatial_ocrnet,
+     spatial_asp_ocrnet,base_ocnet,asp_ocnet,isanet,pyramid_ocnet}``,
+     ``pspnet`` and ``ccnet`` (no preset: ``cityscapes_fcnet``'s recipe with
+     ``network.model_name`` overridden), from a Cityscapes-layout tree of 16
+     + 4 frames of 1024x2048, and ``pascal_context_hrnet_w48_isa`` from a
+     Pascal-Context-layout tree (``write_pascal_context``: 500x375 and
+     375x500 frames, 59 classes, ``reduce_zero_label``), each at full width
+     for 3 steps at the preset's batch 16, or at 8 with the batch-16
+     allocator failure printed where 16 does not fit: step times, data wait,
+     peak memory, each head's CE (finite, positive), 0 launches of K1-K3,
+     the eval forward within 1e-4 of the CPU's; ``spatial_ocrnet`` and
+     ``base_ocnet`` round-trip ``latest`` into ``--phase val`` and
+     ``ss_test`` at batch 1 on the 1024x2048 frames; the ISA net's
+     ``--phase val`` in ``diverse_size``; each of the six reference layouts
+     from a reference segmentor ``.pth`` (a bias on every conv that feeds a
+     BN, folded on load; ``fcnet_wo_dsn`` in fcnet's) bit for bit through
+     ``network.pretrained``, then one step at batch 2; for the four nets
+     without a reference layout, a
+     segmentor ``.pth`` refused with its reason and an ImageNet backbone
+     ``.pth`` loaded bit for bit; its lines carry ``[context phase +N s]``;
+ 16. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-14 print their step times (or seconds an image), peak memory and
+Phases 10-15 print their step times (or seconds an image), peak memory and
 wall time.
 
 The slices read their batches through the port's data pipeline
@@ -118,6 +139,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import re
 import shutil
 import statistics
@@ -840,6 +862,14 @@ def train_phase(trainer, device, what: str) -> tuple[list, dict, int]:
     return history, launches, peak
 
 
+def no_launch(launches: dict, what: str, total: collections.Counter) -> None:
+    """Fail if a path launched any of K1-K3; add its counts to ``total``
+    (the kernels line sums them over a phase)."""
+    total.update(launches)
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched a kernel of K1-K3: {launches}")
+
+
 def no_k1(launches: dict, what: str) -> None:
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
 
@@ -1050,11 +1080,6 @@ def run_models_phase(device, data_dir: Path) -> dict:
 
     results, total = {}, collections.Counter()
 
-    def no_launch(launches: dict, what: str) -> None:  # and adds them up for the kernels line
-        total.update(launches)
-        if any(launches.values()):
-            raise AssertionError(f"{what} launched a kernel of K1-K3: {launches}")
-
     for preset in MODEL_PRESETS:
         contrastive = preset.endswith("_contrast")
         cfg = directory_config(preset, data_dir, root / preset, [
@@ -1079,7 +1104,7 @@ def run_models_phase(device, data_dir: Path) -> dict:
             history, launches, peak = train_phase(trainer, device, preset)
         finally:
             contrast.hard_anchor_sample = sample
-        no_launch(launches, preset)
+        no_launch(launches, preset, total)
         m = [(rows, int(valid)) for rows, valid in anchors]
         if contrastive:
             say(f"{preset} anchors (rows, valid rows M) per step: {m}")
@@ -1097,7 +1122,7 @@ def run_models_phase(device, data_dir: Path) -> dict:
         if contrastive:
             results[preset].update(infer_from_latest(trainer, cfg, device, run, say))
             for phase in ("val", "ss_test"):
-                no_launch(results[preset][phase]["launches"], f"{preset} {phase}")
+                no_launch(results[preset][phase]["launches"], f"{preset} {phase}", total)
         del trainer, model
         torch.cuda.empty_cache()
 
@@ -1125,7 +1150,7 @@ def run_models_phase(device, data_dir: Path) -> dict:
         raise AssertionError(f"the ResNet-101 .pth did not load bit for bit: {bad[:5]}")
     n = sum(k.startswith("backbone.") for k in loaded)
     history, launches, _ = train_phase(trainer, device, "cityscapes_deeplab_v3 from the .pth")
-    no_launch(launches, "cityscapes_deeplab_v3 from the .pth")
+    no_launch(launches, "cityscapes_deeplab_v3 from the .pth", total)
     say(f"deep-base ResNet-101 ImageNet .pth ({path.stat().st_size / 2**20:.1f} MiB, "
         f"{len(sd)} tensors with fc.*): {n} backbone tensors equal the file's bit for bit "
         f"on the device; one step at batch 2, loss {history[0]['loss']:.6f}")
@@ -1220,6 +1245,279 @@ def infer_from_latest(trainer, cfg, device, run, say) -> dict:
         del res
         torch.cuda.empty_cache()
     return out
+
+
+# Phase 15: (preset, network.model_name override) of each context-head net;
+# pspnet and ccnet have no preset and run through cityscapes_fcnet's recipe.
+CONTEXT_NETS = (
+    ("cityscapes_fcnet", None), ("cityscapes_fcnet_wo_dsn", None),
+    ("cityscapes_spatial_ocrnet", None), ("cityscapes_spatial_asp_ocrnet", None),
+    ("cityscapes_base_ocnet", None), ("cityscapes_asp_ocnet", None),
+    ("cityscapes_isanet", None), ("cityscapes_pyramid_ocnet", None),
+    ("cityscapes_fcnet", "pspnet"), ("cityscapes_fcnet", "ccnet"),
+    ("pascal_context_hrnet_w48_isa", None))
+def write_pascal_context(root: Path, n_train: int = 16, n_val: int = 4, seed: int = 0) -> None:
+    """A Pascal-Context-layout tree, {root}/{split}/image|label/*.png, each
+    PNG beside its ``.npy_cache`` sidecar: frames of VOC's sizes, 500x375
+    and 375x500 in turn, labels 0-59 (0 the background, which the presets'
+    ``reduce_zero_label`` turns into -1)."""
+    import numpy as np
+
+    from contrastiveseg_tpu_torch.data.datasets import SyntheticSegDataset
+    from contrastiveseg_tpu_torch.utils.png import encode_png
+
+    scenes = [SyntheticSegDataset(60, hw, n_train + n_val, seed=seed)
+              for hw in ((375, 500), (500, 375))]
+    for i in range(n_train + n_val):
+        scene = scenes[i % 2][i]
+        split = "train" if i < n_train else "val"
+        for kind, array in (("image", scene["image"]), ("label", scene["label"].astype(np.uint8))):
+            d = root / split / kind
+            (d / ".npy_cache").mkdir(parents=True, exist_ok=True)
+            (d / f"{i:04d}.png").write_bytes(encode_png(array, level=1))
+            np.save(d / ".npy_cache" / f"{i:04d}.png.npy", array)
+
+
+def head_losses(model, batch: dict, cfg) -> dict:
+    """The preset's class-weighted CE of each head's logits (``seg``, and
+    ``seg_aux`` where the net has one) on ``batch``, in eval mode (a
+    train-mode forward would move the BN statistics of a saved state)."""
+    import torch
+
+    from contrastiveseg_tpu_torch.losses.ce import cross_entropy
+    from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+    params = cfg.get("loss.params", default={})
+    with torch.no_grad():
+        out = model.eval()(batch["image"])
+        size = tuple(batch["label"].shape[1:3])
+        losses = {k: float(cross_entropy(resize_bilinear_align_corners(v, size), batch["label"],
+                                         params.get("ce_weight"),
+                                         params.get("ce_ignore_index", -1)))
+                  for k, v in out.items()}
+    model.train()
+    return losses
+
+
+def reference_pth(model, path: Path) -> tuple[dict, int]:
+    """Write ``model``'s ``state_dict`` as a reference segmentor ``.pth``
+    (``{"state_dict"}`` with the DDP ``module.`` prefix) whose every conv
+    that feeds a BN (``utils/pretrained.conv_bn_pairs``) carries a bias;
+    returns the tensors a load must give (each such BN's running mean less
+    its conv's bias) and the number of biases."""
+    import torch
+
+    from contrastiveseg_tpu_torch.utils.pretrained import conv_bn_pairs
+
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    pairs = sorted(conv_bn_pairs(model).items())
+    file, want = dict(sd), dict(sd)
+    for i, (conv, bn) in enumerate(pairs):
+        mean = sd[f"{bn}.running_mean"]
+        bias = torch.linspace(-1, 1, mean.numel()) * (i + 1) / len(pairs)
+        file[f"{conv}.bias"] = bias
+        want[f"{bn}.running_mean"] = mean - bias
+    torch.save({"state_dict": {f"module.{k}": v for k, v in file.items()}}, path)
+    return want, len(pairs)
+
+
+def train_fitting(cfg, device, name: str, say) -> dict:
+    """Train ``cfg`` (its ``solver.max_iters`` steps) at its batch of 16, or
+    at 8 if 16 does not fit the card; returns the trainer, the config run,
+    the first batch (a copy), the history, launches and peak of
+    ``train_phase``, and the batch-16 failure (the allocator's message) or
+    None."""
+    import gc
+
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+
+    failure = None
+    for batch in (16, 8):
+        c = cfg.updated("train.batch_size", batch)
+        trainer = Trainer(c, device)
+        first, step = [], trainer.train_step
+
+        def keep_first(state, b, step=step, first=first):
+            if not first:
+                first.append({k: v.clone() for k, v in b.items()})
+            return step(state, b)
+
+        trainer.train_step = keep_first
+        try:
+            history, launches, peak = train_phase(trainer, device, f"{name} at batch {batch}")
+            return {"trainer": trainer, "cfg": c, "first": first[0], "history": history,
+                    "launches": launches, "peak": peak, "failure": failure}
+        except torch.cuda.OutOfMemoryError as err:
+            if batch == 8:
+                raise
+            failure = (f"{str(err).splitlines()[0]} (max_memory_allocated "
+                       f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB)")
+        del trainer, first, step, keep_first  # and the failed step's tensors with them
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"{name} at batch 16 does not fit the card: {failure}; running it at batch 8")
+    raise AssertionError("unreachable")
+
+
+def run_context_phase(device) -> dict:
+    """The context-head nets at full width: the eight Cityscapes presets
+    on a deep-base ResNet-101 (dilated 8, 1024x512 crops), ``pspnet`` and
+    ``ccnet`` through ``cityscapes_fcnet``'s recipe, and
+    ``pascal_context_hrnet_w48_isa`` (520x520 crops, 59 classes) from a
+    Pascal-Context-layout tree: 3 steps each at the preset's batch 16, or at
+    8 where 16 does not fit the card (the allocator's message printed);
+    each head's loss, the eval forward against the CPU's, 0 launches of
+    K1-K3; ``latest`` of ``spatial_ocrnet`` and ``base_ocnet`` through
+    ``--phase val`` and ``ss_test`` at batch 1 (1024x2048 frames), and of
+    the ISA net through ``--phase val`` in ``diverse_size``; a reference
+    ``.pth`` of each of the six reference layouts loaded bit for bit through
+    ``network.pretrained`` (every conv bias before a BN folded), one step; a
+    segmentor ``.pth`` refused for the four nets without a reference layout,
+    and an ImageNet backbone loaded into each."""
+    import gc
+
+    import torch
+
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.utils.pretrained import load_pretrained
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[context phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_context"
+    shutil.rmtree(root, ignore_errors=True)
+    cs_dir, pc_dir = root / "cityscapes", root / "pascal_context"
+    write_dataset(cs_dir, 16, 4)
+    write_pascal_context(pc_dir)
+    say("wrote 16 train and 4 val frames of 1024x2048 (Cityscapes layout) and 16 + 4 frames "
+        "of 500x375 and 375x500 (Pascal-Context layout), each PNG with its sidecar")
+    results, total = {}, collections.Counter()
+
+    def on_device(trainer, want: dict, what: str) -> None:
+        got = trainer.state.model.state_dict()
+        bad = [k for k, v in want.items() if not torch.equal(got[k], v.to(device))]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} tensors differ from the file's: {bad[:5]}")
+
+    for preset, override in CONTEXT_NETS:
+        pascal = preset.startswith("pascal_context")
+        cfg = directory_config(preset, pc_dir if pascal else cs_dir,
+                               root / "ckpt" / (override or preset), ["solver.max_iters=3"] + (
+                                   [f"network.model_name={override}"] if override else []))
+        name = cfg.get("network.model_name")
+        want = (16, 59, "hrnet48") if pascal else (16, 19, "deepbase_resnet101_dilated8")
+        got = (cfg.get("train.batch_size"), cfg.get("data.num_classes"),
+               cfg.get("network.backbone"))
+        if got != want:
+            raise AssertionError(f"{name}: batch, classes, backbone {got}; want {want}")
+        if pascal and (cfg.get("data.reduce_zero_label") is not True
+                       or cfg.get("train_trans.random_crop.crop_size") != [520, 520]
+                       or cfg.get("val.data_transformer.size_mode") != "diverse_size"):
+            raise AssertionError(f"{preset}: not the preset's Pascal-Context recipe")
+        if override:
+            say(f"{name} has no preset: trained through {preset}'s recipe with "
+                f"network.model_name={name}")
+        run16 = train_fitting(cfg, device, name, say)
+        trainer, c, first = run16["trainer"], run16["cfg"], run16["first"]
+        history, launches, peak = run16["history"], run16["launches"], run16["peak"]
+        batch, failure = c.get("train.batch_size"), run16["failure"]
+        model = trainer.state.model
+        n_params = sum(p.numel() for p in model.parameters())
+        say(f"{name}: {type(model).__name__}, {n_params / 1e6:.2f} M parameters, "
+            f"{c.get('loss.loss_type')}, batch {batch} of "
+            f"{c.get('train_trans.random_crop.crop_size')} crops")
+        no_launch(launches, name, total)
+        heads = head_losses(model, first, c)
+        if set(heads) != ({"seg"} if name == "fcnet_wo_dsn" else {"seg", "seg_aux"}) or not all(
+                math.isfinite(v) and v > 0 for v in heads.values()):
+            raise AssertionError(f"{name}: head losses {heads}")
+        if not all(r["loss_seg"] > 0 for r in history):
+            raise AssertionError(f"{name}: a seg loss is not positive: {history}")
+        say(f"{name}: each head's CE on the first batch, eval mode: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in heads.items()))
+        same_on_the_cpu(model, name, say)
+        res = {"preset": preset, "batch": batch, "failure_at_16": failure, "history": history,
+               "peak": peak, "params": n_params, "heads": heads}
+        if name in ("spatial_ocrnet", "base_ocnet"):
+            res.update(infer_from_latest(trainer, c, device, run, say))
+            for phase in ("val", "ss_test"):
+                no_launch(res[phase]["launches"], f"{name} {phase}", total)
+        if pascal:
+            val_cfg = c.updated("network.resume", trainer.ckpt._path("latest"))
+            first_val = next(build_pipeline(val_cfg, "val").epoch_iter(0))
+            if not isinstance(first_val["image"], list):
+                raise AssertionError("the Pascal-Context val batches are not diverse_size")
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            t0 = time.perf_counter()
+            scores = run(val_cfg, "val", device)["scores"]
+            no_launch(read_counts(), f"{name} --phase val", total)
+            if not 0.0 <= scores["miou"] <= 1.0:
+                raise AssertionError(f"{name} --phase val gave no mIoU: {scores}")
+            res["val"] = {"images_per_sec": scores["images_per_sec"], "miou": scores["miou"],
+                          "peak": torch.cuda.max_memory_allocated(device),
+                          "wall": time.perf_counter() - t0}
+            say(f"{name} --phase val, diverse_size (4 frames, "
+                f"{[tuple(x.shape[:2]) for x in first_val['image']]} after fit_stride 8, one "
+                f"forward each): mIoU {scores['miou']:.6f}, {scores['images_per_sec']:.3f} "
+                f"images/s, peak {res['val']['peak'] / 2**30:.3f} GiB")
+        pth = root / f"{name}.pth"
+        reference = type(model).reference_layout  # a reference segmentor loads into it
+        if reference:
+            want_sd, n_bias = reference_pth(model, pth)
+        else:  # no reference layout: a segmentor file is refused, an ImageNet file loads
+            torch.save({"backbone.resinit.conv1.weight": torch.zeros(1),
+                        "cls.weight": torch.zeros(1)}, root / "segmentor.pth")
+            try:
+                load_pretrained(model, str(root / "segmentor.pth"))
+                raise AssertionError(f"{name}: a segmentor .pth was not refused")
+            except ValueError as err:
+                if "no reference layout" not in str(err):
+                    raise
+                say(f"{name}: a segmentor .pth is refused: {err}")
+            head = ({"fc.weight": torch.ones(1000, 2048), "fc.bias": torch.zeros(1000)}
+                    if "hrnet" not in name else {"classifier.weight": torch.ones(1000, 2048)})
+            want_sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                       if k.startswith("backbone.")}
+            torch.save({**{k.removeprefix("backbone."): v for k, v in want_sd.items()}, **head},
+                       pth)
+        del trainer, model, first, run16
+        gc.collect()
+        torch.cuda.empty_cache()
+        c1 = c.updated("network.pretrained", str(pth)).updated(
+            "checkpoints.checkpoints_dir", str(root / "ckpt" / f"{name}_pth"))
+        if reference:
+            trainer = Trainer(c1.updated("train.batch_size", 2).updated("solver.max_iters", 1),
+                              device)
+            on_device(trainer, want_sd, f"{name} from its reference .pth")
+            h, launches, _ = train_phase(trainer, device, f"{name} from its reference .pth")
+            no_launch(launches, f"{name} from its .pth", total)
+            say(f"{name}: a reference .pth ({pth.stat().st_size / 2**20:.1f} MiB, {n_bias} "
+                f"conv biases folded into their BN) loads through network.pretrained, "
+                f"{len(want_sd)} tensors equal bit for bit on the device; one step at batch 2, "
+                f"loss {h[0]['loss']:.6f}")
+            res["pth"] = {"tensors": len(want_sd), "biases": n_bias, "loss": h[0]["loss"]}
+        else:
+            trainer = Trainer(c1, device)
+            on_device(trainer, want_sd, f"{name} from an ImageNet .pth")
+            say(f"{name}: an ImageNet backbone .pth ({pth.stat().st_size / 2**20:.1f} MiB, "
+                f"{len(want_sd)} backbone tensors and the classifier's) loads through "
+                "network.pretrained bit for bit on the device")
+            res["pth"] = {"tensors": len(want_sd)}
+        results[name] = res
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        pth.unlink()
+    shutil.rmtree(root, ignore_errors=True)
+    results["launches"] = dict(total)
+    return results
 
 
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
@@ -1503,6 +1801,9 @@ def main() -> None:
     t0 = time.perf_counter()
     mp = run_models_phase(device, dr["data_dir"])
     print(f"models phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cp = run_context_phase(device)
+    print(f"context phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
@@ -1520,6 +1821,13 @@ def main() -> None:
         f"{p}: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in mp[p]['history'][1:]]} ms, "
         f"data wait {[round(r['data_seconds'] * 1e3, 1) for r in mp[p]['history'][1:]]} ms, "
         f"peak {mp[p]['peak'] / 2**30:.3f} GiB" for p in MODEL_PRESETS) + " (same call)")
+    print("context phase from the directories: " + "; ".join(
+        f"{n} ({r['params'] / 1e6:.2f} M) at batch {r['batch']}: steps 2-3 "
+        f"{[round(x['seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, data wait "
+        f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
+        f"{r['peak'] / 2**30:.3f} GiB" + (f", val {r['val']['images_per_sec']:.3f} images/s"
+                                          if "val" in r else "")
+        for n, r in cp.items() if n != "launches") + " (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -1570,8 +1878,9 @@ def main() -> None:
         "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
         "max_abs_err_fp32": k3["errs"]["fp32"],
     })
-    for row in rows:  # summed over every run of the models phase, each of which fails on one
+    for row in rows:  # summed over every run of phases 14 and 15, each of which fails on one
         row["launches_models_phase"] = mp["launches"][row["name"]]
+        row["launches_context_phase"] = cp["launches"][row["name"]]
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

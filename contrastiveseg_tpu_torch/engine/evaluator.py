@@ -8,9 +8,10 @@ stride for the contrast nets, at the input size for the others) resized to
 the label's size (bilinear, align_corners), argmax, and the confusion
 matrix accumulated on the device, read once at the end of the run.
 
-Not ported yet (ROADMAP 6): the SegFix and multi-label direction
-evaluators, the diverse-size (per-image) batches and the mesh padding of
-short batches.
+Diverse-size (per-image) batches reach the model one image at a time,
+each at its own padded size (``engine/prefetch.device_batches``).  Not
+ported yet (ROADMAP 6): the SegFix and multi-label direction evaluators and
+the mesh padding of short batches.
 """
 
 from __future__ import annotations

@@ -12,6 +12,9 @@ the consuming stream, so that its memory is not reused while the step still
 reads it.  Labels arrive as int32 and are widened to int64 on the device,
 in the same copy.  ``depth`` 0 copies each batch on the consuming stream
 when it is asked for.  On the CPU the tensors are the numpy arrays' memory.
+A ``diverse_size`` batch (``data/collate.py``: lists of images, each at its
+own padded size) becomes one batch of one image each, the per-image forward
+of the JAX evaluator (``engine/evaluator.py:120-127``).
 """
 
 from __future__ import annotations
@@ -48,7 +51,12 @@ def device_batches(batches: Iterable[dict], device: torch.device | str,
         it = iter(batches)
         try:
             for batch in it:
-                yield _host_tensors(batch, pin=cuda)
+                if isinstance(batch["image"], list):  # diverse_size
+                    for image, label in zip(batch["image"], batch["label"]):
+                        yield _host_tensors({"image": image[None], "label": label[None]},
+                                            pin=cuda)
+                else:
+                    yield _host_tensors(batch, pin=cuda)
         finally:
             close = getattr(it, "close", None)
             if close is not None:

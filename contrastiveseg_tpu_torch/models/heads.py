@@ -49,12 +49,18 @@ class ProjectionHead(nn.Module):
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp(min=1e-12)
 
 
+def bn_relu(channels: int) -> nn.Sequential:
+    """BN then ReLU: the reference's ``ModuleHelper.BNReLU``, the JAX
+    ``ConvBNAct`` (``models/ocr.py:104-114``); slot ``0`` is the BN."""
+    return nn.Sequential(TorchBatchNorm(channels), nn.ReLU())
+
+
 def conv_bn_relu(in_ch: int, out_ch: int, kernel_size: int, dilation: int = 1,
                  bias: bool = False) -> nn.Sequential:
     """conv -> BNReLU, the reference's ``nn.Sequential(conv,
     ModuleHelper.BNReLU(...))``: slots ``0`` and ``1.0``."""
     return nn.Sequential(conv(in_ch, out_ch, kernel_size, bias=bias, dilation=dilation),
-                         nn.Sequential(TorchBatchNorm(out_ch), nn.ReLU()))
+                         bn_relu(out_ch))
 
 
 class ASPP(nn.Module):

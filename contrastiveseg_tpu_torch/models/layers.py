@@ -66,13 +66,22 @@ class PallasConv3x3(nn.Conv2d):
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-         bias: bool = False, pallas: bool = False, dilation: int = 1) -> nn.Conv2d:
+         bias: bool = False, pallas: bool = False, dilation: int = 1,
+         zero_init: bool = False) -> nn.Conv2d:
     """Padding ``dilation * (k - 1) // 2`` on both sides, as the JAX
     ``ConvBN`` pads (``models/layers.py:104-112``): not XLA's "SAME", which
-    pads a strided even-sized input asymmetrically."""
+    pads a strided even-sized input asymmetrically.  ``zero_init``: the
+    weight starts at 0 (a flax ``kernel_init=zeros``), and
+    ``engine/state.init_weights`` keeps it there."""
     cls = PallasConv3x3 if pallas and not bias else nn.Conv2d
-    return cls(in_ch, out_ch, kernel_size, stride=stride,
-               padding=dilation * (kernel_size - 1) // 2, dilation=dilation, bias=bias)
+    out = cls(in_ch, out_ch, kernel_size, stride=stride,
+              padding=dilation * (kernel_size - 1) // 2, dilation=dilation, bias=bias)
+    if zero_init:
+        out.zero_init = True
+        nn.init.zeros_(out.weight)
+        if bias:
+            nn.init.zeros_(out.bias)
+    return out
 
 
 class ConvBN(nn.Sequential):

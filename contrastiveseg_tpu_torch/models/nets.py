@@ -17,6 +17,20 @@ the JAX package; inside, the models run NCHW and permute once, here.
 * ``DeepLabV3`` (:226-272; reference DeepLabV3[Contrast]) on a dilated
   ResNet (``network.backbone``): ``deeplab_v3`` and ``deeplab_v3_contrast``,
   with the ``layer_dsn`` aux head on c3.
+* The context-head nets on a dilated ResNet, each with a DSN aux head on
+  c3 (``seg_aux``) and its context head on c4, in the module layout of the
+  reference net it ports: ``FcnNet`` (``fcnet``, and ``fcnet_wo_dsn``
+  without the aux head; JAX ``ResNetContextNet`` :361-486, reference
+  nets/fcnet.py), ``SpatialOCRNet`` (``spatial_ocrnet``, :190-223;
+  nets/ocrnet.py:19-69), ``ASPOCRNet`` (``spatial_asp_ocrnet``,
+  :615-660), ``BaseOCNet`` and ``AspOCNet`` (``base_ocnet``,
+  ``asp_ocnet``; nets/ocnet.py), ``ISANet`` (``isanet``, reading
+  ``network.factors``; nets/isanet.py).  ``pspnet``, ``ccnet`` and
+  ``pyramid_ocnet``, which the reference never registers, are one
+  ``ResNetContextNet`` under the JAX package's module names.
+* ``HRNetISASeg`` (:489-548; ``hrnet_w48_isa`` and ``hrnet48_isa``, also
+  unregistered upstream): HRNet's fused branches, an aux head, a 3x3
+  ConvBNReLU and ``ISAModule``, under the JAX names.
 
 With a projection head, ``seg`` and ``seg_aux`` stay at the network's
 stride (4 for HRNet, 8 for DeepLab) and the loss upsamples them; without,
@@ -29,10 +43,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from contrastiveseg_tpu_torch.models.attention import (
+    ASPOCModule,
+    BaseOCModule,
+    CCModule,
+    ISAModule,
+    PSPModule,
+    PyramidOCModule,
+)
 from contrastiveseg_tpu_torch.models.heads import ASPP, ClsHead, ProjectionHead, conv_bn_relu
 from contrastiveseg_tpu_torch.models.hrnet import HRNET_SPECS, HRNet
-from contrastiveseg_tpu_torch.models.layers import TorchBatchNorm, conv
-from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR
+from contrastiveseg_tpu_torch.models.layers import ConvBN, TorchBatchNorm, conv
+from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR, SpatialOCRASP
 from contrastiveseg_tpu_torch.models.resnet import ResNet, backbone_spec
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
 
@@ -144,6 +166,196 @@ class DeepLabV3(nn.Module):
         return _outputs({"seg": seg, "seg_aux": aux}, self.proj_head, c4, x.shape[1:3])
 
 
+def _dsn_head(c3: int, num_classes: int, dropout: float | None, bias: bool = True
+              ) -> nn.Sequential:
+    """The DSN aux head on c3: 3x3 ConvBNReLU to 512, dropout, 1x1 to the
+    classes (slots ``0``, ``1.0``, ``3``: the reference's ``dsn_head``).
+    ``dropout`` None leaves the dropout slot out (slots ``0``, ``1.0``,
+    ``2``: the OCNets' ``dsn``, whose dropout is 0)."""
+    drop = [] if dropout is None else [nn.Dropout(dropout)]
+    return nn.Sequential(*conv_bn_relu(c3, 512, 3), *drop, conv(512, num_classes, 1, bias=bias))
+
+
+class _DilatedResNetNet(nn.Module):
+    """A dilated ResNet whose (c3, c4) feed the subclass's ``heads``; the
+    logits come out NHWC, upsampled to the input."""
+
+    reference_layout = True  # a reference .pth of the net loads into it
+
+    def __init__(self, arch: str):
+        super().__init__()
+        self.backbone = ResNet(backbone_spec(arch))
+
+    def heads(self, c3: torch.Tensor, c4: torch.Tensor) -> dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
+        return _outputs(self.heads(c3, c4), None, None, x.shape[1:3])
+
+
+class FcnNet(_DilatedResNetNet):
+    """FcnNet: ``cls_head`` (3x3 ConvBNReLU 512, dropout 0.1, 1x1) on c4 and
+    ``dsn_head`` (dropout 0.10) on c3, both 1x1 convs without a bias
+    (fcnet.py:36-47).  ``with_dsn=False`` is FcnNet_wo_dsn: no aux head,
+    and its cls conv has a bias (fcnet.py:93)."""
+
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8",
+                 with_dsn: bool = True):
+        super().__init__(arch)
+        c3, c4 = self.backbone.channels[2:]
+        self.cls_head = nn.Sequential(*conv_bn_relu(c4, 512, 3), nn.Dropout(0.1),
+                                      conv(512, num_classes, 1, bias=not with_dsn))
+        self.dsn_head = _dsn_head(c3, num_classes, 0.10, bias=False) if with_dsn else None
+
+    def heads(self, c3, c4):
+        out = {"seg": self.cls_head(c4)}
+        if self.dsn_head is not None:
+            out["seg_aux"] = self.dsn_head(c3)
+        return out
+
+
+class SpatialOCRNet(_DilatedResNetNet):
+    """ResNet + OCR: ``dsn_head`` (dropout 0.05) logits on c3 are the class
+    maps that ``spatial_context_head`` pools the ``conv_3x3`` features of
+    c4 with; ``spatial_ocr_head`` distributes the contexts; 1x1 ``head``."""
+
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
+        super().__init__(arch)
+        c3, c4 = self.backbone.channels[2:]
+        self.conv_3x3 = conv_bn_relu(c4, 512, 3)
+        self.spatial_context_head = SpatialGather()
+        self.spatial_ocr_head = SpatialOCR(512, 256, 512, 0.05)
+        self.head = conv(512, num_classes, 1, bias=True)
+        self.dsn_head = _dsn_head(c3, num_classes, 0.05)
+
+    def heads(self, c3, c4):
+        aux = self.dsn_head(c3)
+        f = self.conv_3x3(c4)
+        f = self.spatial_ocr_head(f, self.spatial_context_head(f, aux))
+        return {"seg": self.head(f), "seg_aux": aux}
+
+
+class ASPOCRNet(_DilatedResNetNet):
+    """ResNet + ASP-OCR: ``asp_ocr_head`` (``SpatialOCRASP``, 256 channels,
+    dilations 12, 24, 36) on c4, gathering over the ``dsn_head`` logits
+    (dropout 0.1); 1x1 ``head``."""
+
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
+        super().__init__(arch)
+        c3, c4 = self.backbone.channels[2:]
+        self.asp_ocr_head = SpatialOCRASP(c4, 256, 256, (12, 24, 36), 0.1)
+        self.head = conv(256, num_classes, 1, bias=True)
+        self.dsn_head = _dsn_head(c3, num_classes, 0.1)
+
+    def heads(self, c3, c4):
+        aux = self.dsn_head(c3)
+        return {"seg": self.head(self.asp_ocr_head(c4, aux)), "seg_aux": aux}
+
+
+class BaseOCNet(_DilatedResNetNet):
+    """BaseOCNet: ``oc_module_pre`` (3x3 ConvBNReLU 512), ``oc_module``
+    (``BaseOCModule``), 1x1 ``cls``; the aux ``dsn`` has no dropout."""
+
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
+        super().__init__(arch)
+        c3, c4 = self.backbone.channels[2:]
+        self.oc_module_pre = conv_bn_relu(c4, 512, 3)
+        self.oc_module = BaseOCModule(512, 256, 256, 512, 0.05)
+        self.cls = conv(512, num_classes, 1, bias=True)
+        self.dsn = _dsn_head(c3, num_classes, None)
+
+    def heads(self, c3, c4):
+        return {"seg": self.cls(self.oc_module(self.oc_module_pre(c4))),
+                "seg_aux": self.dsn(c3)}
+
+
+class AspOCNet(_DilatedResNetNet):
+    """AspOCNet: ``context`` (3x3 ConvBNReLU 512, ``ASPOCModule(512, 256)``),
+    1x1 ``cls``; the aux ``dsn`` has no dropout."""
+
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
+        super().__init__(arch)
+        c3, c4 = self.backbone.channels[2:]
+        self.context = nn.Sequential(*conv_bn_relu(c4, 512, 3), ASPOCModule(512, 256))
+        self.cls = conv(512, num_classes, 1, bias=True)
+        self.dsn = _dsn_head(c3, num_classes, None)
+
+    def heads(self, c3, c4):
+        return {"seg": self.cls(self.context(c4)), "seg_aux": self.dsn(c3)}
+
+
+class ISANet(_DilatedResNetNet):
+    """ISANet: ``isa_head`` (3x3 ConvBNReLU 512, ``ISAModule`` at
+    ``down_factors``), 1x1 ``cls_head``, ``dsn_head`` (dropout 0.05)."""
+
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8",
+                 down_factors=((8, 8),)):
+        super().__init__(arch)
+        c3, c4 = self.backbone.channels[2:]
+        self.isa_head = nn.Sequential(*conv_bn_relu(c4, 512, 3),
+                                      ISAModule(512, 256, 512, 512, down_factors, 0.05))
+        self.cls_head = conv(512, num_classes, 1, bias=True)
+        self.dsn_head = _dsn_head(c3, num_classes, 0.05)
+
+    def heads(self, c3, c4):
+        return {"seg": self.cls_head(self.isa_head(c4)), "seg_aux": self.dsn_head(c3)}
+
+
+class ResNetContextNet(_DilatedResNetNet):
+    """The JAX ``ResNetContextNet`` for the nets with no reference module:
+    ``context`` "psp" (``PSPModule`` on c4), "cc" (``CCModule`` on c4) or
+    "pyramid_oc" (3x3 ``conv3x3`` then ``PyramidOCModule``); ``dsn_conv``,
+    ``dsn_drop`` (0.05) and ``dsn_cls`` on c3; 1x1 ``cls``."""
+
+    reference_layout = False
+
+    def __init__(self, num_classes: int, context: str, arch: str = "resnet101_dilated8"):
+        super().__init__(arch)
+        c3, c4 = self.backbone.channels[2:]
+        self.dsn_conv = ConvBN(c3, 512, 3)
+        self.dsn_drop = nn.Dropout(0.05)
+        self.dsn_cls = conv(512, num_classes, 1, bias=True)
+        if context == "pyramid_oc":
+            self.conv3x3 = ConvBN(c4, 512, 3)
+            self.context = PyramidOCModule(512, out_channels=512)
+        elif context in ("psp", "cc"):
+            self.conv3x3 = None
+            self.context = (PSPModule if context == "psp" else CCModule)(c4, 512)
+        else:
+            raise ValueError(f"unknown context head {context!r}")
+        self.cls = conv(512, num_classes, 1, bias=True)
+
+    def heads(self, c3, c4):
+        aux = self.dsn_cls(self.dsn_drop(self.dsn_conv(c3)))
+        f = c4 if self.conv3x3 is None else self.conv3x3(c4)
+        return {"seg": self.cls(self.context(f)), "seg_aux": aux}
+
+
+class HRNetISASeg(nn.Module):
+    """HRNet + ISA: on the fused branches, ``aux_conv`` (3x3 ConvBNReLU 512)
+    and ``aux_cls``; ``conv3x3`` (3x3 ConvBNReLU 512), ``isa``
+    (``ISAModule``) and 1x1 ``cls``."""
+
+    reference_layout = False
+
+    def __init__(self, num_classes: int, arch: str = "hrnet48"):
+        super().__init__()
+        width = sum(HRNET_SPECS[arch].out_channels)
+        self.backbone = HRNet(HRNET_SPECS[arch])
+        self.aux_conv = ConvBN(width, 512, 3)
+        self.aux_cls = conv(512, num_classes, 1, bias=True)
+        self.conv3x3 = ConvBN(width, 512, 3)
+        self.isa = ISAModule(512, 256, 512, 512, ((8, 8),), 0.05)
+        self.cls = conv(512, num_classes, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+        out = {"seg": self.cls(self.isa(self.conv3x3(cat))),
+               "seg_aux": self.aux_cls(self.aux_conv(cat))}
+        return _outputs(out, None, None, x.shape[1:3])
+
+
 def _hrnet(arch: str, with_proj: bool):
     def build(cfg) -> HRNetSeg:
         return HRNetSeg(
@@ -189,6 +401,45 @@ for _w in (18, 32, 48, 64):
 MODELS["deeplab_v3"] = _deeplab(with_proj=False)
 MODELS["deeplab_v3_contrast"] = _deeplab(with_proj=True)
 
+
+def _resnet_net(cls, **kw):
+    def build(cfg) -> nn.Module:
+        return cls(cfg.get("data.num_classes"),
+                   arch=cfg.get("network.backbone", default="resnet101_dilated8"), **kw)
+
+    return build
+
+
+def _isanet(cfg) -> ISANet:
+    # ISANet reads network.factors (JAX nets.py:457-460; isanet.py:22-28).
+    factors = cfg.get("network.factors", default=None) or [[8, 8]]
+    return ISANet(cfg.get("data.num_classes"),
+                  cfg.get("network.backbone", default="resnet101_dilated8"),
+                  tuple(tuple(f) for f in factors))
+
+
+def _hrnet_isa(cfg) -> HRNetISASeg:
+    backbone = cfg.get("network.backbone", default="hrnet48")
+    return HRNetISASeg(cfg.get("data.num_classes"),
+                       backbone if backbone in HRNET_SPECS else "hrnet48")
+
+
+MODELS.update({
+    "fcnet": _resnet_net(FcnNet),
+    "fcnet_wo_dsn": _resnet_net(FcnNet, with_dsn=False),
+    "spatial_ocrnet": _resnet_net(SpatialOCRNet),
+    "spatial_asp_ocrnet": _resnet_net(ASPOCRNet),
+    "base_ocnet": _resnet_net(BaseOCNet),
+    "asp_ocnet": _resnet_net(AspOCNet),
+    "isanet": _isanet,
+    "pspnet": _resnet_net(ResNetContextNet, context="psp"),
+    "ccnet": _resnet_net(ResNetContextNet, context="cc"),
+    "pyramid_ocnet": _resnet_net(ResNetContextNet, context="pyramid_oc"),
+    # Both spellings appear across the reference's ISA run scripts.
+    "hrnet_w48_isa": _hrnet_isa,
+    "hrnet48_isa": _hrnet_isa,
+})
+
 # Models of the JAX registry that the port refuses by name until they are ported.
 _LATER_MODELS = {
     **{f"hrnet_w{w}_ocr_b_ha": "ROADMAP 7 (HANet height attention)" for w in (18, 32, 48, 64)},
@@ -221,5 +472,5 @@ def build_model(cfg) -> nn.Module:
     if cfg.get("network.pallas_conv", default=False) and name not in _HRNET_SEG:
         raise NotImplementedError(
             f"network.pallas_conv=true on {name!r}: K2 runs in the HRNetSeg nets only; the "
-            "JAX package's OCR and DeepLab nets take no pallas_conv")
+            "JAX package's other nets take no pallas_conv")
     return MODELS[name](cfg)

@@ -10,7 +10,12 @@ reference's spatial_ocr_block.py):
     values projected back to C channels;
   * ``SpatialOCR``: that context concatenated with the features, then a
     1x1 ConvBNReLU and element-wise dropout (``nn.Dropout``, as in the JAX
-    package, not the reference's ``Dropout2d``).
+    package, not the reference's ``Dropout2d``);
+  * ``SpatialOCRASP`` (:151-191; SpatialOCR_ASP_Module): ASPP whose context
+    branch is that attention, gathered over the DSN logits: a 3x3
+    ConvBNReLU, ``SpatialGather``, then ``ObjectAttention`` at half the
+    hidden width; beside it a 1x1 and three dilated 3x3 ConvBNReLU
+    branches; the five concatenated, 1x1 ConvBNReLU, dropout.
 
 The two products are batched matmuls (``torch.bmm``), as they are XLA
 einsums in the JAX package.  Only the learned similarity is ported: the
@@ -20,7 +25,9 @@ oracle nets' ground-truth similarity (``gt_sim``) and background context
 Module names are the reference's torch keys (``utils/torch_import.
 _ocr_distri``, ``_object_attention``): ``object_context_block.f_pixel``,
 ``.f_object`` (``[conv, BNReLU, conv, BNReLU]``), ``.f_down``, ``.f_up``
-(``[conv, BNReLU]``) and ``conv_bn_dropout``.  The attention's 1x1 convs
+(``[conv, BNReLU]``) and ``conv_bn_dropout``; ``SpatialOCRASP``'s are
+``utils/torch_import._asp_ocr``'s: ``context`` (``[conv, BNReLU,
+{object_context_block}]``), ``conv2``-``conv5`` and ``conv_bn_dropout``.  The attention's 1x1 convs
 carry a bias, as the JAX package's do.
 """
 
@@ -87,3 +94,39 @@ class SpatialOCR(nn.Module):
     def forward(self, feats: torch.Tensor, proxy: torch.Tensor) -> torch.Tensor:
         ctx = self.object_context_block(feats, proxy)
         return self.conv_bn_dropout(torch.cat([ctx, feats], dim=1))
+
+
+class _OCRContext(nn.Module):
+    """The attention slot of ``SpatialOCRASP.context`` (the reference's
+    SpatialOCR_Context): ``object_context_block`` on (feats, proxy)."""
+
+    def __init__(self, in_channels: int, key_channels: int):
+        super().__init__()
+        self.object_context_block = ObjectAttention(in_channels, key_channels)
+
+    def forward(self, feats: torch.Tensor, proxy: torch.Tensor) -> torch.Tensor:
+        return self.object_context_block(feats, proxy)
+
+
+class SpatialOCRASP(nn.Module):
+    """ASPP with a probability-conditioned OCR context branch."""
+
+    def __init__(self, in_channels: int, hidden: int = 256, out_channels: int = 512,
+                 dilations: tuple[int, ...] = (12, 24, 36), dropout: float = 0.1):
+        super().__init__()
+        self.context = nn.Sequential(*conv_bn_relu(in_channels, hidden, 3),
+                                     _OCRContext(hidden, hidden // 2))
+        self.gather = SpatialGather()
+        self.conv2 = conv_bn_relu(in_channels, hidden, 1)
+        for i, d in enumerate(dilations, 3):
+            self.add_module(f"conv{i}", conv_bn_relu(in_channels, hidden, 3, dilation=d))
+        self.n_branches = len(dilations) + 2
+        self.conv_bn_dropout = nn.Sequential(
+            *conv_bn_relu(self.n_branches * hidden, out_channels, 1), nn.Dropout(dropout))
+
+    def forward(self, x: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+        """``x`` [B, C, H, W], ``probs`` [B, K, H, W] (the DSN logits)."""
+        feats = self.context[1](self.context[0](x))
+        branches = [self.context[2](feats, self.gather(feats, probs))]
+        branches += [getattr(self, f"conv{i}")(x) for i in range(2, self.n_branches + 1)]
+        return self.conv_bn_dropout(torch.cat(branches, dim=1))

@@ -2,8 +2,9 @@
 
 ``load_jax_variables(model, variables)`` takes ``{"params", "batch_stats"}``
 as nested dicts of numpy arrays (the flax trees of ``HRNetSeg``,
-``HRNetOCRSeg`` or ``DeepLabV3``) and fills the port's model of the same
-class:
+``HRNetOCRSeg``, ``DeepLabV3``, the context-head nets or ``HRNetISASeg``)
+and fills the port's model of the same class (or, with ``key_of``, any
+module, such as one context module alone):
 
   * conv kernels HWIO -> OIHW;
   * BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
@@ -14,8 +15,15 @@ class:
 The key mappings are the ones ``contrastiveseg_tpu/utils/torch_import.py``
 applies in the other direction (``hrnet_seg_path``, ``hrnet_ocr_path`` with
 ``_ocr_distri``, ``_object_attention`` and ``_bnact``, ``deeplab_path`` with
-``resnet_backbone_path``), carried here as copies because that module
-imports flax.  ``key_for(model)`` picks the one of the model's class.
+``resnet_backbone_path``; ``fcnet_path``, ``spatial_ocrnet_path``,
+``asp_ocrnet_path`` with ``_asp_ocr``, ``base_ocnet_path``,
+``asp_ocnet_path`` and ``isanet_path`` with ``_self_attention``), carried
+here as copies because that module imports flax.  The nets the reference
+never registers (``pspnet``, ``ccnet``, ``pyramid_ocnet``,
+``hrnet_w48_isa``) carry the JAX module names: a ``ConvBN`` ``name`` is
+``name.0``/``name.1``, a plain conv ``name``.  The module keys
+(``self_attention_key``, ``isa_module_key``, ...) are relative to the
+module; ``key_for(model)`` picks the map of the model's class.
 """
 
 from __future__ import annotations
@@ -28,7 +36,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from contrastiveseg_tpu_torch.models.nets import DeepLabV3, HRNetOCRSeg, HRNetSeg
+from contrastiveseg_tpu_torch.models.nets import (
+    ASPOCRNet,
+    AspOCNet,
+    BaseOCNet,
+    DeepLabV3,
+    FcnNet,
+    HRNetISASeg,
+    HRNetOCRSeg,
+    HRNetSeg,
+    ISANet,
+    ResNetContextNet,
+    SpatialOCRNet,
+)
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
@@ -218,19 +238,228 @@ def deeplab_key(path: tuple) -> Optional[str]:
     return None
 
 
+def _at(base: str, name: str) -> str:
+    return f"{base}.{name}" if base else name
+
+
+def _sub(base: str, key: Optional[str]) -> Optional[str]:
+    return None if key is None else _at(base, key)
+
+
+def _cbr(base: str, sub: tuple) -> Optional[str]:
+    """A ConvBN ``sub`` onto the port's ``conv_bn_relu`` at ``base``
+    (slots ``0``, ``1.0``)."""
+    return _convbn(_at(base, "0"), _at(base, "1.0"), sub)
+
+
+def _jax_named(base: str, sub: tuple) -> Optional[str]:
+    """A JAX ``ConvBN`` (port ``layers.ConvBN``: ``0``, ``1``) or plain conv
+    at ``base``."""
+    return _convbn(_at(base, "0"), _at(base, "1"), sub) or _plain_conv(base, sub)
+
+
+def self_attention_key(path: tuple, w_bn: bool = True) -> Optional[str]:
+    """``SelfAttention2D``: ``f_query``/``f_key`` [conv, BNReLU, conv,
+    BNReLU], ``f_value``, ``W`` ([conv, BNReLU] with ``w_bn``, else one conv)."""
+    m = re.fullmatch(r"f_(query|key)_(\d)", path[0])
+    if m:
+        return _plain_conv(f"f_{m.group(1)}.{0 if m.group(2) == '1' else 2}", path[1:])
+    m = re.fullmatch(r"f_(query|key)_bn(\d)", path[0])
+    if m:
+        return _bnact(f"f_{m.group(1)}.{1 if m.group(2) == '1' else 3}.0", path[1:])
+    if path[0] == "f_value":
+        return _plain_conv("f_value", path[1:])
+    if path[0] == "W":
+        return _plain_conv("W.0" if w_bn else "W", path[1:])
+    if path[0] == "W_bn" and w_bn:
+        return _bnact("W.1.0", path[1:])
+    return None
+
+
+def isa_module_key(path: tuple) -> Optional[str]:
+    """``ISAModule``: ``isa{i}`` -> ``stages.{i}`` (``long_range_sa``,
+    ``short_range_sa``), ``up_conv``, ``project`` -> ``conv_bn``."""
+    m = re.fullmatch(r"isa(\d+)", path[0])
+    if m and path[1] in ("long_range", "short_range"):
+        return _sub(f"stages.{m.group(1)}.{path[1]}_sa", self_attention_key(path[2:]))
+    if path[0] == "up_conv":
+        return _cbr("up_conv", path[1:])
+    if path[0] == "project":
+        return _cbr("conv_bn", path[1:])
+    return None
+
+
+def base_oc_key(path: tuple) -> Optional[str]:
+    """``BaseOCModule``: ``attention`` -> ``stages.0``, ``project`` ->
+    ``conv_bn_dropout``."""
+    if path[0] == "attention":
+        return _sub("stages.0", self_attention_key(path[1:], w_bn=False))
+    if path[0] == "project":
+        return _cbr("conv_bn_dropout", path[1:])
+    return None
+
+
+def base_oc_context_key(path: tuple) -> Optional[str]:
+    """``BaseOCContextModule``: ``attention`` -> ``stages.0``, ``ctx_bn`` ->
+    ``conv_bn_dropout.0``."""
+    if path[0] == "attention":
+        return _sub("stages.0", self_attention_key(path[1:], w_bn=False))
+    if path[0] == "ctx_bn":
+        return _bnact("conv_bn_dropout.0.0", path[1:])
+    return None
+
+
+def _branch(path: tuple) -> Optional[str]:
+    """``b{i}`` of an ASPP-like module -> ``conv{i + 2}``."""
+    m = re.fullmatch(r"b(\d)", path[0])
+    return _cbr(f"conv{int(m.group(1)) + 2}", path[1:]) if m else None
+
+
+def asp_oc_key(path: tuple) -> Optional[str]:
+    """``ASPOCModule``: ``context_conv`` and ``oc`` -> ``context.0``-``.2``,
+    ``b{i}`` -> ``conv{i + 2}``, ``project`` -> ``conv_bn_dropout``."""
+    if path[0] == "context_conv":
+        return _cbr("context", path[1:])
+    if path[0] == "oc":
+        return _sub("context.2", base_oc_context_key(path[1:]))
+    if path[0] == "project":
+        return _cbr("conv_bn_dropout", path[1:])
+    return _branch(path)
+
+
+def asp_ocr_key(path: tuple) -> Optional[str]:
+    """``SpatialOCRASP``: ``context_conv`` and ``object_attention`` ->
+    ``context.0``-``.2``, ``b{i}`` -> ``conv{i + 2}``, ``project`` ->
+    ``conv_bn_dropout``."""
+    if path[0] == "context_conv":
+        return _cbr("context", path[1:])
+    if path[0] == "object_attention":
+        return _object_attention("context.2.object_context_block", path[1:])
+    if path[0] == "project":
+        return _cbr("conv_bn_dropout", path[1:])
+    return _branch(path)
+
+
+def pyramid_oc_key(path: tuple) -> Optional[str]:
+    """``PyramidOCModule``: ``attn_s{s}`` (ISA-flavoured attention),
+    ``project``."""
+    if path[0].startswith("attn_s"):
+        return _sub(path[0], self_attention_key(path[1:]))
+    return _jax_named(path[0], path[1:])
+
+
+def jax_named_key(path: tuple) -> Optional[str]:
+    """``PSPModule`` and ``CCModule`` (JAX names; CC's scalar ``gamma``)."""
+    if path == ("gamma",):
+        return "gamma"
+    return _jax_named(path[0], path[1:])
+
+
+def _resnet_net_key(path: tuple, dsn: tuple[str, str, str], heads: dict) -> Optional[str]:
+    """A dilated-ResNet net: the backbone; ``dsn_conv``/``dsn_cls`` onto
+    ``dsn`` = (conv, BN, cls) keys; each other flax module ``name`` onto
+    ``heads[name](sub)``."""
+    if path[0] == "backbone":
+        return _prefixed("backbone", resnet_backbone_key(path[1:]))
+    if path[0] == "dsn_conv":
+        return _convbn(dsn[0], dsn[1], path[1:])
+    if path[0] == "dsn_cls":
+        return _plain_conv(dsn[2], path[1:])
+    fn = heads.get(path[0])
+    return None if fn is None else fn(path[1:])
+
+
+_DSN_HEAD = ("dsn_head.0", "dsn_head.1.0", "dsn_head.3")
+_DSN = ("dsn.0", "dsn.1.0", "dsn.2")
+
+
+def fcnet_key(path: tuple) -> Optional[str]:
+    """``FcnNet`` (fcnet, fcnet_wo_dsn)."""
+    return _resnet_net_key(path, _DSN_HEAD, {
+        "conv3x3": lambda s: _cbr("cls_head", s),
+        "cls": lambda s: _plain_conv("cls_head.3", s)})
+
+
+def spatial_ocrnet_key(path: tuple) -> Optional[str]:
+    """``SpatialOCRNet``."""
+    return _resnet_net_key(path, _DSN_HEAD, {
+        "conv3x3": lambda s: _cbr("conv_3x3", s),
+        "ocr_distri": lambda s: _ocr_distri(s, base="spatial_ocr_head"),
+        "cls": lambda s: _plain_conv("head", s)})
+
+
+def asp_ocrnet_key(path: tuple) -> Optional[str]:
+    """``ASPOCRNet``."""
+    return _resnet_net_key(path, _DSN_HEAD, {
+        "asp_ocr": lambda s: _sub("asp_ocr_head", asp_ocr_key(s)),
+        "cls": lambda s: _plain_conv("head", s)})
+
+
+def base_ocnet_key(path: tuple) -> Optional[str]:
+    """``BaseOCNet``."""
+    return _resnet_net_key(path, _DSN, {
+        "conv3x3": lambda s: _cbr("oc_module_pre", s),
+        "context": lambda s: _sub("oc_module", base_oc_key(s)),
+        "cls": lambda s: _plain_conv("cls", s)})
+
+
+def asp_ocnet_key(path: tuple) -> Optional[str]:
+    """``AspOCNet``."""
+    return _resnet_net_key(path, _DSN, {
+        "conv3x3": lambda s: _cbr("context", s),
+        "context": lambda s: _sub("context.2", asp_oc_key(s)),
+        "cls": lambda s: _plain_conv("cls", s)})
+
+
+def isanet_key(path: tuple) -> Optional[str]:
+    """``ISANet``."""
+    return _resnet_net_key(path, _DSN_HEAD, {
+        "conv3x3": lambda s: _cbr("isa_head", s),
+        "context": lambda s: _sub("isa_head.2", isa_module_key(s)),
+        "cls": lambda s: _plain_conv("cls_head", s)})
+
+
+def resnet_context_key(path: tuple) -> Optional[str]:
+    """``ResNetContextNet`` (pspnet, ccnet, pyramid_ocnet; JAX names)."""
+    def context(s):
+        return pyramid_oc_key(s) if s[0].startswith("attn_s") else jax_named_key(s)
+
+    return _resnet_net_key(path, ("dsn_conv.0", "dsn_conv.1", "dsn_cls"), {
+        "conv3x3": lambda s: _jax_named("conv3x3", s),
+        "context": lambda s: _sub("context", context(s)),
+        "cls": lambda s: _plain_conv("cls", s)})
+
+
+def hrnet_isa_key(path: tuple) -> Optional[str]:
+    """``HRNetISASeg`` (JAX names; ``isa`` an ``ISAModule``)."""
+    if path[0] == "backbone":
+        return _prefixed("backbone", _backbone_key(path[1:]))
+    if path[0] == "isa":
+        return _sub("isa", isa_module_key(path[1:]))
+    if path[0] in ("aux_conv", "aux_cls", "conv3x3", "cls"):
+        return _jax_named(path[0], path[1:])
+    return None
+
+
+_KEY_MAPS = ((HRNetSeg, hrnet_seg_key), (HRNetOCRSeg, hrnet_ocr_key), (DeepLabV3, deeplab_key),
+             (FcnNet, fcnet_key), (SpatialOCRNet, spatial_ocrnet_key),
+             (ASPOCRNet, asp_ocrnet_key), (BaseOCNet, base_ocnet_key),
+             (AspOCNet, asp_ocnet_key), (ISANet, isanet_key),
+             (ResNetContextNet, resnet_context_key), (HRNetISASeg, hrnet_isa_key))
+
+
 def key_for(model: nn.Module):
     """The flax-path -> port-key map of ``model``'s class."""
-    for cls, fn in ((HRNetSeg, hrnet_seg_key), (HRNetOCRSeg, hrnet_ocr_key),
-                    (DeepLabV3, deeplab_key)):
+    for cls, fn in _KEY_MAPS:
         if isinstance(model, cls):
             return fn
     raise TypeError(f"no JAX key map for {type(model).__name__}")
 
 
-def load_jax_variables(model: nn.Module, variables: dict) -> None:
-    """Fill ``model`` (``HRNetSeg``, ``HRNetOCRSeg`` or ``DeepLabV3``) from
-    the JAX package's variables of the same net."""
-    key_of = key_for(model)
+def load_jax_variables(model: nn.Module, variables: dict, key_of=None) -> None:
+    """Fill ``model`` from the JAX package's variables of the same net (or
+    module, with its ``key_of`` map)."""
+    key_of = key_of or key_for(model)
     sd = model.state_dict()
     new_sd: dict[str, torch.Tensor] = {}
     unused = []

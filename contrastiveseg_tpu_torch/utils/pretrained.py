@@ -22,6 +22,13 @@ Which source a file is, from its keys alone:
   keys (``IMAGENET_HEAD_PREFIXES``) are dropped and the rest prefixed with
   ``backbone.``.  The heads keep their init.
 
+The context-head nets load their reference segmentors too (FcnNet,
+SpatialOCRNet, ASPOCRNet, BaseOCNet, AspOCNet, ISANet).  The nets the
+reference never registers (``pspnet``, ``ccnet``, ``pyramid_ocnet``,
+``hrnet_w48_isa``: ``reference_layout`` False) have no reference segmentor
+to load, so a segmentor file is refused for them; an ImageNet backbone
+loads as for any other net.
+
 The load is strict: every tensor of the model that the source covers (the
 backbone for ImageNet files, everything for a segmentor) must be in the
 file with its shape, and no key may be left over.  BN
@@ -117,6 +124,12 @@ def load_pretrained(model: nn.Module, path: str) -> Optional[dict[str, torch.Ten
     ``path``; returns the file's queue buffers (CPU tensors keyed by
     ``QUEUE_KEYS``), or None when it has none."""
     weights, queues, imagenet = split_source(load_torch_state(path))
+    if not imagenet and not getattr(model, "reference_layout", True):
+        raise ValueError(
+            f"{path} is a segmentor checkpoint, but {type(model).__name__} has no reference "
+            "layout to load it in: the reference never registers pspnet, ccnet, pyramid_ocnet "
+            "or hrnet_w48_isa (lib/models/model_manager.py:48-82), so no reference checkpoint "
+            "of them exists; start the net from an ImageNet backbone .pth")
     target = model.state_dict()
     if (imagenet and any(k.startswith("backbone.resinit.") for k in target)
             and not any(k.startswith("backbone.resinit.") for k in weights)):

@@ -2,9 +2,9 @@
 
 Parity runs a shallow deep-base bottleneck ResNet, layers (1, 1, 2, 2) at
 dilate-8, put into both packages' ``RESNET_SPECS`` under the name
-``SHALLOW``: layer3 gets dilations [1, 2] and layer4 [2, 4], so both
-first-block rules of ``_nostride_dilate`` show, at the full widths (c4 has
-2048 channels) and the full heads.  19 classes, 2 images of 33x33: an odd
+``SHALLOW`` (``torch_port_helpers.shallow_resnet``): layer3 gets dilations
+[1, 2] and layer4 [2, 4], so both first-block rules of ``_nostride_dilate``
+show, at the full widths (c4 has 2048 channels) and the full heads.  19 classes, 2 images of 33x33: an odd
 size, through the stem (33 -> 17), the max-pool (17 -> 9) and the
 align-corners upsamples.  Weights come from a numpy seed and load through
 ``load_jax_variables``; the train step uses the same weights.  The JAX side
@@ -65,16 +65,19 @@ from contrastiveseg_tpu_torch.utils.jax_weights import deeplab_key, flatten, loa
 from contrastiveseg_tpu_torch.utils.pretrained import load_pretrained
 
 from torch_port_helpers import (
+    SHALLOW_RESNET,
+    SHALLOW_RESNET_PLAIN_STEM,
     exact_fp32_reference,
     one_torch_thread,
     random_variables,
+    shallow_resnet,
     shared_jax_compiles,
     unoptimized_jax_compiles,
     write_tree,
 )
 
-SHALLOW = "deepbase_resnet_shallow_dilated8"
-PLAIN_STEM = "resnet_shallow_dilated8"
+SHALLOW = SHALLOW_RESNET
+PLAIN_STEM = SHALLOW_RESNET_PLAIN_STEM
 B, H, W, C = 2, 33, 33, 19
 STEP_HW = 65  # the train step's crops
 
@@ -84,10 +87,7 @@ def _shallow_specs():
     """The shallow specs in both packages, and torch on one thread (the
     tolerances are far above any summation-order effect)."""
     mp = pytest.MonkeyPatch()
-    for specs, spec in ((jresnet.RESNET_SPECS, jresnet.ResNetSpec),
-                        (resnet.RESNET_SPECS, resnet.ResNetSpec)):
-        mp.setitem(specs, SHALLOW, spec((1, 1, 2, 2), dilate_scale=8))
-        mp.setitem(specs, PLAIN_STEM, spec((1, 1, 2, 2), deep_base=False, dilate_scale=8))
+    shallow_resnet(mp)
     with one_torch_thread(), shared_jax_compiles(), unoptimized_jax_compiles():
         yield
     mp.undo()

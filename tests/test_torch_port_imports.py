@@ -54,7 +54,10 @@ def test_port_files_found():
     assert {"contrast_cuda.py", "conv_cuda.py", "block_cuda.py", "queue.py",
             "trainer.py", "presets.py", "config.py", "chip_smoke.py", "tester.py", "png.py",
             "palette.py", "cityscapes_official.py", "dataset_evaluators.py",
-            "export_torch.py", "serve_torch.py", "resnet.py", "ocr.py"} <= names
+            "export_torch.py", "serve_torch.py", "resnet.py", "ocr.py", "attention.py",
+            "cc_attention.py"} <= names
+    assert ROOT / "contrastiveseg_tpu_torch" / "models" / "attention.py" in PORT_FILES
+    assert ROOT / "contrastiveseg_tpu_torch" / "ops" / "cc_attention.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -398,6 +398,27 @@ def shallow_hrnet18(monkeypatch) -> None:
             mod.StageSpec(1, 1, (18, 36, 72, 144))))
 
 
+SHALLOW_RESNET = "deepbase_resnet_shallow_dilated8"
+SHALLOW_RESNET_PLAIN_STEM = "resnet_shallow_dilated8"
+
+
+def shallow_resnet(monkeypatch) -> None:
+    """Put a shallow dilated-8 bottleneck ResNet, layers (1, 1, 2, 2), into
+    both packages' ``RESNET_SPECS``: ``SHALLOW_RESNET`` with the deep-base
+    stem and ``SHALLOW_RESNET_PLAIN_STEM`` with the 7x7 one.  Layer3 gets
+    dilations [1, 2] and layer4 [2, 4], so both first-block rules of
+    ``_nostride_dilate`` show, at the full widths (c4 has 2048 channels)."""
+    import contrastiveseg_tpu.models.resnet as jresnet
+
+    from contrastiveseg_tpu_torch.models import resnet
+
+    for mod in (jresnet, resnet):
+        monkeypatch.setitem(mod.RESNET_SPECS, SHALLOW_RESNET,
+                            mod.ResNetSpec((1, 1, 2, 2), dilate_scale=8))
+        monkeypatch.setitem(mod.RESNET_SPECS, SHALLOW_RESNET_PLAIN_STEM,
+                            mod.ResNetSpec((1, 1, 2, 2), deep_base=False, dilate_scale=8))
+
+
 def tiny_hrnet(monkeypatch) -> None:
     """Build the port's hrnet18 as a tiny HRNet: the same topology (four
     stages, every fuse) at one block a stage and widths 8-64, for tests
