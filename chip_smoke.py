@@ -112,17 +112,41 @@ Phases (any failure raises, so the run exits non-zero):
      without a reference layout, a
      segmentor ``.pth`` refused with its reason and an ImageNet backbone
      ``.pth`` loaded bit for bit; its lines carry ``[context phase +N s]``;
- 16. a JSON line of the six kernels, the card line, and the result line.
+ 16. the raw phase, from trees of raw PNGs (no ``.npy_cache`` sidecars, the
+     rows of every PNG cycling through the five filters) under
+     ``build/chip_smoke_raw/``: the headline from a Cityscapes tree of 8 + 4
+     frames of 1024x2048 at batch 8 (3 steps, >= 3 launches of each K1
+     kernel) and its validation (``val.batch_size=2``), with PIL made
+     unimportable and 0 fallbacks of the native PNG unfilter
+     (``csrc/png_unfilter.cpp``, built with ``g++`` into
+     ``build/pngunfilter/``); the native decode ms of each frame, the
+     pipeline's seconds a batch at 1 and 4 workers, the data wait of steps
+     2-3; ``tools/cache_dataset_torch.py`` on the tree, every sidecar equal
+     to its decoded frame; then, each at full width for 3 steps at its
+     preset's batch (or the largest that fits, after the allocator's
+     message), from raw trees of its layout and classes: the oracle OCR
+     nets ``cityscapes_ideal_{spatial,gather,distribute}_ocrnet`` (batch
+     16), with ``_spatial_ocrnet_b`` and ``_c`` built and raising their
+     ``ValueError`` at the first forward, as the JAX trainer fails at their
+     init; ``pascal_context_hrnet_w48_ocr_rmi`` and
+     ``coco_stuff_hrnet_w48_ocr_rmi`` (``fs_aux_rmi_loss``, batch 16 of
+     520x520, 59 and 171 classes); the six LIP presets (batch 32 of
+     473x473, 20 classes; two on CE2P), ``lip_hrnet_w48_ocr`` also through
+     ``--phase val`` with the flip average and the L/R swap; step times,
+     data wait, peak memory, finite losses, 0 launches of K1-K3 by the new
+     nets; its lines carry ``[raw phase +N s]``;
+ 17. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-15 print their step times (or seconds an image), peak memory and
+Phases 10-16 print their step times (or seconds an image), peak memory and
 wall time.
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
 transforms (scale 0.5-2.0, crop 1024x512) and validate at
 ``val.data_transformer`` (2048x1024).  ``solver.display_iter=1`` gives each
-step its own time.  Segdata (``native/segdata.cpp``) is built with ``g++``
-beside the CUDA libraries; a failed build fails the run.
+step its own time.  Segdata (``native/segdata.cpp``) and the PNG unfilter
+(``csrc/png_unfilter.cpp``) are built with ``g++`` beside the CUDA
+libraries; a failed build fails the run.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernel-vs-plain launches of phases 3-4 are not counted.  Kernel times
@@ -678,10 +702,11 @@ def run_block_bench() -> dict:
 
 
 def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
-                  seed: int = 0) -> None:
+                  seed: int = 0, sidecars: bool = True, filters=(0,)) -> None:
     """A Cityscapes-layout tree, {root}/{split}/image|label/*.png, each PNG
     beside its ``.npy_cache/<name>.png.npy`` sidecar (the decoded array, as
-    ``tools/cache_dataset.py`` writes it; written after the PNG, so fresh),
+    ``tools/cache_dataset.py`` writes it; written after the PNG, so fresh;
+    none with ``sidecars`` False), the PNG rows cycling through ``filters``,
     and the val labels again as the official evaluator's ground truth,
     ``{root}/gtFine/val/frankfurt/<stem>_gtFine_labelIds.png`` and
     ``_instanceIds.png`` (one instance per class and frame).  The frames are
@@ -713,9 +738,11 @@ def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
         label[-(hw[0] // 16):] = 0
         for kind, array in (("image", scene["image"]), ("label", label)):
             d = root / split / kind
-            (d / ".npy_cache").mkdir(parents=True, exist_ok=True)
-            (d / f"{name}.png").write_bytes(encode_png(array, level=1))
-            np.save(d / ".npy_cache" / f"{name}.png.npy", array)
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"{name}.png").write_bytes(encode_png(array, level=1, filters=filters))
+            if sidecars:
+                (d / ".npy_cache").mkdir(exist_ok=True)
+                np.save(d / ".npy_cache" / f"{name}.png.npy", array)
         if split == "val":
             stem = name.removesuffix("_leftImg8bit")
             inst = np.where(has_instances[label], label.astype(np.uint16) * 1000, label)
@@ -1256,26 +1283,32 @@ CONTEXT_NETS = (
     ("cityscapes_isanet", None), ("cityscapes_pyramid_ocnet", None),
     ("cityscapes_fcnet", "pspnet"), ("cityscapes_fcnet", "ccnet"),
     ("pascal_context_hrnet_w48_isa", None))
-def write_pascal_context(root: Path, n_train: int = 16, n_val: int = 4, seed: int = 0) -> None:
+def write_pascal_context(root: Path, n_train: int = 16, n_val: int = 4, seed: int = 0,
+                         sizes=((375, 500), (500, 375)), classes: int = 60,
+                         sidecars: bool = True, filters=(0,)) -> None:
     """A Pascal-Context-layout tree, {root}/{split}/image|label/*.png, each
-    PNG beside its ``.npy_cache`` sidecar: frames of VOC's sizes, 500x375
+    PNG beside its ``.npy_cache`` sidecar (none with ``sidecars`` False),
+    its rows cycling through ``filters``: frames of VOC's sizes, 500x375
     and 375x500 in turn, labels 0-59 (0 the background, which the presets'
-    ``reduce_zero_label`` turns into -1)."""
+    ``reduce_zero_label`` turns into -1).  ``sizes`` and ``classes`` make
+    the other datasets' trees (COCO-Stuff's 640x480 frames and labels
+    0-171, LIP's person crops and its 20 parts)."""
     import numpy as np
 
     from contrastiveseg_tpu_torch.data.datasets import SyntheticSegDataset
     from contrastiveseg_tpu_torch.utils.png import encode_png
 
-    scenes = [SyntheticSegDataset(60, hw, n_train + n_val, seed=seed)
-              for hw in ((375, 500), (500, 375))]
+    scenes = [SyntheticSegDataset(classes, hw, n_train + n_val, seed=seed) for hw in sizes]
     for i in range(n_train + n_val):
-        scene = scenes[i % 2][i]
+        scene = scenes[i % len(sizes)][i]
         split = "train" if i < n_train else "val"
         for kind, array in (("image", scene["image"]), ("label", scene["label"].astype(np.uint8))):
             d = root / split / kind
-            (d / ".npy_cache").mkdir(parents=True, exist_ok=True)
-            (d / f"{i:04d}.png").write_bytes(encode_png(array, level=1))
-            np.save(d / ".npy_cache" / f"{i:04d}.png.npy", array)
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"{i:04d}.png").write_bytes(encode_png(array, level=1, filters=filters))
+            if sidecars:
+                (d / ".npy_cache").mkdir(exist_ok=True)
+                np.save(d / ".npy_cache" / f"{i:04d}.png.npy", array)
 
 
 def head_losses(model, batch: dict, cfg) -> dict:
@@ -1321,12 +1354,12 @@ def reference_pth(model, path: Path) -> tuple[dict, int]:
     return want, len(pairs)
 
 
-def train_fitting(cfg, device, name: str, say) -> dict:
-    """Train ``cfg`` (its ``solver.max_iters`` steps) at its batch of 16, or
-    at 8 if 16 does not fit the card; returns the trainer, the config run,
-    the first batch (a copy), the history, launches and peak of
-    ``train_phase``, and the batch-16 failure (the allocator's message) or
-    None."""
+def train_fitting(cfg, device, name: str, say, batches=(16, 8)) -> dict:
+    """Train ``cfg`` (its ``solver.max_iters`` steps) at the first of
+    ``batches`` (the preset's) that fits the card; returns the trainer, the
+    config run, the first batch (a copy), the history, launches and peak of
+    ``train_phase``, and the failure at the preset's batch (the allocator's
+    message) or None."""
     import gc
 
     import torch
@@ -1334,7 +1367,7 @@ def train_fitting(cfg, device, name: str, say) -> dict:
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
 
     failure = None
-    for batch in (16, 8):
+    for batch in batches:
         c = cfg.updated("train.batch_size", batch)
         trainer = Trainer(c, device)
         first, step = [], trainer.train_step
@@ -1350,14 +1383,15 @@ def train_fitting(cfg, device, name: str, say) -> dict:
             return {"trainer": trainer, "cfg": c, "first": first[0], "history": history,
                     "launches": launches, "peak": peak, "failure": failure}
         except torch.cuda.OutOfMemoryError as err:
-            if batch == 8:
+            if batch == batches[-1]:
                 raise
-            failure = (f"{str(err).splitlines()[0]} (max_memory_allocated "
-                       f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB)")
+            failure = failure or (f"{str(err).splitlines()[0]} (max_memory_allocated "
+                                  f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB)")
+            say(f"{name} at batch {batch} does not fit the card: {str(err).splitlines()[0]}; "
+                f"trying batch {batches[batches.index(batch) + 1]}")
         del trainer, first, step, keep_first  # and the failed step's tensors with them
         gc.collect()
         torch.cuda.empty_cache()
-        say(f"{name} at batch 16 does not fit the card: {failure}; running it at batch 8")
     raise AssertionError("unreachable")
 
 
@@ -1518,6 +1552,238 @@ def run_context_phase(device) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     results["launches"] = dict(total)
     return results
+
+
+# Phase 16: the presets this slice ports, and what runs them.
+FILTERS = (0, 1, 2, 3, 4)  # every PNG row filter, in turn, in the raw trees
+IDEAL_NETS = ("cityscapes_ideal_spatial_ocrnet", "cityscapes_ideal_gather_ocrnet",
+              "cityscapes_ideal_distribute_ocrnet")
+IDEAL_BG_NETS = ("cityscapes_ideal_spatial_ocrnet_b", "cityscapes_ideal_spatial_ocrnet_c")
+RMI_NETS = ("pascal_context_hrnet_w48_ocr_rmi", "coco_stuff_hrnet_w48_ocr_rmi")
+LIP_NETS = ("lip_hrnet_w48", "lip_hrnet_w48_isa", "lip_hrnet_w48_ocr", "lip_hrnet_w48_ocr_b",
+            "lip_ce2p_ocrnet", "lip_ce2p_ideal_ocrnet")
+
+
+def decode_ms(paths, rgb: bool) -> list[float]:
+    """Milliseconds of ``data/datasets.decode_frame`` on each file."""
+    from contrastiveseg_tpu_torch.data.datasets import decode_frame
+
+    out = []
+    for path in paths:
+        t0 = time.perf_counter()
+        decode_frame(str(path), rgb=rgb)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def run_raw_headline(device, root: Path, say) -> dict:
+    """The headline at batch 8 from a Cityscapes tree of raw PNGs (no
+    sidecars, every row filter), with PIL unimportable; then the sidecar
+    tool on the tree."""
+    import importlib.util
+    import sys
+
+    import numpy as np
+    import torch
+
+    from contrastiveseg_tpu_torch.data import native
+    from contrastiveseg_tpu_torch.data.datasets import decode_frame
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from tools import cache_dataset_torch
+
+    t0 = time.perf_counter()
+    write_dataset(root, 8, 4, sidecars=False, filters=FILTERS)
+    if list(root.rglob(".npy_cache")):
+        raise AssertionError("the raw tree has sidecars")
+    say(f"wrote 8 train and 4 val frames of 1024x2048 as raw PNGs, rows cycling through filters "
+        f"{FILTERS}, no sidecars, in {time.perf_counter() - t0:.1f} s")
+    # PIL unimportable while the phase reads the tree: an import of it raises.
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "PIL"}
+    installed = importlib.util.find_spec("PIL") is not None if not saved else True
+    sys.modules["PIL"] = None
+    try:
+        fallbacks = native.PNG_LIBRARY.fallbacks
+        images = sorted(root.glob("*/image/*.png"))
+        labels = sorted(root.glob("*/label/*.png"))
+        ms_image, ms_label = decode_ms(images, True), decode_ms(labels, False)
+        cfg = directory_config("cityscapes_hrnet_w48_mem", root, root / "ckpt", [
+            "contrast.warmup_iters=0", "solver.max_iters=3", "val.batch_size=2"])
+        if (cfg.get("train.batch_size"), cfg.get("train_trans.random_crop.crop_size"),
+                cfg.get("data.workers")) != (8, [1024, 512], 1):
+            raise AssertionError("the raw headline must run the recipe's batch 8, crop and "
+                                 "worker")
+        trainer = Trainer(cfg, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        history = trainer.train()
+        torch.cuda.synchronize()
+        launches, peak = read_counts(), torch.cuda.max_memory_allocated(device)
+        check_history(history, launches, {n: 3 for n in k1.KERNELS}, "headline from raw PNGs")
+        if any(launches[n] for n in ("conv3x3_fwd", "conv3x3_dw", "fused_block")):
+            raise AssertionError(f"the raw headline launched K2 or K3: {launches}")
+        scores = trainer.validate()
+        if not 0.0 <= scores["miou"] <= 1.0:
+            raise AssertionError(f"raw headline validation gave no mIoU: {scores}")
+        host_s = {w: pipeline_seconds(cfg, w) for w in (1, 4)}
+        route = native.PNG_LIBRARY.route()
+        if native.PNG_LIBRARY.fallbacks != fallbacks or Path(route).parent != (
+                ROOT / "build" / "pngunfilter"):
+            raise AssertionError(f"the PNG unfilter came from {route} with "
+                                 f"{native.PNG_LIBRARY.fallbacks - fallbacks} Python fallbacks")
+        if sys.modules.get("PIL") is not None:
+            raise AssertionError("the raw headline imported PIL")
+    finally:
+        sys.modules.pop("PIL", None)
+        sys.modules.update(saved)
+    steps = history[1:]
+    say(f"PNG unfilter: {Path(route).relative_to(ROOT)}, 0 Python fallbacks; PIL (installed: "
+        f"{installed}, loaded before the phase: {bool(saved)}) unimportable while the tree was "
+        "read, trained on and validated")
+    say(f"native decode (zlib + unfilter) of a 1024x2048 frame: RGB image median "
+        f"{statistics.median(ms_image):.1f} ms (min {min(ms_image):.1f}, max {max(ms_image):.1f}), "
+        f"label median {statistics.median(ms_label):.1f} ms, on the host")
+    say(f"headline from raw PNGs at batch 8: steps 2-3 "
+        f"{[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
+        f"{[round(r['data_seconds'] * 1e3, 1) for r in steps]} ms (step 1: "
+        f"{history[0]['seconds'] * 1e3:.1f} ms, data wait {history[0]['data_seconds'] * 1e3:.1f}"
+        f" ms); pipeline alone {host_s[1]:.3f} s a batch at 1 worker, {host_s[4]:.3f} s at 4; "
+        f"peak {peak / 2**30:.3f} GiB; validation (4 frames, val.batch_size=2 for the preset's 4, "
+        f"whose cuDNN pick is FFT) mIoU {scores['miou']:.4f}, "
+        f"{scores['images_per_sec']:.3f} images/s")
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cache_dataset_torch.main(["--root", str(root), "--splits", "train,val"])
+    n = 0
+    for path in images + labels:
+        sidecar = path.parent / ".npy_cache" / f"{path.name}.npy"
+        got, want = np.load(sidecar), decode_frame(str(path), rgb=path.parent.name == "image")
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{sidecar} differs from the decoded frame")
+        n += 1
+    say(f"tools/cache_dataset_torch.py wrote {n} sidecars in {time.perf_counter() - t0:.1f} s, "
+        "each equal to its decoded frame (value, dtype, shape)")
+    return {"history": history, "launches": launches, "peak": peak, "scores": scores,
+            "host_seconds": host_s, "decode_ms_image": statistics.median(ms_image),
+            "decode_ms_label": statistics.median(ms_label)}
+
+
+def run_raw_phase(device) -> dict:
+    """Phase 16: the headline from raw PNGs (``run_raw_headline``), then the
+    nets and losses this slice ports, each from a raw PNG tree of its
+    preset's layout and classes, 3 steps at the preset's batch (or the
+    largest that fits, after the allocator's message): the oracle OCR nets
+    (and the two ``use_bg`` ones failing at their first forward, as in the
+    JAX trainer), HRNet-W48 + OCR with ``fs_aux_rmi_loss`` on Pascal-Context
+    and COCO-Stuff, and the six LIP presets (``lip_hrnet_w48_ocr`` also
+    through ``--phase val`` with its flip average and L/R swap)."""
+    import gc
+
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[raw phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_raw"
+    shutil.rmtree(root, ignore_errors=True)
+    total = collections.Counter()
+    headline = run_raw_headline(device, root / "headline", say)
+    total.update(headline["launches"])
+    trees = {"cityscapes": root / "cityscapes", "pascal_context": root / "pascal_context",
+             "coco_stuff": root / "coco_stuff", "lip": root / "lip"}
+    t0 = time.perf_counter()
+    write_dataset(trees["cityscapes"], 16, 4, sidecars=False, filters=FILTERS)
+    write_pascal_context(trees["pascal_context"], 16, 4, sidecars=False, filters=FILTERS)
+    write_pascal_context(trees["coco_stuff"], 16, 4, sizes=((480, 640), (640, 480)),
+                         classes=172, sidecars=False, filters=FILTERS)
+    write_pascal_context(trees["lip"], 32, 4, sizes=((320, 240), (240, 320)), classes=20,
+                         sidecars=False, filters=FILTERS)
+    say(f"wrote raw PNG trees (no sidecars) in {time.perf_counter() - t0:.1f} s: Cityscapes "
+        "16 + 4 frames of 1024x2048; Pascal-Context 16 + 4 of 500x375 and 375x500, labels "
+        "0-59; COCO-Stuff 16 + 4 of 640x480 and 480x640, labels 0-171; LIP 32 + 4 of 240x320 "
+        "and 320x240, labels 0-19")
+    results = {}
+    want = {"cityscapes": (16, 19, [1024, 512]), "pascal_context": (16, 59, [520, 520]),
+            "coco_stuff": (16, 171, [520, 520]), "lip": (32, 20, [473, 473])}
+    for preset in IDEAL_NETS + IDEAL_BG_NETS + RMI_NETS + LIP_NETS:
+        dataset = preset.split("_")[0] if not preset.startswith(("pascal", "coco")) else (
+            "pascal_context" if preset.startswith("pascal") else "coco_stuff")
+        cfg = directory_config(preset, trees[dataset], root / "ckpt" / preset,
+                               ["solver.max_iters=3"])
+        name = cfg.get("network.model_name")
+        got = (cfg.get("train.batch_size"), cfg.get("data.num_classes"),
+               cfg.get("train_trans.random_crop.crop_size"))
+        if got != want[dataset]:
+            raise AssertionError(f"{preset}: batch, classes, crop {got}; want {want[dataset]}")
+        if preset in IDEAL_BG_NETS:
+            trainer = Trainer(cfg, device)
+            try:
+                trainer.train()
+                raise AssertionError(f"{preset} trained without ground-truth labels")
+            except ValueError as err:
+                if "needs gt_labels" not in str(err):
+                    raise
+                say(f"{preset}: {type(trainer.state.model).__name__} "
+                    f"({trainer.state.model.variant}) built; its first forward raises, as the "
+                    f"JAX trainer's init fails: {err}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            results[preset] = {"raises": True}
+            continue
+        batches = (32, 16, 8) if dataset == "lip" else (16, 8)
+        fit = train_fitting(cfg, device, preset, say, batches=batches)
+        trainer, c, history = fit["trainer"], fit["cfg"], fit["history"]
+        no_launch(fit["launches"], preset, total)
+        # A CE is positive; the RMI bound is a sum of log-determinants, often negative.
+        if "rmi" not in c.get("loss.loss_type") and not all(r["loss_seg"] > 0 for r in history):
+            raise AssertionError(f"{preset}: a seg loss is not positive: {history}")
+        model = trainer.state.model
+        n_params = sum(p.numel() for p in model.parameters())
+        steps = history[1:]
+        res = {"batch": c.get("train.batch_size"), "failure": fit["failure"],
+               "history": history, "peak": fit["peak"], "params": n_params,
+               "loss_type": c.get("loss.loss_type"), "model": type(model).__name__}
+        say(f"{preset} ({name}, {res['model']}, {n_params / 1e6:.2f} M, {res['loss_type']}) at "
+            f"batch {res['batch']} of {c.get('train_trans.random_crop.crop_size')} crops: steps "
+            f"2-3 {[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
+            f"{[round(r['data_seconds'] * 1e3, 1) for r in steps]} ms, peak "
+            f"{fit['peak'] / 2**30:.3f} GiB, 0 launches of K1-K3"
+            + (f" (at its batch {want[dataset][0]}: {fit['failure']})" if fit["failure"] else ""))
+        if preset == "lip_hrnet_w48_ocr":
+            vc = c.updated("network.resume", trainer.ckpt._path("latest")).updated(
+                "val.batch_size", 1)
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            t0 = time.perf_counter()
+            out = run(vc, "val", device)
+            no_launch(read_counts(), f"{preset} --phase val", total)
+            ev, scores = out["trainer"].evaluator, out["scores"]
+            if not (ev.flip_average and ev.flip_pairs == [(14, 15), (16, 17), (18, 19)]
+                    and 0.0 <= scores["miou"] <= 1.0):
+                raise AssertionError(f"{preset} --phase val: flip {ev.flip_average}, pairs "
+                                     f"{ev.flip_pairs}, scores {scores}")
+            res["val"] = {"images_per_sec": scores["images_per_sec"], "miou": scores["miou"],
+                          "peak": torch.cuda.max_memory_allocated(device),
+                          "wall": time.perf_counter() - t0}
+            say(f"{preset} --phase val (4 frames padded to the preset's 2048x1024, "
+                f"val.batch_size=1 for the preset's 4, flip average with the L/R swap of "
+                f"{ev.flip_pairs}): mIoU {scores['miou']:.6f}, {scores['images_per_sec']:.3f} "
+                f"images/s, peak {res['val']['peak'] / 2**30:.3f} GiB")
+            del out, ev
+        results[preset] = res
+        del trainer, model, fit
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return {"headline": headline, "nets": results, "launches": dict(total)}
 
 
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
@@ -1759,13 +2025,13 @@ def main() -> None:
 
     libraries = [contrast_cuda.LIBRARY, conv_cuda.LIBRARY, block_cuda.LIBRARY]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        segdata = pool.submit(native.LIBRARY.build)
+    with ThreadPoolExecutor(2) as pool:
+        host_libs = [pool.submit(lib.build) for lib in (native.LIBRARY, native.PNG_LIBRARY)]
         built = cuda_lib.build_all(libraries, force=True)
-        segdata_path = segdata.result()
+        host_paths = [f.result() for f in host_libs]
     print(f"built {[(p.name, round(s, 2)) for p, s in built]} and "
-          f"{segdata_path.relative_to(ROOT)} (g++) in {time.perf_counter() - t0:.2f} s "
-          f"(one compiler each, in parallel)")
+          f"{[str(p.relative_to(ROOT)) for p in host_paths]} (g++) in "
+          f"{time.perf_counter() - t0:.2f} s (one compiler each, in parallel)")
     spills = []
     for lib in libraries:
         entry = None
@@ -1804,6 +2070,9 @@ def main() -> None:
     t0 = time.perf_counter()
     cp = run_context_phase(device)
     print(f"context phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rp = run_raw_phase(device)
+    print(f"raw phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
@@ -1828,6 +2097,17 @@ def main() -> None:
         f"{r['peak'] / 2**30:.3f} GiB" + (f", val {r['val']['images_per_sec']:.3f} images/s"
                                           if "val" in r else "")
         for n, r in cp.items() if n != "launches") + " (same call)")
+    hl = rp["headline"]
+    print(f"raw phase: headline from raw PNGs at batch 8: steps 2-3 "
+          f"{[round(r['seconds'] * 1e3, 1) for r in hl['history'][1:]]} ms, data wait "
+          f"{[round(r['data_seconds'] * 1e3, 1) for r in hl['history'][1:]]} ms, decode "
+          f"{hl['decode_ms_image']:.1f} ms a frame, pipeline {hl['host_seconds'][1]:.3f} s a "
+          f"batch at 1 worker, {hl['host_seconds'][4]:.3f} s at 4; " + "; ".join(
+              f"{n} at batch {r['batch']}: steps 2-3 "
+              f"{[round(x['seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, data wait "
+              f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
+              f"{r['peak'] / 2**30:.3f} GiB" for n, r in rp["nets"].items() if "history" in r)
+          + " (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -1878,9 +2158,10 @@ def main() -> None:
         "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
         "max_abs_err_fp32": k3["errs"]["fp32"],
     })
-    for row in rows:  # summed over every run of phases 14 and 15, each of which fails on one
+    for row in rows:  # summed over every run of phases 14-16; 14 and 15 fail on one
         row["launches_models_phase"] = mp["launches"][row["name"]]
         row["launches_context_phase"] = cp["launches"][row["name"]]
+        row["launches_raw_phase"] = rp["launches"].get(row["name"], 0)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

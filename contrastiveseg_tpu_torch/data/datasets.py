@@ -4,10 +4,13 @@ synthetic fixture for tests and benches.
 The port's copy of ``contrastiveseg_tpu/data/datasets.py``.  Reference: lib/datasets/loader/default_loader.py — lists
 ``{root}/{split}/image`` + ``{root}/{split}/label``, optional ``label_list``
 remap to train ids (default_loader.py:94-106) and ``reduce_zero_label``
-(−1 shift, :83-92).  PIL is imported only to decode an image or label
-that has no fresh ``.npy_cache`` sidecar.  ``data.loader=lip|dt_offset``
-and ``data.data_dirs`` are not ported yet (ROADMAP 7, other models and
-their loaders).
+(−1 shift, :83-92).  An image or label without a fresh ``.npy_cache``
+sidecar is decoded here: a PNG through the port's own reader
+(``utils/png.py``, native unfilter, no PIL), any other format (JPEG, BMP)
+through PIL where PIL is importable.  ``LipDataset`` (``data.loader=lip``,
+JAX ``data/loaders_extra.py:30-50``) adds the CE2P edge target.
+``data.loader=dt_offset`` and ``data.data_dirs`` are not ported yet
+(ROADMAP 7 and 9, the SegFix slice).
 """
 
 from __future__ import annotations
@@ -17,12 +20,50 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from contrastiveseg_tpu_torch.utils.png import read_png
+
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
 
 # Cityscapes raw-id -> train-id list (configs/cityscapes/*.json "label_list").
 CITYSCAPES_LABEL_LIST = [
     7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 32, 33,
 ]
+
+
+def decode_frame(path: str, rgb: bool) -> np.ndarray:
+    """The array of the image file at ``path``, as PIL's
+    ``np.asarray(Image.open(path))`` gives it, or with ``rgb`` as
+    ``np.asarray(Image.open(path).convert("RGB"))``.  PNGs are read by
+    ``utils/png.read_png``; other formats need PIL, and without it raise a
+    RuntimeError that names the file and the sidecar tool."""
+    if path.lower().endswith(".png"):
+        return read_png(path, rgb=rgb)
+    try:
+        from PIL import Image
+    except ImportError as err:
+        raise RuntimeError(
+            f"{path} has no fresh .npy_cache sidecar, and decoding it needs PIL, which is not "
+            "importable here: write the sidecars on a machine with PIL with `python "
+            "tools/cache_dataset_torch.py --root <data_dir>`, or convert the frames to "
+            "PNG") from err
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB")) if rgb else np.asarray(im)
+
+
+def label_to_edge(label: np.ndarray, ignore_index: int = -1) -> np.ndarray:
+    """The binary semantic-boundary map of a label map, the LIP edge target
+    (JAX ``data/loaders_extra.py:30-40``): both pixels of every vertically
+    or horizontally adjacent pair with different labels are 1, and ignored
+    pixels 0."""
+    edge = np.zeros_like(label, dtype=np.int32)
+    d = label[1:, :] != label[:-1, :]
+    edge[1:, :][d] = 1
+    edge[:-1, :][d] = 1
+    d = label[:, 1:] != label[:, :-1]
+    edge[:, 1:][d] = 1
+    edge[:, :-1][d] = 1
+    edge[label == ignore_index] = 0
+    return edge
 
 
 def encode_label_map(label: np.ndarray, label_list: Sequence[int]) -> np.ndarray:
@@ -176,10 +217,12 @@ class DirectorySegDataset:
     def _read_cached(path: str) -> Optional[np.ndarray]:
         """Raw decoded array from the .npy_cache sidecar dir, if fresh.
 
-        PNG decode of a 1024x2048 Cityscapes frame costs 50-100 ms/img on
-        one core — re-paid every epoch by the reference.  `python
-        tools/cache_dataset.py` decodes once into `.npy_cache/`; mmap'd
-        reads cost ~0.2 ms.  Stale caches (source newer) are ignored."""
+        A decode is re-paid every epoch, as in the reference.  `python
+        tools/cache_dataset_torch.py --root <data_dir>` decodes each frame
+        once into `.npy_cache/<name>.npy` beside it (the format of the JAX
+        package's `tools/cache_dataset.py`), and an mmap'd read replaces the
+        decode.  A JPEG tree needs the sidecars where PIL is absent.  Stale
+        caches (source newer) are ignored."""
         cache = os.path.join(os.path.dirname(path), ".npy_cache",
                              os.path.basename(path) + ".npy")
         try:
@@ -193,9 +236,7 @@ class DirectorySegDataset:
         img_path, lab_path = self.items[idx]
         image = self._read_cached(img_path)
         if image is None:
-            from PIL import Image
-
-            image = np.asarray(Image.open(img_path).convert("RGB"))
+            image = decode_frame(img_path, rgb=True)
         sample = {
             "image": image,
             "meta": {
@@ -207,9 +248,7 @@ class DirectorySegDataset:
         if lab_path is not None:
             label = self._read_cached(lab_path)
             if label is None:
-                from PIL import Image
-
-                label = np.asarray(Image.open(lab_path))
+                label = decode_frame(lab_path, rgb=False)
             label = label.astype(np.int64)
             if label.ndim == 3:
                 label = label[..., 0]
@@ -221,6 +260,19 @@ class DirectorySegDataset:
                 label[label == -1] = 255  # 0 was background
             label = np.where(label == self.ignore_from, self.ignore_to, label)
             sample["label"] = label.astype(np.int32)
+        return sample
+
+
+class LipDataset(DirectorySegDataset):
+    """LIP human parsing (the reference's LipLoader, lip_loader.py:26-193):
+    the directory layout with a ``maskmap`` beside each ``label``, the edge
+    target of CE2P's edge branch (``label_to_edge`` of the relabelled
+    label)."""
+
+    def __getitem__(self, idx: int) -> dict:
+        sample = super().__getitem__(idx)
+        if "label" in sample:
+            sample["maskmap"] = label_to_edge(sample["label"])
         return sample
 
 
@@ -277,17 +329,23 @@ def check_loader(cfg) -> None:
     """Raise NotImplementedError for the loaders that are not ported yet."""
     if cfg.get("data.data_dirs", default=None):
         raise NotImplementedError(
-            "data.data_dirs (multi-dataset training) is not ported yet: ROADMAP 7")
+            "data.data_dirs (multi-dataset training) is not ported yet: ROADMAP 7.4 and 9 "
+            "(the SegFix slice)")
     loader = cfg.get("data.loader", default="default")
-    if loader != "default":
+    if loader == "dt_offset":
         raise NotImplementedError(
-            f"data.loader={loader!r} is not ported yet: ROADMAP 7 (only 'default' is)")
+            "data.loader='dt_offset' is not ported yet: ROADMAP 7.4 and 9 (the SegFix slice)")
+    if loader not in ("default", "lip"):
+        raise NotImplementedError(
+            f"data.loader={loader!r} is not ported yet: ROADMAP 7 (the port has 'default' "
+            "and 'lip')")
 
 
 def build_dataset(cfg, split: str = "train"):
     """DataLoader facade dataset selection (lib/datasets/data_loader.py:97-133):
-    the synthetic scenes or the directory layout; the LipLoader and
-    DTOffsetLoader equivalents and multi-dataset training are refused."""
+    the synthetic scenes, the directory layout or, with ``data.loader=lip``,
+    the LipLoader equivalent; the DTOffsetLoader equivalent and
+    multi-dataset training are refused."""
     if cfg.get("data.synthetic", default=False):
         h, w = cfg.get("data.synthetic_size", default=[512, 1024])
         return SyntheticSegDataset(
@@ -329,4 +387,8 @@ def build_dataset(cfg, split: str = "train"):
         only_mapillary=cfg.get("data.only_mapillary", default=False),
         dataset_name=cfg.get("dataset", default=""),
     )
+    if cfg.get("data.loader", default="default") == "lip":
+        # The reference LipLoader supports the same extra-set merging
+        # (include_val/include_atr/include_cihp, lip_loader.py:135-188).
+        return LipDataset(**kwargs, **extra_sets)
     return DirectorySegDataset(**kwargs, **extra_sets)

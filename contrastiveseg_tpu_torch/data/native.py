@@ -1,18 +1,21 @@
-"""ctypes bindings for the native data-path kernels (``native/segdata.cpp``).
+"""ctypes bindings for the native data-path kernels: ``native/segdata.cpp``
+and the port's PNG unfilter, ``csrc/png_unfilter.cpp``.
 
 Counterpart of ``contrastiveseg_tpu/data/native.py``, with its own build:
-at first use, never at import, ``g++`` compiles ``native/segdata.cpp`` with
-the flags of ``native/Makefile`` into ``build/segdata/`` (gitignored), named
-by the hash of the source and the flags, as ``ops/cuda_lib.py`` names the
-CUDA libraries.  The library committed as ``native/libsegdata.so`` is never
-loaded: it was built with ``-march=native`` on another host.
+at first use, never at import, ``g++`` compiles each source with the flags
+of ``native/Makefile`` into its own directory of ``build/`` (gitignored),
+named by the hash of the source and the flags, as ``ops/cuda_lib.py`` names
+the CUDA libraries.  The library committed as ``native/libsegdata.so`` is
+never loaded: it was built with ``-march=native`` on another host.
 
-Bound here: the bicubic resize (whole and windowed), the nearest label
-resize and the two normalizes.  The port's confusion matrix runs on the
-device (``ops/confusion.py``), so ``confusion_matrix_i64`` is not bound.
-Every wrapper returns None when the library could not be built or loaded;
-its caller then takes the numpy (or PIL) fallback, and ``LIBRARY.fallbacks``
-counts those calls.  ``LIBRARY.route()`` says which route the process took.
+Bound from segdata: the bicubic resize (whole and windowed), the nearest
+label resize and the two normalizes.  The port's confusion matrix runs on
+the device (``ops/confusion.py``), so ``confusion_matrix_i64`` is not bound.
+Bound from the PNG library: ``png_unfilter``, the five PNG row filters
+undone for ``utils/png.py``.  Every wrapper returns None when its library
+could not be built or loaded; its caller then takes the numpy, PIL or
+Python fallback, and the library's ``fallbacks`` counts those calls.
+``route()`` says which route the process took.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = ROOT / "native" / "segdata.cpp"
 BUILD_DIR = ROOT / "build" / "segdata"
+PNG_SOURCE = ROOT / "contrastiveseg_tpu_torch" / "csrc" / "png_unfilter.cpp"
+PNG_BUILD_DIR = ROOT / "build" / "pngunfilter"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-fPIC", "-shared", "-std=c++17"]
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -43,14 +48,25 @@ SIGNATURES = {
     "normalize_pad_f32": [_u8p, _I, _I, _I, _f32p, _I, _I, _I, _I, _F, _f32p, _f32p],
     "normalize_f32": [_u8p, ctypes.c_int64, _I, _f32p, _F, _f32p, _f32p],
 }
+PNG_SIGNATURES = {"png_unfilter": ([_u8p, ctypes.c_int64, ctypes.c_int64, _I, _u8p],
+                                   ctypes.c_int64)}
 
 
 class SegdataLibrary:
-    """The segdata library of one build directory, built and loaded once."""
+    """One native library of one build directory, built and loaded once:
+    by default segdata.  ``signatures`` maps each entry point to its
+    argument types, or to (argument types, return type); ``stem`` names the
+    built file, and ``fallback`` is what ``route()`` says when the callers
+    take their fallback."""
 
-    def __init__(self, build_dir: Path = BUILD_DIR, source: Path = SOURCE):
+    def __init__(self, build_dir: Path = BUILD_DIR, source: Path = SOURCE,
+                 signatures: Optional[dict] = None, stem: str = "libsegdata",
+                 fallback: str = "numpy"):
         self.build_dir = Path(build_dir)
         self.source = Path(source)
+        self.signatures = SIGNATURES if signatures is None else signatures
+        self.stem = stem
+        self.fallback = fallback
         self.fallbacks = 0
         self.error: Optional[str] = None
         self._lock = threading.Lock()
@@ -60,7 +76,7 @@ class SegdataLibrary:
     def library_path(self) -> Path:
         key = self.source.read_bytes() + " ".join(CXX_FLAGS).encode()
         digest = hashlib.sha256(key).hexdigest()[:12]
-        return self.build_dir / f"libsegdata_{digest}.so"
+        return self.build_dir / f"{self.stem}_{digest}.so"
 
     def build(self) -> Path:
         """Compile unless built; raises RuntimeError if ``g++`` fails."""
@@ -92,17 +108,16 @@ class SegdataLibrary:
             except (RuntimeError, OSError) as e:
                 self.error = str(e)
                 return None
-            for name, argtypes in SIGNATURES.items():
+            for name, sig in self.signatures.items():
                 fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = None
+                fn.argtypes, fn.restype = sig if isinstance(sig, tuple) else (sig, None)
             self._lib = lib
             return lib
 
     def route(self) -> str:
-        """The loaded library's path, or "numpy" when the fallbacks run."""
+        """The loaded library's path, or ``fallback`` when the fallbacks run."""
         lib = self.lib()
-        return lib._name if lib is not None else "numpy"
+        return lib._name if lib is not None else self.fallback
 
     def get(self) -> Optional[ctypes.CDLL]:
         """``lib()`` for a wrapper: counts a fallback when there is none."""
@@ -114,6 +129,8 @@ class SegdataLibrary:
 
 
 LIBRARY = SegdataLibrary()
+PNG_LIBRARY = SegdataLibrary(PNG_BUILD_DIR, PNG_SOURCE, PNG_SIGNATURES, stem="libpngunfilter",
+                             fallback="python")
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -210,4 +227,23 @@ def normalize_f32(img: np.ndarray, div_value: float, mean: np.ndarray,
     lib.normalize_f32(_ptr(img, ctypes.c_uint8), ctypes.c_int64(img.size // ch), ch,
                       _ptr(out, ctypes.c_float), ctypes.c_float(div_value),
                       _ptr(mean, ctypes.c_float), _ptr(std, ctypes.c_float))
+    return out
+
+
+def png_unfilter(data: bytes, h: int, stride: int, bpp: int) -> Optional[np.ndarray]:
+    """[h, stride] uint8 scanlines of the decompressed PNG stream ``data``
+    (h rows of a filter-type byte and ``stride`` bytes); None if native
+    unavailable.  Raises ValueError on a truncated stream or an unknown
+    filter type, as ``utils/png._unfilter`` does."""
+    lib = PNG_LIBRARY.get()
+    if lib is None:
+        return None
+    if len(data) < h * (stride + 1):
+        raise ValueError("PNG image data is truncated")
+    src = np.frombuffer(data, np.uint8, h * (stride + 1))
+    out = np.empty((h, stride), np.uint8)
+    bad = lib.png_unfilter(_ptr(src, ctypes.c_uint8), h, stride, bpp,
+                           _ptr(out, ctypes.c_uint8))
+    if bad >= 0:
+        raise ValueError(f"PNG row {bad} has an unknown filter type {src[bad * (stride + 1)]}")
     return out

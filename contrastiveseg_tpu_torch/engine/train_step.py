@@ -64,6 +64,12 @@ def make_train_step(
             generator=device_generator(s_sample, state.device))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        for p in model.parameters():
+            # A parameter the loss does not reach (CE2P's edge branch under
+            # fs_auxce_loss) still takes its weight decay and momentum, as
+            # every parameter does in the JAX step; torch's SGD would skip it.
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
 
         if state.bank is not None:
             # Reference _dequeue_and_enqueue (trainer_contrastive.py:102-138):

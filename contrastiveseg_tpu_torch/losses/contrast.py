@@ -5,7 +5,10 @@ Counterpart of ``contrastiveseg_tpu/losses/contrast.py``:
 * ``ContrastCELoss`` (:26) for ``contrast_ce_loss``, ``contrast_auxce_loss``
   and ``mem_contrast_ce_loss``.  The seg term is the row-blocked upsampled
   CE (:61-70) or, with ``use_aux``, the CE of the upsampled seg and aux
-  logits (:95-101).  The contrast term samples hard anchors and scores them
+  logits (:95-101); with ``seg_loss_kind`` "rmi" (``contrast.use_rmi``) the
+  RMI loss of the upsampled seg logits, plus the aux CE with ``use_aux``
+  (:73-88), and with "lovasz" (``contrast.use_lovasz``) CE + Lovasz of the
+  upsampled seg logits (:89-94).  The contrast term samples hard anchors and scores them
   against the memory bank through K1 (``ops/contrast_cuda.py``, whose
   wrappers launch the CUDA kernels for CUDA tensors and take the plain
   version for CPU tensors), or, with no bank, against each other in the
@@ -13,9 +16,6 @@ Counterpart of ``contrastiveseg_tpu/losses/contrast.py``:
   term is always computed and multiplied by 0 before warmup.
 * ``PlainSegLoss`` (:162-226) for the ``fs_*`` losses: CE or OHEM on the
   seg head, plus the aux or deeply-supervised heads.
-
-The seg-loss kinds RMI and Lovasz are not ported (``losses/manager.py``
-refuses them).
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from contrastiveseg_tpu_torch.losses.ce import (
     ohem_cross_entropy,
     upsampled_cross_entropy,
 )
+from contrastiveseg_tpu_torch.losses.lovasz import ce_lovasz_loss
+from contrastiveseg_tpu_torch.losses.rmi import rmi_loss
 from contrastiveseg_tpu_torch.ops.contrast import (
     ContrastSpec,
     hard_anchor_sample,
@@ -61,6 +63,8 @@ class ContrastCELoss:
     use_aux: bool = False
     aux_weight: float = 0.4
     seg_weight: float = 1.0
+    seg_loss_kind: str = "ce"  # ce | rmi | lovasz (contrast.use_rmi / use_lovasz)
+    rmi_params: Optional[dict] = None
 
     def __call__(
         self,
@@ -73,8 +77,18 @@ class ContrastCELoss:
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         seg = outputs["seg"]  # [B, h, w, C] stride-level logits
         embed = outputs["embed"]  # [B, h, w, D]
-        if self.use_aux:
-            size = (targets.shape[1], targets.shape[2])
+        size = (targets.shape[1], targets.shape[2])
+        if self.seg_loss_kind == "rmi":
+            seg_loss = rmi_loss(resize_bilinear_align_corners(seg, size), targets,
+                                seg.shape[-1], **(self.rmi_params or {}))
+            if self.use_aux:
+                seg_loss = self.seg_weight * seg_loss + self.aux_weight * cross_entropy(
+                    resize_bilinear_align_corners(outputs["seg_aux"], size), targets,
+                    self.class_weight, self.ignore_index)
+        elif self.seg_loss_kind == "lovasz":
+            seg_loss = ce_lovasz_loss(resize_bilinear_align_corners(seg, size), targets,
+                                      self.class_weight, self.ignore_index)
+        elif self.use_aux:
             seg_loss = aux_cross_entropy(
                 resize_bilinear_align_corners(seg, size),
                 resize_bilinear_align_corners(outputs["seg_aux"], size), targets,

@@ -1,17 +1,28 @@
 """Loss registry of the port, keyed by the reference's ``loss_type`` strings.
 
 Counterpart of ``contrastiveseg_tpu/losses/manager.py`` (SEG_LOSS_DICT,
-lib/loss/loss_manager.py:27-42), with the JAX builders' config reads.  The
-RMI, Lovasz and SegFix losses are not ported (ROADMAP 8) and are
-refused by name.
+lib/loss/loss_manager.py:27-42), with the JAX builders' config reads: the
+CE and OHEM losses, the contrast losses (their seg term CE, RMI with
+``contrast.use_rmi`` or CE + Lovasz with ``contrast.use_lovasz``), the RMI
+losses (``rmi_loss``, ``fs_rmi_loss``, ``fs_aux_rmi_loss``; :94-183) and
+``fs_ce_lovasz_loss`` (:186-207).  MscaleOCR's ``ms_fs_aux_rmi_loss``
+(ROADMAP 7.5, its net is not ported) and ``segfix_loss`` (ROADMAP 8 and 9,
+the SegFix slice) are refused by name.
 """
 
 from __future__ import annotations
 
-from contrastiveseg_tpu_torch.losses.contrast import ContrastCELoss, PlainSegLoss
-from contrastiveseg_tpu_torch.ops.contrast import ContrastSpec
+import dataclasses
+from typing import Optional
 
-_OTHER_LOSSES = "is not ported yet: ROADMAP 8 (other losses)"
+import torch
+
+from contrastiveseg_tpu_torch.losses.ce import cross_entropy
+from contrastiveseg_tpu_torch.losses.contrast import ContrastCELoss, PlainSegLoss
+from contrastiveseg_tpu_torch.losses.lovasz import ce_lovasz_loss
+from contrastiveseg_tpu_torch.losses.rmi import rmi_loss
+from contrastiveseg_tpu_torch.ops.contrast import ContrastSpec
+from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
 def _common(cfg) -> dict:
@@ -42,10 +53,20 @@ def _contrast_spec(cfg) -> ContrastSpec:
     )
 
 
+def _rmi_params(cfg) -> dict:
+    p = cfg.get("loss.params", default={})
+    return {"radius": p.get("rmi_radius", 3), "pool_size": p.get("rmi_pool_size", 3),
+            "pool_stride": p.get("rmi_pool_stride", 3), "pool_way": p.get("rmi_pool_way", 0),
+            "weight_lambda": p.get("loss_weight_lambda", 0.5),
+            "lambda_way": p.get("lambda_way", 1), "loss_weight": p.get("loss_weight", 1.0)}
+
+
 def _contrast(cfg, use_aux: bool) -> ContrastCELoss:
-    for key in ("contrast.use_rmi", "contrast.use_lovasz"):
-        if cfg.get(key, default=False):
-            raise NotImplementedError(f"{key}=true {_OTHER_LOSSES}")
+    kind = "ce"
+    if cfg.get("contrast.use_rmi", default=False):
+        kind = "rmi"
+    elif cfg.get("contrast.use_lovasz", default=False):
+        kind = "lovasz"
     if cfg.exists("contrast.kernel"):
         raise ValueError(
             "contrast.kernel is not an option of the port: the InfoNCE runs "
@@ -55,9 +76,59 @@ def _contrast(cfg, use_aux: bool) -> ContrastCELoss:
         loss_weight=cfg.get("contrast.loss_weight", default=0.1),
         include_class0=cfg.get("contrast.include_class0", default=True),
         use_aux=use_aux,
+        seg_loss_kind=kind,
+        rmi_params=_rmi_params(cfg) if kind == "rmi" else None,
         **_aux_weights(cfg),
         **_common(cfg),
     )
+
+
+def _full_res(x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return resize_bilinear_align_corners(x, (targets.shape[1], targets.shape[2]))
+
+
+@dataclasses.dataclass(frozen=True)
+class RMISegLoss:
+    """``rmi_loss``/``fs_rmi_loss`` (RMI on ``seg``) and ``fs_aux_rmi_loss``
+    (plus ``aux_weight`` times the CE of ``seg_aux``), the logits upsampled
+    to the labels; ``loss_seg`` is the total, as in the JAX package."""
+
+    num_classes: int
+    rmi_params: dict
+    use_aux: bool = False
+    aux_weight: float = 0.4
+    seg_weight: float = 1.0
+    class_weight: Optional[tuple[float, ...]] = None
+    ignore_index: int = -1
+
+    def __call__(self, outputs, targets, with_embed=True, bank=None, scores=None,
+                 generator=None):
+        loss = rmi_loss(_full_res(outputs["seg"], targets), targets, self.num_classes,
+                        **self.rmi_params)
+        if self.use_aux and "seg_aux" in outputs:
+            loss = self.seg_weight * loss + self.aux_weight * cross_entropy(
+                _full_res(outputs["seg_aux"], targets), targets, self.class_weight,
+                self.ignore_index)
+        return loss, {"loss_seg": loss, "loss": loss}
+
+
+@dataclasses.dataclass(frozen=True)
+class LovaszSegLoss:
+    """``fs_ce_lovasz_loss``: CE + Lovasz-Softmax of ``seg``, upsampled."""
+
+    class_weight: Optional[tuple[float, ...]] = None
+    ignore_index: int = -1
+
+    def __call__(self, outputs, targets, with_embed=True, bank=None, scores=None,
+                 generator=None):
+        loss = ce_lovasz_loss(_full_res(outputs["seg"], targets), targets, self.class_weight,
+                              self.ignore_index)
+        return loss, {"loss_seg": loss, "loss": loss}
+
+
+def _rmi(cfg, use_aux: bool) -> RMISegLoss:
+    return RMISegLoss(cfg.get("data.num_classes"), _rmi_params(cfg), use_aux,
+                      **_aux_weights(cfg), **_common(cfg))
 
 
 LOSSES = {
@@ -74,17 +145,23 @@ LOSSES = {
     # The mem variants are the same callable; the train step passes the bank.
     "mem_contrast_ce_loss": lambda cfg: _contrast(cfg, use_aux=False),
     "mem_contrast_auxce_loss": lambda cfg: _contrast(cfg, use_aux=True),
+    "rmi_loss": lambda cfg: _rmi(cfg, use_aux=False),
+    "fs_rmi_loss": lambda cfg: _rmi(cfg, use_aux=False),
+    "fs_aux_rmi_loss": lambda cfg: _rmi(cfg, use_aux=True),
+    "fs_ce_lovasz_loss": lambda cfg: LovaszSegLoss(**_common(cfg)),
 }
 
-NOT_PORTED = ("rmi_loss", "fs_rmi_loss", "fs_aux_rmi_loss", "fs_ce_lovasz_loss",
-              "ms_fs_aux_rmi_loss", "segfix_loss")
+NOT_PORTED = {
+    "ms_fs_aux_rmi_loss": "ROADMAP 8 (MscaleOCR's loss; its ms_ocr net, ROADMAP 7.5, is not ported)",
+    "segfix_loss": "ROADMAP 8 and 9 (the SegFix slice)",
+}
 
 
 def build_loss(cfg):
     """LossManager.get_seg_loss for the losses the port has."""
     name = cfg.get("loss.loss_type")
     if name in NOT_PORTED:
-        raise NotImplementedError(f"loss.loss_type={name!r} {_OTHER_LOSSES}")
+        raise NotImplementedError(f"loss.loss_type={name!r} is not ported yet: {NOT_PORTED[name]}")
     if name not in LOSSES:
         raise KeyError(f"unknown loss {name!r}; the port has {sorted(LOSSES)}")
     return LOSSES[name](cfg)

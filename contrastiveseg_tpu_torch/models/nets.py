@@ -31,6 +31,15 @@ the JAX package; inside, the models run NCHW and permute once, here.
 * ``HRNetISASeg`` (:489-548; ``hrnet_w48_isa`` and ``hrnet48_isa``, also
   unregistered upstream): HRNet's fused branches, an aux head, a 3x3
   ConvBNReLU and ``ISAModule``, under the JAX names.
+* ``IdealSpatialOCRNet`` (:662-750; reference nets/ideal_ocrnet.py), the
+  oracle OCR nets ``ideal_spatial_ocrnet``, ``_b``, ``_c``,
+  ``ideal_gather_ocrnet`` and ``ideal_distribute_ocrnet``, in
+  ``SpatialOCRNet``'s layout: with ``gt_labels`` the ground truth replaces
+  the learned gather, the learned distribute, or both, and ``_b``/``_c``
+  add the background context.  Without labels the learned branches run, as
+  in the JAX trainer, which never passes ``gt_labels``.
+* ``models/ce2p.CE2PNet`` (``ce2p_asp_ocrnet``, ``ce2p_ocrnet``,
+  ``ce2p_ideal_ocrnet``; :855-875), the LIP human-parsing nets.
 
 With a projection head, ``seg`` and ``seg_aux`` stay at the network's
 stride (4 for HRNet, 8 for DeepLab) and the loss upsamples them; without,
@@ -56,7 +65,10 @@ from contrastiveseg_tpu_torch.models.hrnet import HRNET_SPECS, HRNet
 from contrastiveseg_tpu_torch.models.layers import ConvBN, TorchBatchNorm, conv
 from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR, SpatialOCRASP
 from contrastiveseg_tpu_torch.models.resnet import ResNet, backbone_spec
-from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+from contrastiveseg_tpu_torch.ops.resize import (
+    resize_bilinear_align_corners_nchw,
+    scale_target_nearest,
+)
 
 
 def _outputs(out: dict[str, torch.Tensor], proj_head: nn.Module | None,
@@ -234,6 +246,66 @@ class SpatialOCRNet(_DilatedResNetNet):
         f = self.conv_3x3(c4)
         f = self.spatial_ocr_head(f, self.spatial_context_head(f, aux))
         return {"seg": self.head(f), "seg_aux": aux}
+
+
+def _label_onehot(labels: torch.Tensor, num_channels: int) -> torch.Tensor:
+    """label_to_onehot (spatial_ocr_block.py:22-34): [B, h, w] labels ->
+    [B, h*w, num_channels] float one-hot; ignored pixels (< 0) go to the
+    last channel."""
+    lab = torch.where(labels < 0, num_channels - 1, labels.clamp(0, num_channels - 1))
+    return torch.nn.functional.one_hot(lab.flatten(1).long(), num_channels).float()
+
+
+class IdealSpatialOCRNet(SpatialOCRNet):
+    """The oracle OCR nets: ``SpatialOCRNet`` whose gather (``spatial``,
+    ``spatial_b``, ``spatial_c``, ``gather``) and distribute (``spatial``,
+    ``spatial_b``, ``spatial_c``, ``distribute``) read the ground truth when
+    ``forward`` is given ``gt_labels``.  The ground-truth gather pools the
+    features over each class's pixels, L1-normalised, into ``num_classes +
+    1`` proxies (the last one the ignored pixels); the ground-truth
+    distribute is the labels' one-hot over the proxies.  ``spatial_b`` adds
+    the background context, ``spatial_c`` keeps only it (``use_oc``
+    False)."""
+
+    VARIANTS = ("spatial", "spatial_b", "spatial_c", "gather", "distribute")
+
+    def __init__(self, num_classes: int, variant: str = "spatial",
+                 arch: str = "resnet101_dilated8"):
+        if variant not in self.VARIANTS:
+            raise ValueError(f"unknown oracle OCR variant {variant!r}; one of {self.VARIANTS}")
+        super().__init__(num_classes, arch)
+        self.variant = variant
+        self.num_classes = num_classes
+        self.gather_gt = variant != "distribute"
+        self.distribute_gt = variant != "gather"
+        self.use_bg = variant in ("spatial_b", "spatial_c")
+        self.spatial_ocr_head = SpatialOCR(512, 256, 512, 0.05, use_bg=self.use_bg,
+                                           use_oc=variant != "spatial_c")
+
+    def forward(self, x: torch.Tensor,
+                gt_labels: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        """``x`` NHWC images; ``gt_labels`` None or [B, H, W] int labels at
+        the input size (-1 ignored)."""
+        if self.use_bg and gt_labels is None:
+            raise ValueError(
+                f"ideal OCR variant {self.variant!r} (use_bg) needs gt_labels: its background "
+                "context is the ground truth's complement.  The JAX trainer never passes "
+                "labels to a model, and its init fails on this net the same way")
+        c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
+        aux = self.dsn_head(c3)
+        f = self.conv_3x3(c4)
+        lab = None if gt_labels is None else scale_target_nearest(gt_labels, f.shape[2:])
+        if self.gather_gt and lab is not None:
+            weights = _label_onehot(lab, self.num_classes + 1)  # [B, hw, K + 1]
+            weights = weights / weights.sum(1, keepdim=True).clamp(min=1e-12)
+            context = torch.bmm(weights.transpose(1, 2), f.flatten(2).transpose(1, 2))
+        else:
+            context = self.spatial_context_head(f, aux)
+        gt_sim = None
+        if self.distribute_gt and lab is not None:
+            gt_sim = _label_onehot(lab, context.shape[1])
+        f = self.spatial_ocr_head(f, context, gt_sim)
+        return _outputs({"seg": self.head(f), "seg_aux": aux}, None, None, x.shape[1:3])
 
 
 class ASPOCRNet(_DilatedResNetNet):
@@ -438,15 +510,30 @@ MODELS.update({
     # Both spellings appear across the reference's ISA run scripts.
     "hrnet_w48_isa": _hrnet_isa,
     "hrnet48_isa": _hrnet_isa,
+    **{name: _resnet_net(IdealSpatialOCRNet, variant=variant) for name, variant in (
+        ("ideal_spatial_ocrnet", "spatial"), ("ideal_spatial_ocrnet_b", "spatial_b"),
+        ("ideal_spatial_ocrnet_c", "spatial_c"), ("ideal_gather_ocrnet", "gather"),
+        ("ideal_distribute_ocrnet", "distribute"))},
 })
+
+
+def _ce2p(context: str):
+    def build(cfg) -> nn.Module:
+        from contrastiveseg_tpu_torch.models.ce2p import CE2PNet
+
+        return CE2PNet(cfg.get("data.num_classes"), context,
+                       cfg.get("network.backbone", default="resnet101_dilated8"))
+
+    return build
+
+
+# ce2p_ideal_ocrnet is the "ocr" context, as in the JAX registry (nets.py:872).
+MODELS.update({"ce2p_asp_ocrnet": _ce2p("asp_ocr"), "ce2p_ocrnet": _ce2p("ocr"),
+               "ce2p_ideal_ocrnet": _ce2p("ocr")})
 
 # Models of the JAX registry that the port refuses by name until they are ported.
 _LATER_MODELS = {
-    **{f"hrnet_w{w}_ocr_b_ha": "ROADMAP 7 (HANet height attention)" for w in (18, 32, 48, 64)},
-    **{name: "ROADMAP 7 (the oracle OCR nets: ground-truth gt_sim and use_bg)"
-       for name in ("ideal_spatial_ocrnet", "ideal_spatial_ocrnet_b", "ideal_spatial_ocrnet_c",
-                    "ideal_gather_ocrnet", "ideal_distribute_ocrnet")},
-}
+    f"hrnet_w{w}_ocr_b_ha": "ROADMAP 7 (HANet height attention)" for w in (18, 32, 48, 64)}
 
 # Config switches of the JAX models that the port does not have yet; a
 # config that turns one on is refused rather than silently ignored.

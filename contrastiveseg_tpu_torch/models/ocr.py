@@ -7,10 +7,17 @@ reference's spatial_ocr_block.py):
     of its probability map times the features, ``[B, K, C]``;
   * ``ObjectAttention``: pixel queries against object keys, scaled by
     1/sqrt(key_channels), softmax over the objects, and the weighted object
-    values projected back to C channels;
+    values projected back to C channels.  The oracle nets' ``gt_sim``
+    (spatial_ocr_block.py:186-192), a one-hot ground-truth map, replaces
+    the softmax once L1-normalised over the objects; with ``use_bg``
+    (:207-214) the module also returns the background context, the values
+    weighted by the L1-normalised complement ``1 - gt_sim``, through the
+    same ``f_up``;
   * ``SpatialOCR``: that context concatenated with the features, then a
     1x1 ConvBNReLU and element-wise dropout (``nn.Dropout``, as in the JAX
-    package, not the reference's ``Dropout2d``);
+    package, not the reference's ``Dropout2d``); with ``use_bg`` the
+    concatenation is ``[context, background, feats]``, or ``[background,
+    feats]`` without ``use_oc`` (:117-148);
   * ``SpatialOCRASP`` (:151-191; SpatialOCR_ASP_Module): ASPP whose context
     branch is that attention, gathered over the DSN logits: a 3x3
     ConvBNReLU, ``SpatialGather``, then ``ObjectAttention`` at half the
@@ -18,9 +25,9 @@ reference's spatial_ocr_block.py):
     branches; the five concatenated, 1x1 ConvBNReLU, dropout.
 
 The two products are batched matmuls (``torch.bmm``), as they are XLA
-einsums in the JAX package.  Only the learned similarity is ported: the
-oracle nets' ground-truth similarity (``gt_sim``) and background context
-(``use_bg``) are ROADMAP 7, and ``models/nets.build_model`` refuses them.
+einsums in the JAX package.  As there, the query and key convs run on the
+ground-truth path too (their BN statistics move), though the similarity
+does not read them.
 
 Module names are the reference's torch keys (``utils/torch_import.
 _ocr_distri``, ``_object_attention``): ``object_context_block.f_pixel``,
@@ -55,9 +62,10 @@ class SpatialGather(nn.Module):
 class ObjectAttention(nn.Module):
     """Pixel-to-object attention (ObjectAttentionBlock2D)."""
 
-    def __init__(self, in_channels: int, key_channels: int):
+    def __init__(self, in_channels: int, key_channels: int, use_bg: bool = False):
         super().__init__()
         self.key_channels = key_channels
+        self.use_bg = use_bg
 
         def double(cin):
             return nn.Sequential(*conv_bn_relu(cin, key_channels, 1, bias=True),
@@ -68,32 +76,58 @@ class ObjectAttention(nn.Module):
         self.f_down = conv_bn_relu(in_channels, key_channels, 1, bias=True)
         self.f_up = conv_bn_relu(key_channels, in_channels, 1, bias=True)
 
-    def forward(self, x: torch.Tensor, proxy: torch.Tensor) -> torch.Tensor:
-        """``x`` [B, C, H, W] pixels, ``proxy`` [B, K, C] objects -> [B, C, H, W]."""
+    def forward(self, x: torch.Tensor, proxy: torch.Tensor,
+                gt_sim: torch.Tensor | None = None):
+        """``x`` [B, C, H, W] pixels, ``proxy`` [B, K, C] objects, ``gt_sim``
+        None or a [B, H*W, K] one-hot (unnormalised) -> [B, C, H, W], or with
+        ``use_bg`` (context, background context)."""
         B, _, H, W = x.shape
         objects = proxy.transpose(1, 2).unsqueeze(-1)  # [B, C, K, 1]
         query = self.f_pixel(x).flatten(2).transpose(1, 2)  # [B, HW, key]
         key = self.f_object(objects).flatten(2)  # [B, key, K]
         value = self.f_down(objects).flatten(2).transpose(1, 2)  # [B, K, key]
-        sim = torch.softmax(torch.bmm(query, key) * self.key_channels ** -0.5, dim=-1)
-        ctx = torch.bmm(sim, value).transpose(1, 2).reshape(B, self.key_channels, H, W)
-        return self.f_up(ctx)
+
+        def distribute(sim):
+            ctx = torch.bmm(sim, value).transpose(1, 2).reshape(B, self.key_channels, H, W)
+            return self.f_up(ctx)
+
+        if gt_sim is not None:
+            sim = gt_sim / gt_sim.sum(-1, keepdim=True).clamp(min=1e-12)
+        else:
+            sim = torch.softmax(torch.bmm(query, key) * self.key_channels ** -0.5, dim=-1)
+        ctx = distribute(sim)
+        if not self.use_bg:
+            return ctx
+        if gt_sim is None:
+            raise ValueError("ObjectAttention(use_bg=True) needs the ground-truth gt_sim")
+        bg = 1.0 - gt_sim
+        return ctx, distribute(bg / bg.sum(-1, keepdim=True).clamp(min=1e-12))
 
 
 class SpatialOCR(nn.Module):
     """ObjectAttention, concat ``[context, feats]``, 1x1 ConvBNReLU, dropout
-    (SpatialOCR_Module, spatial_ocr_block.py:237-310)."""
+    (SpatialOCR_Module, spatial_ocr_block.py:237-310); with ``use_bg``,
+    ``[context, background, feats]``, or ``[background, feats]`` without
+    ``use_oc``."""
 
     def __init__(self, in_channels: int, key_channels: int, out_channels: int,
-                 dropout: float = 0.05):
+                 dropout: float = 0.05, use_bg: bool = False, use_oc: bool = True):
         super().__init__()
-        self.object_context_block = ObjectAttention(in_channels, key_channels)
+        self.use_bg, self.use_oc = use_bg, use_oc
+        parts = 3 if use_bg and use_oc else 2
+        self.object_context_block = ObjectAttention(in_channels, key_channels, use_bg)
         self.conv_bn_dropout = nn.Sequential(
-            *conv_bn_relu(2 * in_channels, out_channels, 1), nn.Dropout(dropout))
+            *conv_bn_relu(parts * in_channels, out_channels, 1), nn.Dropout(dropout))
 
-    def forward(self, feats: torch.Tensor, proxy: torch.Tensor) -> torch.Tensor:
-        ctx = self.object_context_block(feats, proxy)
-        return self.conv_bn_dropout(torch.cat([ctx, feats], dim=1))
+    def forward(self, feats: torch.Tensor, proxy: torch.Tensor,
+                gt_sim: torch.Tensor | None = None) -> torch.Tensor:
+        ctx = self.object_context_block(feats, proxy, gt_sim)
+        if self.use_bg:
+            ctx, bg = ctx
+            parts = [ctx, bg, feats] if self.use_oc else [bg, feats]
+        else:
+            parts = [ctx, feats]
+        return self.conv_bn_dropout(torch.cat(parts, dim=1))
 
 
 class _OCRContext(nn.Module):

@@ -2,7 +2,8 @@
 
 ``load_jax_variables(model, variables)`` takes ``{"params", "batch_stats"}``
 as nested dicts of numpy arrays (the flax trees of ``HRNetSeg``,
-``HRNetOCRSeg``, ``DeepLabV3``, the context-head nets or ``HRNetISASeg``)
+``HRNetOCRSeg``, ``DeepLabV3``, the context-head nets, ``HRNetISASeg``,
+the oracle ``IdealSpatialOCRNet`` or ``CE2PNet``)
 and fills the port's model of the same class (or, with ``key_of``, any
 module, such as one context module alone):
 
@@ -17,8 +18,12 @@ applies in the other direction (``hrnet_seg_path``, ``hrnet_ocr_path`` with
 ``_ocr_distri``, ``_object_attention`` and ``_bnact``, ``deeplab_path`` with
 ``resnet_backbone_path``; ``fcnet_path``, ``spatial_ocrnet_path``,
 ``asp_ocrnet_path`` with ``_asp_ocr``, ``base_ocnet_path``,
-``asp_ocnet_path`` and ``isanet_path`` with ``_self_attention``), carried
-here as copies because that module imports flax.  The nets the reference
+``asp_ocnet_path`` and ``isanet_path`` with ``_self_attention``,
+``ce2p_path``), carried here as copies because that module imports flax.
+The oracle nets share ``SpatialOCRNet``'s map (``mapper_for_model``,
+torch_import.py:958-962).  ``CE2PNet``'s map depends on its context:
+``asp_ocr`` in the reference's layout, ``ocr`` and ``psp`` under the JAX
+names (``ce2p_key``).  The nets the reference
 never registers (``pspnet``, ``ccnet``, ``pyramid_ocnet``,
 ``hrnet_w48_isa``) carry the JAX module names: a ``ConvBN`` ``name`` is
 ``name.0``/``name.1``, a plain conv ``name``.  The module keys
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from contrastiveseg_tpu_torch.models.ce2p import CE2PNet
 from contrastiveseg_tpu_torch.models.nets import (
     ASPOCRNet,
     AspOCNet,
@@ -441,6 +447,41 @@ def hrnet_isa_key(path: tuple) -> Optional[str]:
     return None
 
 
+def ce2p_key(context: str):
+    """The map of a ``CE2PNet`` with ``context``: the reference's
+    CE2P_ASPOCR layout (``dsn``, ``edgelayer``, ``asp_ocr_head``,
+    ``decoder``, ``cls``), with ``conv3x3``/``ocr_distri`` (``ocr``) or
+    ``context`` (``psp``) under the JAX names."""
+    if context == "asp_ocr":
+        def head(s):
+            return _sub("asp_ocr_head", asp_ocr_key(s))
+    else:
+        def head(s):
+            return _sub("context", jax_named_key(s))
+
+    def edge(s):
+        if s[0] in ("conv1", "conv2", "conv3"):
+            return _cbr(f"edgelayer.{s[0]}", s[1:])
+        return _plain_conv(f"edgelayer.{s[0]}", s[1:]) if s[0] in ("conv4", "conv5") else None
+
+    def decoder(s):
+        slots = {"conv1": ("conv1.0", "conv1.1.0"), "conv2": ("conv2.0", "conv2.1.0"),
+                 "conv3a": ("conv3.0", "conv3.1.0"), "conv3b": ("conv3.2", "conv3.3.0")}
+        if s[0] in slots:
+            return _convbn(*(f"decoder.{k}" for k in slots[s[0]]), s[1:])
+        return _plain_conv("decoder.conv4", s[1:]) if s[0] == "conv4" else None
+
+    def key(path: tuple) -> Optional[str]:
+        return _resnet_net_key(path, ("dsn.0", "dsn.1.0", "dsn.3"), {
+            "edge": edge, "context": head, "decoder": decoder,
+            "conv3x3": lambda s: _jax_named("conv3x3", s),
+            "ocr_distri": lambda s: _ocr_distri(s, base="ocr_distri"),
+            "final_conv": lambda s: _cbr("cls", s),
+            "final_cls": lambda s: _plain_conv("cls.2", s)})
+
+    return key
+
+
 _KEY_MAPS = ((HRNetSeg, hrnet_seg_key), (HRNetOCRSeg, hrnet_ocr_key), (DeepLabV3, deeplab_key),
              (FcnNet, fcnet_key), (SpatialOCRNet, spatial_ocrnet_key),
              (ASPOCRNet, asp_ocrnet_key), (BaseOCNet, base_ocnet_key),
@@ -449,7 +490,10 @@ _KEY_MAPS = ((HRNetSeg, hrnet_seg_key), (HRNetOCRSeg, hrnet_ocr_key), (DeepLabV3
 
 
 def key_for(model: nn.Module):
-    """The flax-path -> port-key map of ``model``'s class."""
+    """The flax-path -> port-key map of ``model``'s class (the oracle OCR
+    nets are ``SpatialOCRNet``s; a ``CE2PNet``'s map is its context's)."""
+    if isinstance(model, CE2PNet):
+        return ce2p_key(model.context_kind)
     for cls, fn in _KEY_MAPS:
         if isinstance(model, cls):
             return fn

@@ -23,11 +23,14 @@ Which source a file is, from its keys alone:
   ``backbone.``.  The heads keep their init.
 
 The context-head nets load their reference segmentors too (FcnNet,
-SpatialOCRNet, ASPOCRNet, BaseOCNet, AspOCNet, ISANet).  The nets the
-reference never registers (``pspnet``, ``ccnet``, ``pyramid_ocnet``,
-``hrnet_w48_isa``: ``reference_layout`` False) have no reference segmentor
-to load, so a segmentor file is refused for them; an ImageNet backbone
-loads as for any other net.
+SpatialOCRNet, ASPOCRNet, BaseOCNet, AspOCNet, ISANet), and so do the
+oracle OCR nets (``ideal_*``, in SpatialOCRNet's layout) and
+``ce2p_asp_ocrnet`` (CE2P_ASPOCR).  The nets the reference never registers
+(``pspnet``, ``ccnet``, ``pyramid_ocnet``, ``hrnet_w48_isa``) and the two
+CE2P nets it cannot build (``ce2p_ocrnet``, ``ce2p_ideal_ocrnet``; JAX
+``models/ce2p.py:112-118``) have ``reference_layout`` False: no reference
+segmentor of them exists, so a segmentor file is refused for them; an
+ImageNet backbone loads as for any other net.
 
 The load is strict: every tensor of the model that the source covers (the
 backbone for ImageNet files, everything for a segmentor) must be in the
@@ -128,8 +131,9 @@ def load_pretrained(model: nn.Module, path: str) -> Optional[dict[str, torch.Ten
         raise ValueError(
             f"{path} is a segmentor checkpoint, but {type(model).__name__} has no reference "
             "layout to load it in: the reference never registers pspnet, ccnet, pyramid_ocnet "
-            "or hrnet_w48_isa (lib/models/model_manager.py:48-82), so no reference checkpoint "
-            "of them exists; start the net from an ImageNet backbone .pth")
+            "or hrnet_w48_isa (lib/models/model_manager.py:48-82) and cannot build CE2P_OCRNet "
+            "or CE2P_IdealOCRNet, so no reference checkpoint of them exists; start the net "
+            "from an ImageNet backbone .pth")
     target = model.state_dict()
     if (imagenet and any(k.startswith("backbone.resinit.") for k in target)
             and not any(k.startswith("backbone.resinit.") for k in weights)):

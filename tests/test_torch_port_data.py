@@ -268,8 +268,9 @@ def test_npy_cache_is_read_when_fresh(tree):
 def test_build_dataset_refuses_what_is_not_ported(tree):
     cfg, _ = _configs(*_overrides(tree, 0, 0))
     assert len(build_dataset(cfg, "train")) == 6
+    assert type(build_dataset(cfg.updated("data.loader", "lip"))).__name__ == "LipDataset"
     with pytest.raises(NotImplementedError, match="ROADMAP 7"):
-        build_dataset(cfg.updated("data.loader", "lip"))
+        build_dataset(cfg.updated("data.loader", "dt_offset"))
     with pytest.raises(NotImplementedError, match="ROADMAP 7"):
         build_dataset(cfg.updated("data.data_dirs", [str(tree), str(tree)]))
 

@@ -3,8 +3,9 @@
 Fixed random logits, embeddings and labels from a numpy seed, no model:
 ``ohem_cross_entropy``, ``aux_cross_entropy``, every ``PlainSegLoss`` route
 and the self-contrast InfoNCE (``contrastive_loss`` without a queue,
-``pixel_contrast_loss``, ``ContrastCELoss`` without a bank), each loss type
-built by both packages' ``build_loss`` from one config.  The samplers get
+``pixel_contrast_loss``, ``ContrastCELoss`` without a bank, its seg term CE,
+RMI or CE + Lovasz), the RMI and Lovasz loss types, each loss type built by
+both packages' ``build_loss`` from one config.  The samplers get
 the JAX package's own uniform draws, so both sides pick the same anchors.
 The JAX side's value and gradients are compiled as one program.
 
@@ -291,19 +292,76 @@ def test_contrast_ce_loss_without_a_bank(loss_type):
     assert float(metrics["port"]["loss_contrast"].detach()) > 0
 
 
-@pytest.mark.parametrize("loss_type", ["rmi_loss", "fs_rmi_loss", "fs_aux_rmi_loss",
-                                       "fs_ce_lovasz_loss", "segfix_loss"])
+@pytest.mark.parametrize("loss_type", ["segfix_loss", "ms_fs_aux_rmi_loss"])
 def test_build_loss_refuses_the_losses_not_ported(loss_type):
     _, cfg = _config("cityscapes_hrnet_w48", loss_type)
     with pytest.raises(NotImplementedError, match="ROADMAP 8"):
         build_loss(cfg)
 
 
+_RMI_LOVASZ = {  # loss_type -> the extra outputs it reads
+    "rmi_loss": (), "fs_rmi_loss": (), "fs_aux_rmi_loss": ("seg_aux",), "fs_ce_lovasz_loss": (),
+}
+
+
+@pytest.mark.parametrize("loss_type", list(_RMI_LOVASZ))
+def test_rmi_and_lovasz_losses_match_jax(loss_type):
+    """The RMI losses (``_rmi_params`` off their defaults: max pool, lambda
+    way 0) and CE + Lovasz, built by both packages from one config; the seg
+    logits at stride 2 (upsampled by the loss), the aux head too; value and
+    gradients."""
+    jcfg, cfg = _config("pascal_context_hrnet_w48_ocr_rmi", loss_type, **{
+        "network.loss_weights": {"aux_loss": 0.3, "seg_loss": 0.9},
+        "loss.params.loss_weight_lambda": 0.7, "loss.params.lambda_way": 0,
+        "loss.params.loss_weight": 1.5})
+    port, jloss = build_loss(cfg), jbuild_loss(jcfg)
+    if loss_type != "fs_ce_lovasz_loss":
+        assert port.rmi_params == jloss.params
+        assert port.rmi_params["weight_lambda"] == 0.7 and port.use_aux == jloss.use_aux
+    labels = _labels(seed=3)
+    keys = ("seg",) + _RMI_LOVASZ[loss_type]
+    arrays = [_logits((B, H // 2, W // 2, C), seed=14 + i) for i in range(len(keys))]
+    want = _jax_value_and_grads(
+        lambda *xs: jloss(jax.random.key(0), dict(zip(keys, xs)), jnp.asarray(labels))[0],
+        *arrays)
+    got = _torch_value_and_grads(
+        lambda *xs: port(dict(zip(keys, xs)), torch.from_numpy(labels))[0], *arrays)
+    assert got[0] > 0
+    _check(got, want)
+
+
 @pytest.mark.parametrize("key", ["contrast.use_rmi", "contrast.use_lovasz"])
-def test_build_loss_refuses_the_contrast_seg_kinds_not_ported(key):
-    _, cfg = _config("cityscapes_hrnet_w48_contrast", "contrast_ce_loss", **{key: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP 8"):
-        build_loss(cfg)
+def test_contrast_seg_kinds_match_jax(key):
+    """``ContrastCELoss`` whose seg term is RMI (``contrast_auxce_loss``:
+    with the aux CE) or CE + Lovasz (``contrast_ce_loss``), no bank, built by
+    both packages; value and gradients with respect to seg, embed (and
+    seg_aux), and the two terms."""
+    loss_type = "contrast_auxce_loss" if key == "contrast.use_rmi" else "contrast_ce_loss"
+    jcfg, cfg = _config("cityscapes_hrnet_w48_contrast", loss_type,
+                        **{"contrast.loss_weight": 0.5, key: True})
+    port, jloss = build_loss(cfg), jbuild_loss(jcfg)
+    assert port.seg_loss_kind == jloss.seg_loss_kind == key.split("_")[-1]
+    assert port.rmi_params == jloss.rmi_params
+    labels = _labels(seed=8)
+    keys = ("seg", "embed") + (("seg_aux",) if port.use_aux else ())
+    arrays = [_logits((B, H // 2, W // 2, C), seed=1), _embed()] + (
+        [_logits((B, H // 2, W // 2, C), seed=12)] if port.use_aux else [])
+    jkey = jax.random.key(5)
+    scores = _draws(jkey, (H // 2) * (W // 2))
+    metrics = {}
+
+    def tfn(*xs):
+        total, metrics["port"] = port(dict(zip(keys, xs)), torch.from_numpy(labels),
+                                      True, None, scores=scores)
+        return total
+
+    *want, jmetrics = _jax_value_and_grads(
+        lambda *xs: jloss(jkey, dict(zip(keys, xs)), jnp.asarray(labels), True, None),
+        *arrays, has_aux=True)
+    _check(_torch_value_and_grads(tfn, *arrays), want)
+    for k in ("loss_seg", "loss_contrast"):
+        np.testing.assert_allclose(float(metrics["port"][k].detach()), float(jmetrics[k]),
+                                   rtol=RTOL, err_msg=k)
 
 
 def test_mem_losses_share_the_contrast_callables():

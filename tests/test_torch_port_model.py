@@ -197,7 +197,7 @@ def test_build_model_knows_only_the_ported_names():
     assert sum(model.backbone.stage4[0].branches[i][0].conv1.out_channels
                for i in range(4)) == 720
     with pytest.raises(KeyError, match="hrnet_w48_mem"):
-        build_model(cfg.updated("network.model_name", "ce2p_asp_ocrnet"))
+        build_model(cfg.updated("network.model_name", "segfix_hrnet"))
     with pytest.raises(NotImplementedError, match="bf16"):
         build_model(cfg.updated("network.bf16", True))
     # network.pallas_conv is ported: the branch BasicBlocks' 3x3 convs become

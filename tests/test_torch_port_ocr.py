@@ -330,11 +330,14 @@ def _check_full_width(name, w48_shapes):
 def test_pth_loads_strictly_and_refusals(tmp_path, nets):
     """A segmentor ``.pth``, then what ``build_model`` refuses."""
     _check_segmentor_pth(tmp_path, nets)
-    for name, match in (("hrnet_w48_ocr_b_ha", "HANet"), ("hrnet_w18_ocr_b_ha", "HANet"),
-                        ("ideal_spatial_ocrnet", "gt_sim"), ("ideal_spatial_ocrnet_b", "use_bg")):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP 7.*{match}"):
+    for name in ("hrnet_w48_ocr_b_ha", "hrnet_w18_ocr_b_ha"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP 7.*HANet"):
             build_model(get_preset("cityscapes_hrnet_w48_ocr").updated(
                 "network.model_name", name))
+    for name in ("ideal_spatial_ocrnet", "ideal_spatial_ocrnet_b"):  # ported now
+        with torch.device("meta"):
+            assert type(build_model(get_preset(f"cityscapes_{name}"))).__name__ == (
+                "IdealSpatialOCRNet")
     for name in ("hrnet_w48_ocr", "hrnet_w48_ocr_contrast"):
         cfg = get_preset("cityscapes_hrnet_w48_ocr").updated("network.model_name", name)
         with pytest.raises(NotImplementedError, match="pallas_conv"):
