@@ -71,8 +71,8 @@ Phases (any failure raises, so the run exits non-zero):
      ``utils/png.py``) gives ``validate()``'s 19x19 confusion and its mIoU
      to 1e-6; ``ss_test`` with ``network.pallas_conv=true`` launches K2a
      and its logits are within 1e-3 (relative L2) of flag off; one timed
-     ``ss_test`` call per scale and batch shows where cuDNN's FFT
-     convolutions make it tens of times slower an image; the model
+     ``ss_test`` call per scale and batch below cuDNN's FFT picks (batches
+     1-2 at scales 1.0 and 0.75, batch 1 at 1.25); the model
      exported (``tools/export_torch.py``, ``--scope ss``, batch 1,
      1024x2048) and served (``tools/serve_torch.py``) on 127.0.0.1 answers
      4 ``/segment`` requests with the ``ss_test`` labels on >= 99.99% of
@@ -135,9 +135,33 @@ Phases (any failure raises, so the run exits non-zero):
      ``--phase val`` with the flip average and the L/R swap; step times,
      data wait, peak memory, finite losses, 0 launches of K1-K3 by the new
      nets; its lines carry ``[raw phase +N s]``;
- 17. a JSON line of the six kernels, the card line, and the result line.
+ 17. the SegFix phase, from a Cityscapes tree of 16 + 4 frames of
+     1024x2048 under ``build/chip_smoke_segfix/`` whose 16-bit
+     ``instance/`` maps have touching instances of one class: the host
+     seconds of ``compute_dt_targets`` a frame; for ``cityscapes_segfix_hrnet``
+     (HRNet-W48) and ``cityscapes_segfix_hrnet2x`` (HRNet-2x20) each, a
+     seeded random-init net written as a reference SegFix ``.pth`` and
+     loaded strictly (bit for bit) through ``network.pretrained``, then
+     ``--phase val`` at the preset's batch 4 over the 4 val frames (the
+     dt-offset loader, the SegFix evaluator: ``mask_acc``, ``dir_acc_mask``,
+     ``dir_acc_gt``, seconds a val batch, the model's share of it, peak
+     memory) and ``--phase test`` (``test_offset``, batch ``TEST_BATCH``:
+     4 offset ``.npz`` files, seconds an image); ``--phase val`` of
+     ``cityscapes_segfix_hrnet2x_inst`` from the instance maps;
+     ``tools/segfix_torch.py`` refining the val label PNGs with W48's
+     offsets on the card and on the CPU, in both ``--interp`` modes, the
+     card's PNGs byte-identical to the CPU's and some pixels moved; one
+     forward and backward of each net with ``SegFixLoss`` (dict targets)
+     at the preset's batch 16 of 512x512, time and memory; ``--phase
+     train`` of ``cityscapes_segfix_hrnet`` raising the port's
+     ``ValueError`` at its first step (the trainer hands the loss the
+     label map alone, as the JAX trainer does); ``cityscapes_resnest_fcn``
+     (ResNeSt-101) for 3 steps at batch 16 (or 8 where 16 does not fit)
+     and one validation batch; 0 launches of K1-K3; its lines carry
+     ``[segfix phase +N s]``;
+ 18. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-16 print their step times (or seconds an image), peak memory and
+Phases 10-17 print their step times (or seconds an image), peak memory and
 wall time.
 
 The slices read their batches through the port's data pipeline
@@ -186,7 +210,8 @@ PEAK_FLOPS = {"fp32": 495e12 / 3, "fp32_simt": 67e12, "bf16": 989e12}
 # Batch of the test phase's validation and tests.  cuDNN's heuristics pick FFT
 # convolutions, ~20 s a forward, at the preset's batch 4 of 1024x2048 and at
 # batch 2 of ms_test's 1280x2560 scale; at batch 1 at none of the three
-# scales (PERF.md section 5; the phase's sweep reads it again).
+# scales (PERF.md section 5; the phase's sweep reads the batches below those,
+# and phase 17's validation of the SegFix W48 at batch 4 meets the first).
 TEST_BATCH = 1
 SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]", "train.batch_size=2",
          "contrast.warmup_iters=0", "solver.max_iters=3", "solver.display_iter=1"]
@@ -702,7 +727,8 @@ def run_block_bench() -> dict:
 
 
 def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
-                  seed: int = 0, sidecars: bool = True, filters=(0,)) -> None:
+                  seed: int = 0, sidecars: bool = True, filters=(0,),
+                  instances: bool = False) -> None:
     """A Cityscapes-layout tree, {root}/{split}/image|label/*.png, each PNG
     beside its ``.npy_cache/<name>.png.npy`` sidecar (the decoded array, as
     ``tools/cache_dataset.py`` writes it; written after the PNG, so fresh;
@@ -713,7 +739,12 @@ def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
     the synthetic scenes with raw Cityscapes ids; the bottom sixteenth of each
     is raw id 0 (unlabeled), which relabels to -1.  Val frames are named as
     Cityscapes names them (``frankfurt_000000_<i>_leftImg8bit``), so that the
-    evaluator pairs the tester's outputs with them.  PNGs are written by the
+    evaluator pairs the tester's outputs with them.  With ``instances``, each
+    frame also gets ``{split}/instance/<name>.png``, a 16-bit map in the
+    instanceIds convention (a stuff pixel its raw id, an instance pixel its
+    raw id * 1000 + k), where every instance class's region is two
+    instances that touch at the frame's middle column (SegFix's
+    ``data.dt_boundary=instance`` ground truth).  PNGs are written by the
     port's ``utils/png.py``."""
     import numpy as np
 
@@ -743,6 +774,13 @@ def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
             if sidecars:
                 (d / ".npy_cache").mkdir(exist_ok=True)
                 np.save(d / ".npy_cache" / f"{name}.png.npy", array)
+        if instances:
+            right = np.arange(hw[1]) >= hw[1] // 2
+            inst = np.where(has_instances[label], label.astype(np.uint16) * 1000 + right, label)
+            d = root / split / "instance"
+            d.mkdir(exist_ok=True)
+            (d / f"{name}.png").write_bytes(encode_png(inst.astype(np.uint16), level=1,
+                                                       filters=filters))
         if split == "val":
             stem = name.removesuffix("_leftImg8bit")
             inst = np.where(has_instances[label], label.astype(np.uint16) * 1000, label)
@@ -1786,16 +1824,339 @@ def run_raw_phase(device) -> dict:
     return {"headline": headline, "nets": results, "launches": dict(total)}
 
 
+SEGFIX_PRESETS = ("cityscapes_segfix_hrnet", "cityscapes_segfix_hrnet2x")
+SEGFIX_HW = (1024, 2048)  # the phase's frames, Cityscapes' size
+
+
+def segfix_pth(cfg, path: Path) -> dict:
+    """A seeded, randomly initialised offset net of ``cfg`` written as a
+    reference SegFix_HRNet ``.pth`` (``{"state_dict"}``, ``module.``
+    prefix); returns its tensors."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.state import init_weights
+    from contrastiveseg_tpu_torch.models.nets import build_model
+
+    model = build_model(cfg)
+    init_weights(model, torch.Generator().manual_seed(17))
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, path)
+    return sd
+
+
+def loaded_exactly(model, want: dict) -> bool:
+    """Every tensor of ``model`` equal to ``want``'s (CPU tensors)."""
+    import torch
+
+    got = model.state_dict()
+    return got.keys() == want.keys() and all(torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+def run_segfix_phase(device) -> dict:
+    """Phase 17: SegFix and ResNeSt.  For both offset nets, from a reference
+    ``.pth`` of a seeded random-init net loaded strictly: ``--phase val``
+    at the preset's batch 4 over 4 frames of 1024x2048 (the dt-offset
+    loader computing each frame's targets on the host), ``--phase test``
+    (``test_offset``) at batch ``TEST_BATCH``; ``--phase val`` of
+    ``cityscapes_segfix_hrnet2x_inst`` from the 16-bit instance maps;
+    ``tools/segfix_torch.py`` on the card and on the CPU; one forward and
+    backward of each net with ``SegFixLoss`` at the preset's batch 16 of
+    512x512; the train phase's ``ValueError``; 3 steps of
+    ``cityscapes_resnest_fcn`` and one validation batch."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from contrastiveseg_tpu_torch.data.loaders_extra import compute_dt_targets
+    from contrastiveseg_tpu_torch.engine.evaluator import SegFixEvaluator
+    from contrastiveseg_tpu_torch.losses.segfix import SegFixLoss
+    from contrastiveseg_tpu_torch.models.nets import build_model
+    from contrastiveseg_tpu_torch.utils.png import read_png
+    from tools import segfix_torch
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[segfix phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_segfix"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    hw = SEGFIX_HW
+    write_dataset(root, 16, 4, hw=hw, instances=True)
+    say(f"wrote 16 train and 4 val frames of {hw[0]}x{hw[1]} (PNG and .npy_cache) with 16-bit "
+        f"instance maps, touching instances of one class, in {time.perf_counter() - t0:.1f} s")
+    val_dir = root / "val" / "image"
+    total = collections.Counter()
+    res: dict = {"nets": {}}
+
+    from contrastiveseg_tpu_torch.data.datasets import build_dataset
+
+    plain = build_dataset(directory_config(SEGFIX_PRESETS[0], root, root, [
+        "data.loader=default"]), "val")
+    compute_dt_targets(plain[0]["label"][:64, :64])  # imports scipy.ndimage
+    dt_s = []
+    for i in range(len(plain)):
+        label = plain[i]["label"]
+        t0 = time.perf_counter()
+        compute_dt_targets(label)
+        dt_s.append(time.perf_counter() - t0)
+    res["dt_seconds"] = dt_s
+    say(f"compute_dt_targets on the host: {[round(t, 3) for t in dt_s]} s a {hw[0]}x{hw[1]} frame "
+        f"(mean {statistics.mean(dt_s):.3f} s)")
+
+    for preset in SEGFIX_PRESETS:
+        name = preset.removeprefix("cityscapes_")
+        cfg = directory_config(preset, root, root / "ckpt" / name, [
+            f"test.test_dir={val_dir}", f"test.out_dir={root / 'out' / name}",
+            f"test.batch_size={TEST_BATCH}"])
+        got = (cfg.get("val.batch_size"), cfg.get("data.loader"), cfg.get("network.model_name"))
+        if got != (4, "dt_offset", "segfix_hrnet"):
+            raise AssertionError(f"{preset}: val batch, loader, net {got}")
+        pth = root / f"{name}.pth"
+        want = segfix_pth(cfg, pth)
+        vc = cfg.updated("network.pretrained", str(pth))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run(vc, "val", device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        no_launch(read_counts(), f"{preset} --phase val", total)
+        trainer, scores = out["trainer"], out["scores"]
+        model = trainer.state.model
+        if not loaded_exactly(model, want):
+            raise AssertionError(f"{preset}: the .pth did not load bit for bit")
+        ev = trainer.evaluator
+        keys = ("mask_acc", "dir_acc_mask", "dir_acc_gt")
+        if not (isinstance(ev, SegFixEvaluator) and all(0.0 <= scores[k] <= 1.0 for k in keys)
+                and scores["miou"] == scores["dir_acc_gt"]):
+            raise AssertionError(f"{preset} --phase val: {type(ev).__name__}, {scores}")
+        peak_val = torch.cuda.max_memory_allocated(device)
+        images = torch.zeros((4, *hw, 3), device=device)
+        model.eval()
+        ev.predict(images, hw)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.predict(images, hw)
+        torch.cuda.synchronize()
+        model_s = time.perf_counter() - t0
+        model.train()
+        del images
+        n_params = sum(p.numel() for p in model.parameters())
+        r = {"params": n_params, "scores": {k: scores[k] for k in keys},
+             "images_per_sec": scores["images_per_sec"], "val_batch_seconds": 4 / scores[
+                 "images_per_sec"], "val_wall": wall, "model_seconds_batch": model_s,
+             "peak_val": peak_val, "backbone": type(model.backbone).__name__}
+        say(f"{preset} ({r['backbone']}, {n_params / 1e6:.2f} M) from a reference .pth, loaded "
+            f"bit for bit: --phase val at batch 4 (4 frames of {hw[0]}x{hw[1]}): mask_acc "
+            f"{scores['mask_acc']:.6f}, dir_acc_mask {scores['dir_acc_mask']:.6f}, "
+            f"dir_acc_gt {scores['dir_acc_gt']:.6f} (= miou), {scores['images_per_sec']:.3f} "
+            f"images/s, {r['val_batch_seconds']:.3f} s a val batch; the model's forward, "
+            f"resize and argmax on a batch of 4 alone {model_s:.3f} s "
+            f"({100 * model_s / r['val_batch_seconds']:.1f}% of the batch); peak "
+            f"{peak_val / 2**30:.3f} GiB; phase wall {wall:.1f} s")
+        del out, trainer, model, ev
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run(vc, "test", device)
+        torch.cuda.synchronize()
+        no_launch(read_counts(), f"{preset} --phase test", total)
+        timing = out["tester"].timing
+        files = sorted((root / "out" / name / "offset").glob("*.npz"))
+        if timing["images"] != 4 or len(files) != 4:
+            raise AssertionError(f"{preset} --phase test wrote {len(files)} offset files")
+        for f in files:
+            z = np.load(f)
+            if not (z["mask"].shape == z["dir_label"].shape == hw
+                    and z["mask"].dtype == np.uint8 and z["mask"].max() <= 1
+                    and z["dir_label"].max() < 8):
+                raise AssertionError(f"{f.name}: {z['mask'].shape} {z['dir_label'].max()}")
+        r["test"] = {"seconds_image": timing["seconds"] / 4,
+                     "infer_seconds_image": timing["infer_seconds"] / 4,
+                     "peak": torch.cuda.max_memory_allocated(device),
+                     "wall": time.perf_counter() - t0}
+        say(f"{preset} --phase test (test_offset, batch {TEST_BATCH}): "
+            f"{r['test']['seconds_image']:.3f} s an image ({r['test']['infer_seconds_image']:.3f}"
+            f" s in the model, the resize to the frame's size and the copy), peak "
+            f"{r['test']['peak'] / 2**30:.3f} GiB, 4 offset .npz files of {hw[0]}x{hw[1]}")
+        res["nets"][preset] = r
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The instance-boundary ground truth of the _inst presets.
+    cfg = directory_config("cityscapes_segfix_hrnet2x_inst", root, root / "ckpt" / "inst", [
+        f"network.pretrained={root / 'segfix_hrnet2x.pth'}"])
+    ds = build_dataset(cfg, "val")
+    sample = ds[0]
+    plain = compute_dt_targets(sample["label"])
+    n_inst, n_plain = int((sample["mask_label"] == 1).sum()), int((plain["mask_label"] == 1).sum())
+    if not (ds.boundary_source == "instance" and n_inst > n_plain):
+        raise AssertionError(f"_inst: {ds.boundary_source}, {n_inst} vs {n_plain} boundary pixels")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run(cfg, "val", device)
+    torch.cuda.synchronize()
+    no_launch(read_counts(), "_inst --phase val", total)
+    scores = out["scores"]
+    res["inst"] = {"scores": {k: scores[k] for k in ("mask_acc", "dir_acc_mask", "dir_acc_gt")},
+                   "images_per_sec": scores["images_per_sec"], "wall": time.perf_counter() - t0}
+    say(f"cityscapes_segfix_hrnet2x_inst --phase val from the 16-bit instance maps ({n_inst} "
+        f"boundary pixels in frame 0 against {n_plain} from its label): mask_acc "
+        f"{scores['mask_acc']:.6f}, dir_acc_mask {scores['dir_acc_mask']:.6f}, dir_acc_gt "
+        f"{scores['dir_acc_gt']:.6f}, {scores['images_per_sec']:.3f} images/s")
+    del out, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Refinement of the tree's val labels (raw ids) with hrnet48's offsets.
+    offsets = root / "out" / "segfix_hrnet" / "offset"
+    res["refine"] = {}
+    for interp in ("nearest", "bilinear"):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            outs[dev] = root / "refined" / f"{interp}_{dev}"
+            t0 = time.perf_counter()
+            n = segfix_torch.main([
+                "--input_dir", str(root / "val" / "label"), "--offset_dir", str(offsets),
+                "--out_dir", str(outs[dev]), "--dataset", "cityscapes", "--interp", interp,
+                "--device", dev])
+            res["refine"][f"{interp}_{dev}_seconds_image"] = (time.perf_counter() - t0) / n
+        moved = 0
+        for f in sorted(outs["cuda"].glob("*.png")):
+            if f.read_bytes() != (outs["cpu"] / f.name).read_bytes():
+                raise AssertionError(f"segfix_torch --interp {interp}: {f.name} differs "
+                                     "between the card and the CPU")
+            moved += int((read_png(f) != read_png(root / "val" / "label" / f.name)).sum())
+        if not moved:
+            raise AssertionError(f"segfix_torch --interp {interp} moved no pixel")
+        res["refine"][f"{interp}_moved"] = moved
+        say(f"tools/segfix_torch.py --interp {interp} --dataset cityscapes on 4 label PNGs of "
+            f"{hw[0]}x{hw[1]}: the card's PNGs byte-identical to the CPU's; {moved} pixels "
+            "relabelled; "
+            f"{res['refine'][f'{interp}_cuda_seconds_image']:.3f} s an image on the card, "
+            f"{res['refine'][f'{interp}_cpu_seconds_image']:.3f} on the CPU")
+
+    # The loss at the preset's batch 16 of 512x512, with dict targets.
+    rng = np.random.default_rng(0)
+    res["loss"] = {}
+    for preset in SEGFIX_PRESETS:
+        cfg = directory_config(preset, root, root / "ckpt" / "loss", [])
+        b, (cw, ch) = cfg.get("train.batch_size"), cfg.get("train_trans.random_crop.crop_size")
+        if b != 16:
+            raise AssertionError(f"{preset}: batch {b}, not the preset's 16")
+        model = build_model(cfg).to(device).train()
+        loss_fn = SegFixLoss()
+        images = torch.randn((b, ch, cw, 3), device=device)
+        mask = torch.from_numpy(rng.integers(-1, 2, (b, ch, cw))).to(device)
+        targets = {"mask_label": mask, "dir_label": torch.where(
+            mask == 1, torch.from_numpy(rng.integers(0, 8, (b, ch, cw))).to(device), -1)}
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            loss, metrics = loss_fn(model(images), targets)
+            loss.backward()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            model.zero_grad(set_to_none=True)
+        no_launch(read_counts(), f"{preset} loss", total)
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{preset}: SegFixLoss {metrics}")
+        peak = torch.cuda.max_memory_allocated(device)
+        res["loss"][preset] = {"seconds": times, "peak": peak,
+                               "loss": {k: float(v.detach()) for k, v in metrics.items()}}
+        say(f"{preset}: forward + SegFixLoss + backward at batch 16 of {ch}x{cw} (dict "
+            "targets): "
+            f"{times[0] * 1e3:.1f} ms cold, {times[1] * 1e3:.1f} ms warm, peak "
+            f"{peak / 2**30:.3f} GiB, loss_mask {res['loss'][preset]['loss']['loss_mask']:.4f} "
+            f"loss_direction {res['loss'][preset]['loss']['loss_direction']:.4f}")
+        del model, images, targets, loss, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The train phase fails as the JAX trainer does, with the port's ValueError.
+    cfg = directory_config("cityscapes_segfix_hrnet", root, root / "ckpt" / "train", [
+        "train.batch_size=2", "solver.max_iters=1"])
+    t0 = time.perf_counter()
+    try:
+        run(cfg, "train", device)
+        raise AssertionError("cityscapes_segfix_hrnet trained")
+    except ValueError as err:
+        if "label map alone" not in str(err):
+            raise
+        say(f"--phase train of cityscapes_segfix_hrnet (train.batch_size=2 for the preset's 16: "
+            f"each frame's targets take the host {statistics.mean(dt_s):.1f} s) raised the "
+            f"port's ValueError at its first step after {time.perf_counter() - t0:.1f} s: {err}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ResNeSt-101 FCN from the tree.
+    cfg = directory_config("cityscapes_resnest_fcn", root, root / "ckpt" / "resnest",
+                           ["solver.max_iters=3"])
+    if (cfg.get("network.backbone"), cfg.get("train.batch_size")) != (
+            "deepbase_resnest101_dilated8", 16):
+        raise AssertionError("cityscapes_resnest_fcn: not ResNeSt-101 at batch 16")
+    fit = train_fitting(cfg, device, "cityscapes_resnest_fcn", say)
+    no_launch(fit["launches"], "cityscapes_resnest_fcn", total)
+    trainer, history = fit["trainer"], fit["history"]
+    if not all(r["loss_seg"] > 0 for r in history):
+        raise AssertionError(f"cityscapes_resnest_fcn: {history}")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    scores = trainer.validate()
+    no_launch(read_counts(), "cityscapes_resnest_fcn validation", total)
+    if not 0.0 <= scores["miou"] <= 1.0:
+        raise AssertionError(f"cityscapes_resnest_fcn validation: {scores}")
+    model = trainer.state.model
+    res["resnest"] = {"batch": fit["cfg"].get("train.batch_size"), "failure": fit["failure"],
+                      "history": history, "peak": fit["peak"],
+                      "params": sum(p.numel() for p in model.parameters()),
+                      "val": {"miou": scores["miou"], "images_per_sec": scores["images_per_sec"],
+                              "peak": torch.cuda.max_memory_allocated(device)}}
+    steps = history[1:]
+    say(f"cityscapes_resnest_fcn (FcnNet on ResNeSt-101, {res['resnest']['params'] / 1e6:.2f} M) "
+        f"at batch {res['resnest']['batch']} of "
+        f"{fit['cfg'].get('train_trans.random_crop.crop_size')} crops: steps 2-3 "
+        f"{[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
+        f"{[round(r['data_seconds'] * 1e3, 1) for r in steps]} ms, peak "
+        f"{fit['peak'] / 2**30:.3f} GiB"
+        + (f" (at its batch 16: {fit['failure']})" if fit["failure"] else "")
+        + f"; validation (4 frames of {hw[0]}x{hw[1]}, batch 4): mIoU {scores['miou']:.6f}, "
+        f"{scores['images_per_sec']:.3f} images/s, peak "
+        f"{res['resnest']['val']['peak'] / 2**30:.3f} GiB; 0 launches of K1-K3")
+    del trainer, model, fit
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    res["launches"] = dict(total)
+    return res
+
+
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
     """Seconds an image of one ``ss_test`` call for each (scale, batch), on
     the host clock around a device sync.  Where cuDNN's heuristics pick FFT
     convolutions, a call is tens of times slower an image than at batch 1
     (``tools/profile_torch_step.py --eval --scale`` shows their kernels; the
-    profiler takes minutes to parse one such call, so not here)."""
+    profiler takes minutes to parse one such call, so not here): at batch 4
+    of 1.0 and batch 2 of 1.25 (5.2 and 9.1 s an image, PERF.md section 5),
+    which the sweep no longer runs, to keep the script inside its time
+    limit."""
     import torch
 
     rows = []
-    for scale, batches in ((1.0, (1, 2, 4)), (0.75, (1, 2)), (1.25, (1, 2))):
+    for scale, batches in ((1.0, (1, 2)), (0.75, (1, 2)), (1.25, (1,))):
         base = None
         for b in batches:
             torch.cuda.synchronize()
@@ -1851,7 +2212,7 @@ def run_test_phase(device, data_dir: Path, checkpoint: str) -> dict:
                                f"test.test_dir={data_dir / 'val' / 'image'}",
                                "test.crop_size=[1024,512]"])
     say(f"val.batch_size and test.batch_size {TEST_BATCH} (at the preset's 4, and at 2 for "
-        "ms_test's 1.25 scale, cuDNN picks FFT convolutions; the sweep below reads it again)")
+        "ms_test's 1.25 scale, cuDNN picks FFT convolutions, PERF.md section 5)")
 
     def measured(c, phase):
         torch.cuda.synchronize()
@@ -1943,7 +2304,7 @@ def run_test_phase(device, data_dir: Path, checkpoint: str) -> dict:
     del on
     torch.cuda.empty_cache()
 
-    full = torch.from_numpy(next(build_pipeline(cfg.updated("test.batch_size", 4), "test")
+    full = torch.from_numpy(next(build_pipeline(cfg.updated("test.batch_size", 2), "test")
                                  .epoch_iter(0))["image"]).to(device)
     sweep = cudnn_sweep(keep["tester"], full, say)
     hw = tuple(full.shape[1:3])
@@ -2073,6 +2434,9 @@ def main() -> None:
     t0 = time.perf_counter()
     rp = run_raw_phase(device)
     print(f"raw phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp = run_segfix_phase(device)
+    print(f"segfix phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
@@ -2108,6 +2472,17 @@ def main() -> None:
               f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
               f"{r['peak'] / 2**30:.3f} GiB" for n, r in rp["nets"].items() if "history" in r)
           + " (same call)")
+
+    print("segfix phase: " + "; ".join(
+        f"{n}: val {r['val_batch_seconds']:.3f} s a batch of 4 (model "
+        f"{r['model_seconds_batch']:.3f} s), test_offset {r['test']['seconds_image']:.3f} s an "
+        f"image, loss step at batch 16 {sp['loss'][n]['seconds'][1] * 1e3:.1f} ms, "
+        f"{sp['loss'][n]['peak'] / 2**30:.3f} GiB" for n, r in sp["nets"].items())
+        + f"; dt targets {statistics.mean(sp['dt_seconds']):.3f} s a frame on the host; "
+        f"cityscapes_resnest_fcn at batch {sp['resnest']['batch']}: steps 2-3 "
+        f"{[round(r['seconds'] * 1e3, 1) for r in sp['resnest']['history'][1:]]} ms, data wait "
+        f"{[round(r['data_seconds'] * 1e3, 1) for r in sp['resnest']['history'][1:]]} ms, peak "
+        f"{sp['resnest']['peak'] / 2**30:.3f} GiB (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -2158,10 +2533,11 @@ def main() -> None:
         "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
         "max_abs_err_fp32": k3["errs"]["fp32"],
     })
-    for row in rows:  # summed over every run of phases 14-16; 14 and 15 fail on one
+    for row in rows:  # summed over every run of phases 14-17; 14, 15, 17 fail on one
         row["launches_models_phase"] = mp["launches"][row["name"]]
         row["launches_context_phase"] = cp["launches"][row["name"]]
         row["launches_raw_phase"] = rp["launches"].get(row["name"], 0)
+        row["launches_segfix_phase"] = sp["launches"].get(row["name"], 0)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

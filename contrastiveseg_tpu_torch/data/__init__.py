@@ -1,1 +1,2 @@
-"""Data of the port: datasets, transforms, collate and the host pipeline."""
+"""Data of the port: datasets (with SegFix's offset targets and the
+multi-dataset sampler), transforms, collate and the host pipeline."""

@@ -8,9 +8,9 @@ remap to train ids (default_loader.py:94-106) and ``reduce_zero_label``
 sidecar is decoded here: a PNG through the port's own reader
 (``utils/png.py``, native unfilter, no PIL), any other format (JPEG, BMP)
 through PIL where PIL is importable.  ``LipDataset`` (``data.loader=lip``,
-JAX ``data/loaders_extra.py:30-50``) adds the CE2P edge target.
-``data.loader=dt_offset`` and ``data.data_dirs`` are not ported yet
-(ROADMAP 7 and 9, the SegFix slice).
+JAX ``data/loaders_extra.py:30-50``) adds the CE2P edge target;
+``data.loader=dt_offset`` and ``data.data_dirs`` (train split only) build
+``data/loaders_extra.DTOffsetDataset`` and ``MultiDataset``.
 """
 
 from __future__ import annotations
@@ -327,25 +327,19 @@ class SyntheticSegDataset:
 
 def check_loader(cfg) -> None:
     """Raise NotImplementedError for the loaders that are not ported yet."""
-    if cfg.get("data.data_dirs", default=None):
-        raise NotImplementedError(
-            "data.data_dirs (multi-dataset training) is not ported yet: ROADMAP 7.4 and 9 "
-            "(the SegFix slice)")
     loader = cfg.get("data.loader", default="default")
-    if loader == "dt_offset":
+    if loader not in ("default", "lip", "dt_offset"):
         raise NotImplementedError(
-            "data.loader='dt_offset' is not ported yet: ROADMAP 7.4 and 9 (the SegFix slice)")
-    if loader not in ("default", "lip"):
-        raise NotImplementedError(
-            f"data.loader={loader!r} is not ported yet: ROADMAP 7 (the port has 'default' "
-            "and 'lip')")
+            f"data.loader={loader!r} is not ported yet: ROADMAP 7 (the port has 'default', "
+            "'lip' and 'dt_offset')")
 
 
 def build_dataset(cfg, split: str = "train"):
     """DataLoader facade dataset selection (lib/datasets/data_loader.py:97-133):
-    the synthetic scenes, the directory layout or, with ``data.loader=lip``,
-    the LipLoader equivalent; the DTOffsetLoader equivalent and
-    multi-dataset training are refused."""
+    the synthetic scenes; for the train split with ``data.data_dirs``, a
+    ``MultiDataset`` of one dataset per root; the directory layout, or with
+    ``data.loader`` the LipLoader or DTOffsetLoader equivalent.  As in the
+    JAX package, the offset dataset takes none of the extra-set flags."""
     if cfg.get("data.synthetic", default=False):
         h, w = cfg.get("data.synthetic_size", default=[512, 1024])
         return SyntheticSegDataset(
@@ -354,6 +348,16 @@ def build_dataset(cfg, split: str = "train"):
             length=cfg.get("data.synthetic_length", default=64),
         )
     check_loader(cfg)
+    data_dirs = cfg.get("data.data_dirs", default=None)
+    if data_dirs and split == "train":
+        # Joint multi-dataset training (run_hx_20_d_2_cityscapes_ade20k.sh):
+        # each root gets the same loader and transforms; the pipeline picks
+        # up MultiDataset.balanced_indices.
+        from contrastiveseg_tpu_torch.data.loaders_extra import MultiDataset
+
+        return MultiDataset([
+            build_dataset(cfg.merged({"data": {"data_dirs": None, "data_dir": d}}), split)
+            for d in data_dirs])
     if split == "test":
         test_dir = cfg.get("test.test_dir", default=None)
         if test_dir:
@@ -387,8 +391,22 @@ def build_dataset(cfg, split: str = "train"):
         only_mapillary=cfg.get("data.only_mapillary", default=False),
         dataset_name=cfg.get("dataset", default=""),
     )
-    if cfg.get("data.loader", default="default") == "lip":
+    loader = cfg.get("data.loader", default="default")
+    if loader == "lip":
         # The reference LipLoader supports the same extra-set merging
         # (include_val/include_atr/include_cihp, lip_loader.py:135-188).
         return LipDataset(**kwargs, **extra_sets)
+    if loader == "dt_offset":
+        from contrastiveseg_tpu_torch.data.loaders_extra import DTOffsetDataset
+        from contrastiveseg_tpu_torch.utils.offset_helper import DTOffsetConfig
+
+        return DTOffsetDataset(
+            dt_config=DTOffsetConfig(
+                num_classes=cfg.get("data.dt_num_classes", default=8),
+                max_distance=cfg.get("data.dt_max_distance", default=5.0),
+                c4_align_axis=cfg.get("data.c4_align_axis", default=False),
+            ),
+            boundary_source=cfg.get("data.dt_boundary", default="label"),
+            **kwargs,
+        )
     return DirectorySegDataset(**kwargs, **extra_sets)

@@ -120,10 +120,14 @@ class DataPipeline:
         return -(-n // self.batch_size)
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            # Same permutation on every rank; each rank takes its slice.
-            np.random.default_rng(self.seed + epoch).shuffle(idx)
+        if self.shuffle and hasattr(self.dataset, "balanced_indices"):
+            # Multi-dataset balanced sampler (multi_dataset_loader.py:124).
+            idx = self.dataset.balanced_indices(epoch, self.seed)
+        else:
+            idx = np.arange(len(self.dataset))
+            if self.shuffle:
+                # Same permutation on every rank; each rank takes its slice.
+                np.random.default_rng(self.seed + epoch).shuffle(idx)
         if self.num_shards == 1:
             return idx
         # Per-batch CONTIGUOUS rank slices: global batch b is

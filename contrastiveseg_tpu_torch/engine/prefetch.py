@@ -9,8 +9,9 @@ pinning nor the pipeline's queue waits run on the step's thread.  Up to
 ``torch.cuda.Stream`` whose copy ends in an event; the consuming stream
 waits on that event, and every tensor is marked with ``record_stream`` for
 the consuming stream, so that its memory is not reused while the step still
-reads it.  Labels arrive as int32 and are widened to int64 on the device,
-in the same copy.  ``depth`` 0 copies each batch on the consuming stream
+reads it.  Labels (``label``, or the ``keys`` asked for, such as SegFix's
+``mask_label`` and ``dir_label``) arrive as int32 and are widened to int64
+on the device, in the same copy.  ``depth`` 0 copies each batch on the consuming stream
 when it is asked for.  On the CPU the tensors are the numpy arrays' memory.
 A ``diverse_size`` batch (``data/collate.py``: lists of images, each at its
 own padded size) becomes one batch of one image each, the per-image forward
@@ -30,20 +31,21 @@ from contrastiveseg_tpu_torch.data.pipeline import in_background
 KEYS = ("image", "label")
 
 
-def _host_tensors(batch: dict, pin: bool) -> dict:
-    out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])) for k in KEYS}
+def _host_tensors(batch: dict, pin: bool, keys=KEYS) -> dict:
+    out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])) for k in keys}
     return {k: v.pin_memory() for k, v in out.items()} if pin else out
 
 
 def _copy(host: dict, device: torch.device) -> dict:
-    return {"image": host["image"].to(device, non_blocking=True),
-            "label": host["label"].to(device, non_blocking=True).long()}
+    return {k: v.to(device, non_blocking=True) if k == "image"
+            else v.to(device, non_blocking=True).long() for k, v in host.items()}
 
 
 def device_batches(batches: Iterable[dict], device: torch.device | str,
-                   depth: int = 1) -> Iterator[dict]:
-    """{"image": float32 NHWC, "label": int64} batches on ``device`` from
-    numpy {"image", "label"} ``batches``, ``depth`` of them copied ahead."""
+                   depth: int = 1, keys=KEYS) -> Iterator[dict]:
+    """{"image": float32 NHWC, "label": int64} batches (or those of
+    ``keys``, every one but ``image`` widened to int64) on ``device`` from
+    the numpy ``batches``, ``depth`` of them copied ahead."""
     device = torch.device(device)
     cuda = device.type == "cuda"
 
@@ -52,11 +54,11 @@ def device_batches(batches: Iterable[dict], device: torch.device | str,
         try:
             for batch in it:
                 if isinstance(batch["image"], list):  # diverse_size
-                    for image, label in zip(batch["image"], batch["label"]):
-                        yield _host_tensors({"image": image[None], "label": label[None]},
-                                            pin=cuda)
+                    for arrays in zip(*(batch[k] for k in keys)):
+                        yield _host_tensors({k: a[None] for k, a in zip(keys, arrays)},
+                                            pin=cuda, keys=keys)
                 else:
-                    yield _host_tensors(batch, pin=cuda)
+                    yield _host_tensors(batch, pin=cuda, keys=keys)
         finally:
             close = getattr(it, "close", None)
             if close is not None:

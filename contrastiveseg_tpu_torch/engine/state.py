@@ -44,13 +44,14 @@ def device_generator(seed: int, device: torch.device) -> torch.Generator:
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init: conv kernels lecun-normal (flax's default, std
-    1/sqrt(fan_in)), or 0 where the conv is marked ``zero_init`` (BaseOC's
-    ``W``, ``models/layers.conv``); conv biases 0, BN scale 1 / bias 0 /
-    stats 0, 1.  Other parameters (CCNet's ``gamma``) keep their own init."""
+    """Seeded init: conv and linear kernels lecun-normal (flax's default,
+    std 1/sqrt(fan_in), a grouped conv's fan-in that of one group), or 0
+    where the conv is marked ``zero_init`` (BaseOC's ``W``,
+    ``models/layers.conv``); biases 0, BN scale 1 / bias 0 / stats 0, 1.
+    Other parameters (CCNet's ``gamma``) keep their own init."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
             w = torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
             m.weight.copy_(0 * w if getattr(m, "zero_init", False) else w)
             if m.bias is not None:

@@ -16,8 +16,14 @@ through ``ops/resize.resize_bilinear_align_corners``, and every mode returns
 logits at the input's resolution.  PNGs go through ``utils/png.py``, never
 PIL.
 
-Not ported: ``crf_ss_test`` (needs ``ops/crf.py``, ROADMAP 8) and the SegFix
-``test_offset`` (needs the SegFix nets, ROADMAP 7); both are refused.
+``test_offset`` (JAX :227-264; the reference's tester_offset.py) runs a
+SegFix offset net instead and writes ``offset/{name}.npz`` with its
+boundary ``mask`` and ``dir_label`` (uint8, each the argmax of its logits
+resized to the image's original size), which ``tools/segfix_torch.py``
+applies to another net's label PNGs; ``tools/train_torch.py --phase test``
+picks it for a ``segfix*`` net, as ``tools/train.py`` does.
+
+Not ported: ``crf_ss_test`` (needs ``ops/crf.py``, ROADMAP 8); refused.
 """
 
 from __future__ import annotations
@@ -42,9 +48,6 @@ MODES = ("ss_test", "ms_test", "sscrop_test", "mscrop_test", "ms_test_depth")
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for the test paths the port does not have."""
-    if cfg.get("network.model_name", default="").startswith("segfix"):
-        raise NotImplementedError(
-            "the SegFix test_offset phase is not ported yet: ROADMAP 7 (the SegFix nets)")
     mode = cfg.get("test.mode", default="ss_test")
     if mode == "crf_ss_test":
         raise NotImplementedError(
@@ -218,6 +221,48 @@ class Tester:
                 out[pred == train_id] = raw_id
             pred = out
         return pred
+
+    @torch.no_grad()
+    def test_offset(self, batches: Optional[Iterable[dict]] = None,
+                    out_dir: Optional[str] = None) -> int:
+        """Write ``{out_dir}/offset/{name}.npz`` (``mask`` and ``dir_label``,
+        uint8 [H, W] at the original size) for every image of ``batches``
+        (default: the ``test`` split's pipeline); returns the number of
+        images.  ``self.timing`` as in ``test``."""
+        from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+
+        out_dir = out_dir or self.cfg.get("test.out_dir", default="./out")
+        offset_dir = os.path.join(out_dir, "offset")
+        os.makedirs(offset_dir, exist_ok=True)
+        if batches is None:
+            batches = build_pipeline(self.cfg, "test").epoch_iter(0)
+        was_training = self.model.training
+        self.model.eval()
+        n = 0
+        t_infer = 0.0
+        t0 = time.perf_counter()
+        try:
+            for batch in batches:
+                ti = time.perf_counter()
+                out = self.model(torch.as_tensor(batch["image"]).to(self.device))
+                labels = []
+                for i, meta in enumerate(batch["meta"]):
+                    ow, oh = meta["ori_size"]
+                    labels.append([resize_bilinear_align_corners(out[k][i:i + 1], (oh, ow))[0]
+                                   .argmax(-1).to(torch.uint8).cpu().numpy()
+                                   for k in ("mask", "dir")])
+                t_infer += time.perf_counter() - ti
+                for meta, (mask, dir_label) in zip(batch["meta"], labels):
+                    name = meta.get("name", f"img_{n:06d}")
+                    np.savez(os.path.join(offset_dir, f"{name}.npz"), mask=mask,
+                             dir_label=dir_label)
+                    n += 1
+        finally:
+            self.model.train(was_training)
+        self.timing = {"images": n, "seconds": time.perf_counter() - t0,
+                       "infer_seconds": t_infer}
+        log.info("wrote %d offset predictions to %s", n, offset_dir)
+        return n
 
     def test(self, batches: Optional[Iterable[dict]] = None,
              out_dir: Optional[str] = None, save_prob: bool = False) -> int:

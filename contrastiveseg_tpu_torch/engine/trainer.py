@@ -22,10 +22,14 @@ end and on a stop.  ``train.preempt_signals`` (SIGTERM and SIGINT by
 default) ask for a stop: ``latest`` is saved at the next step boundary and
 ``train`` returns.
 
+The train step hands the loss the label map alone, as the JAX trainer does
+(``engine/trainer.py:232``): SegFix's loss needs its offset targets, so a
+SegFix preset raises ``losses/segfix.py``'s ``ValueError`` at its first
+step, where the JAX step fails (ROADMAP §3); its val and test phases run.
+
 Not ported yet, and refused with ``NotImplementedError`` when a config needs
-them: the LIP and offset loaders and multi-dataset training (ROADMAP §1
-item 7), multi-GPU (item 4), SWA, gradient accumulation, the momentum
-encoder and freeze-BN (item 5).
+them: multi-GPU (ROADMAP §1 item 4), SWA, gradient accumulation, the
+momentum encoder and freeze-BN (item 5).
 """
 
 from __future__ import annotations

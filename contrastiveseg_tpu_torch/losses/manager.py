@@ -5,9 +5,9 @@ lib/loss/loss_manager.py:27-42), with the JAX builders' config reads: the
 CE and OHEM losses, the contrast losses (their seg term CE, RMI with
 ``contrast.use_rmi`` or CE + Lovasz with ``contrast.use_lovasz``), the RMI
 losses (``rmi_loss``, ``fs_rmi_loss``, ``fs_aux_rmi_loss``; :94-183) and
-``fs_ce_lovasz_loss`` (:186-207).  MscaleOCR's ``ms_fs_aux_rmi_loss``
-(ROADMAP 7.5, its net is not ported) and ``segfix_loss`` (ROADMAP 8 and 9,
-the SegFix slice) are refused by name.
+``fs_ce_lovasz_loss`` (:186-207) and ``segfix_loss`` (:252-259,
+``losses/segfix.py``).  MscaleOCR's ``ms_fs_aux_rmi_loss`` (ROADMAP 7.5,
+its net is not ported) is refused by name.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from contrastiveseg_tpu_torch.losses.ce import cross_entropy
 from contrastiveseg_tpu_torch.losses.contrast import ContrastCELoss, PlainSegLoss
 from contrastiveseg_tpu_torch.losses.lovasz import ce_lovasz_loss
 from contrastiveseg_tpu_torch.losses.rmi import rmi_loss
+from contrastiveseg_tpu_torch.losses.segfix import SegFixLoss
 from contrastiveseg_tpu_torch.ops.contrast import ContrastSpec
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
@@ -149,11 +150,15 @@ LOSSES = {
     "fs_rmi_loss": lambda cfg: _rmi(cfg, use_aux=False),
     "fs_aux_rmi_loss": lambda cfg: _rmi(cfg, use_aux=True),
     "fs_ce_lovasz_loss": lambda cfg: LovaszSegLoss(**_common(cfg)),
+    "segfix_loss": lambda cfg: SegFixLoss(
+        num_directions=cfg.get("data.dt_num_classes", default=8),
+        mask_threshold=cfg.get("loss.params.mask_threshold", default=0.5),
+        mask_weight=cfg.get("loss.params.mask_weight", default=1.0),
+        direction_weight=cfg.get("loss.params.direction_weight", default=1.0)),
 }
 
 NOT_PORTED = {
     "ms_fs_aux_rmi_loss": "ROADMAP 8 (MscaleOCR's loss; its ms_ocr net, ROADMAP 7.5, is not ported)",
-    "segfix_loss": "ROADMAP 8 and 9 (the SegFix slice)",
 }
 
 

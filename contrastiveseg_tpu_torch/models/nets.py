@@ -10,7 +10,8 @@ the JAX package; inside, the models run NCHW and permute once, here.
   ``seg``.  ``hrnet_w*_mem`` is the same module: the memory bank lives in
   the train state.  The plain nets (``hrnet_w{18,32,48,64}``) have no
   projection head and return ``{"seg": logits upsampled to the input
-  size}``.
+  size}``.  ``hrnet2x20`` is the plain net on ``HRNetNext`` (:80-84, :324),
+  its five branches fused at stride 2.
 * ``HRNetOCRSeg`` (:118-187; reference HRNet_W48_OCR[_B][_CONTRAST]):
   ``hrnet_w*_ocr``, ``_ocr_contrast`` and ``_ocr_b``, with an aux head
   (``seg_aux``).
@@ -40,6 +41,14 @@ the JAX package; inside, the models run NCHW and permute once, here.
   in the JAX trainer, which never passes ``gt_labels``.
 * ``models/ce2p.CE2PNet`` (``ce2p_asp_ocrnet``, ``ce2p_ocrnet``,
   ``ce2p_ideal_ocrnet``; :855-875), the LIP human-parsing nets.
+* ``SegFixHRNet`` (``segfix_hrnet``, :551-601; reference SegFix_HRNet,
+  nets/segfix.py:25-89), the SegFix offset net: HRNet (``network.backbone``
+  ``hrnet{18,32,48,64}``) or ``HRNetNext`` (``hrnet2x20``; any other name
+  falls back to ``hrnet48``, as in JAX), its branches concatenated at the
+  finest one's stride, and twin heads ``mask_head`` and ``dir_head`` (1x1
+  conv, BNReLU, 1x1 conv without bias) giving ``{"mask": 2 logits,
+  "dir": data.dt_num_classes logits}`` at that stride.  Like the JAX net it
+  takes no ``pallas_conv``.
 
 With a projection head, ``seg`` and ``seg_aux`` stay at the network's
 stride (4 for HRNet, 8 for DeepLab) and the loss upsamples them; without,
@@ -60,8 +69,14 @@ from contrastiveseg_tpu_torch.models.attention import (
     PSPModule,
     PyramidOCModule,
 )
-from contrastiveseg_tpu_torch.models.heads import ASPP, ClsHead, ProjectionHead, conv_bn_relu
-from contrastiveseg_tpu_torch.models.hrnet import HRNET_SPECS, HRNet
+from contrastiveseg_tpu_torch.models.heads import (
+    ASPP,
+    ClsHead,
+    ProjectionHead,
+    bn_relu,
+    conv_bn_relu,
+)
+from contrastiveseg_tpu_torch.models.hrnet import HRNET_SPECS, HRNEXT_SPECS, HRNet, HRNetNext
 from contrastiveseg_tpu_torch.models.layers import ConvBN, TorchBatchNorm, conv
 from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR, SpatialOCRASP
 from contrastiveseg_tpu_torch.models.resnet import ResNet, backbone_spec
@@ -84,7 +99,8 @@ def _outputs(out: dict[str, torch.Tensor], proj_head: nn.Module | None,
 
 
 def _fuse(feats: list[torch.Tensor]) -> torch.Tensor:
-    """HRNet's four branches concatenated at stride 4 (align-corners upsample)."""
+    """HRNet's branches concatenated at the finest one's stride (4, or 2 for
+    ``HRNetNext``), the others upsampled (align corners)."""
     h, w = feats[0].shape[2], feats[0].shape[3]
     return torch.cat([feats[0]] + [resize_bilinear_align_corners_nchw(f, (h, w))
                                    for f in feats[1:]], dim=1)
@@ -98,9 +114,8 @@ class HRNetSeg(nn.Module):
                  proj_dim: int = 256, head_dropout: float = 0.10,
                  pallas_conv: bool = False, with_proj: bool = True):
         super().__init__()
-        spec = HRNET_SPECS[arch]
-        width = sum(spec.out_channels)  # 720 for hrnet48
-        self.backbone = HRNet(spec, pallas_conv=pallas_conv)
+        self.backbone = _hrnet_backbone(arch, pallas_conv)
+        width = sum(self.backbone.out_channels)  # 720 for hrnet48
         self.cls_head = ClsHead(width, num_classes, width, head_dropout)
         self.proj_head = ProjectionHead(width, proj_dim) if with_proj else None
 
@@ -109,6 +124,33 @@ class HRNetSeg(nn.Module):
         ``seg`` at the input size without the projection head."""
         cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
         return _outputs({"seg": self.cls_head(cat)}, self.proj_head, cat, x.shape[1:3])
+
+
+def _hrnet_backbone(arch: str, pallas_conv: bool = False) -> nn.Module:
+    """HRNet for an ``HRNET_SPECS`` arch, else the ``HRNetNext`` of ``arch``
+    (as the JAX ``HRNetSeg`` and ``SegFixHRNet`` pick)."""
+    if arch in HRNET_SPECS:
+        return HRNet(HRNET_SPECS[arch], pallas_conv=pallas_conv)
+    return HRNetNext(arch)
+
+
+class SegFixHRNet(nn.Module):
+    """SegFix offset net: backbone, branch concat, and the ``mask`` (2) and
+    ``dir`` (``num_directions``) heads, each 1x1 conv -> BNReLU -> 1x1 conv,
+    NHWC logits at the concat's stride."""
+
+    def __init__(self, num_directions: int = 8, arch: str = "hrnet48"):
+        super().__init__()
+        self.backbone = _hrnet_backbone(arch)
+        width = sum(self.backbone.out_channels)
+        for name, out in (("mask", 2), ("dir", num_directions)):
+            setattr(self, f"{name}_head", nn.Sequential(
+                conv(width, 256, 1), bn_relu(256), conv(256, out, 1)))
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+        return {"mask": self.mask_head(cat).permute(0, 2, 3, 1),
+                "dir": self.dir_head(cat).permute(0, 2, 3, 1)}
 
 
 class HRNetOCRSeg(nn.Module):
@@ -470,6 +512,9 @@ for _w in (18, 32, 48, 64):
     # OCR "B": the cheaper 256-channel head (nets/hrnet.py:249-299).
     MODELS[f"hrnet_w{_w}_ocr_b"] = _hrnet_ocr(f"hrnet{_w}", mid_channels=256,
                                               key_channels=128, aux_channels=256)
+# HighResolutionNext backbone (hrnet_backbone.py:791-798); K2 runs in HRNet's
+# BasicBlocks only, so not in _HRNET_SEG.
+MODELS["hrnet2x20"] = _hrnet("hrnet2x20", with_proj=False)
 MODELS["deeplab_v3"] = _deeplab(with_proj=False)
 MODELS["deeplab_v3_contrast"] = _deeplab(with_proj=True)
 
@@ -496,7 +541,16 @@ def _hrnet_isa(cfg) -> HRNetISASeg:
                        backbone if backbone in HRNET_SPECS else "hrnet48")
 
 
+def _segfix_hrnet(cfg) -> SegFixHRNet:
+    # data.dt_num_classes; an unknown backbone falls back to hrnet48 (JAX nets.py:590-601).
+    backbone = cfg.get("network.backbone", default="hrnet48")
+    if backbone not in HRNET_SPECS and backbone not in HRNEXT_SPECS:
+        backbone = "hrnet48"
+    return SegFixHRNet(cfg.get("data.dt_num_classes", default=8), backbone)
+
+
 MODELS.update({
+    "segfix_hrnet": _segfix_hrnet,
     "fcnet": _resnet_net(FcnNet),
     "fcnet_wo_dsn": _resnet_net(FcnNet, with_dsn=False),
     "spatial_ocrnet": _resnet_net(SpatialOCRNet),

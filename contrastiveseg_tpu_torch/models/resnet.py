@@ -17,9 +17,19 @@ The max-pool keeps the JAX package's floor sizes (``resnet.py:16-19``):
 
 Module names are the reference's torch keys: ``resinit.conv{1,2,3}`` /
 ``resinit.bn{1,2,3}`` (the 7x7 stem ``resinit.conv1``/``resinit.bn1``) and
-``layer{i}.{k}`` (``utils/torch_import.resnet_backbone_path``).  The variant
-families of the zoo (``groups``, ``width_mult``, ``dcn_layer4``, ``radix``)
-and ``WiderResNetA2`` are not ported; building one raises.
+``layer{i}.{k}`` (``utils/torch_import.resnet_backbone_path``).
+
+ResNeSt (``radix``, JAX :45-68, :190-270; ``deepbase_resnest{50,101,200,
+269}_dilated8``) builds each block as ``VariantBottleneck``, whose 3x3 is a
+``SplitAttentionConv``: ``radix`` grouped splits, fused by a softmax over
+the splits of an MLP on their pooled sum.  It keeps the JAX package's two
+documented divergences from the reference: a strided conv where the
+reference has avg-pool downsampling (avd), and an ungrouped attention MLP.
+The MLP's BatchNorm (``fc_bn``, flax momentum 0.9, torch's 0.1) normalises
+over the batch.  The JAX package has no reference ``.pth`` map for ResNeSt,
+and the port adds none.  The other variant families (``groups``,
+``width_mult``, ``dcn_layer4``) and ``WiderResNetA2`` are not ported;
+building one raises.
 """
 
 from __future__ import annotations
@@ -29,7 +39,13 @@ import dataclasses
 import torch
 from torch import nn
 
-from contrastiveseg_tpu_torch.models.layers import BasicBlock, Bottleneck, TorchBatchNorm, conv
+from contrastiveseg_tpu_torch.models.layers import (
+    BasicBlock,
+    Bottleneck,
+    ConvBN,
+    TorchBatchNorm,
+    conv,
+)
 
 _LATER = "is not ported yet: ROADMAP 7 (the ResNet variant families)"
 
@@ -143,13 +159,68 @@ def _stage_plan(spec: ResNetSpec) -> list[tuple[int, int, int, list[int]]]:
     return plan
 
 
+class SplitAttentionConv(nn.Module):
+    """ResNeSt's split-attention 3x3: a conv to ``radix`` splits of
+    ``features`` (groups ``groups * radix``) -> BN -> ReLU; the splits'
+    sum, pooled over the image, through ``fc1`` -> ``fc_bn`` -> ReLU ->
+    ``fc2`` gives each split a softmax weight per channel (rSoftMax); the
+    output is the weighted sum of the splits."""
+
+    def __init__(self, in_ch: int, features: int, radix: int = 2, groups: int = 1,
+                 stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.radix, self.features = radix, features
+        self.conv = nn.Conv2d(in_ch, features * radix, 3, stride, padding=dilation,
+                              dilation=dilation, groups=groups * radix, bias=False)
+        self.bn = TorchBatchNorm(features * radix)
+        inter = max(features * radix // 4, 32)
+        self.fc1 = nn.Linear(features, inter)
+        self.fc_bn = TorchBatchNorm(inter)
+        self.fc2 = nn.Linear(inter, features * radix)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn(self.conv(x)))
+        b, _, h, w = y.shape
+        splits = y.view(b, self.radix, self.features, h, w)
+        gap = splits.sum(1).mean((2, 3))
+        a = torch.relu(self.fc_bn(self.fc1(gap)[..., None, None]).flatten(1))
+        att = self.fc2(a).view(b, self.radix, self.features).softmax(1)
+        return (splits * att[..., None, None]).sum(1)
+
+
+class VariantBottleneck(nn.Module):
+    """The JAX ``VariantBottleneck``'s ``radix`` branch: ``Bottleneck``
+    (``conv1``/``bn1``, ``conv3``/``bn3``, ``downsample``) with a
+    ``SplitAttentionConv`` ``conv2`` that carries its own BN and strides."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, dilation: int = 1, radix: int = 2):
+        super().__init__()
+        self.conv1 = conv(inplanes, planes, 1)
+        self.bn1 = TorchBatchNorm(planes)
+        self.conv2 = SplitAttentionConv(planes, planes, radix, stride=stride, dilation=dilation)
+        self.conv3 = conv(planes, planes * 4, 1)
+        self.bn3 = TorchBatchNorm(planes * 4)
+        self.relu = nn.ReLU()
+        self.downsample = (ConvBN(inplanes, planes * 4, 1, stride, use_relu=False)
+                           if downsample else None)
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        out = self.conv2(self.relu(self.bn1(self.conv1(x))))
+        out = self.bn3(self.conv3(out))
+        return self.relu(out + residual)
+
+
 class ResNet(nn.Module):
     """Returns ``[stem, pool, c1, c2, c3, c4]`` NCHW feature maps."""
 
     def __init__(self, spec: ResNetSpec):
         super().__init__()
         variant = [f for f, plain in (("groups", 1), ("width_mult", 1.0),
-                                      ("dcn_layer4", False), ("radix", 0))
+                                      ("dcn_layer4", False))
                    if getattr(spec, f) != plain]
         if variant:
             raise NotImplementedError(f"a ResNet with {', '.join(variant)} {_LATER}")
@@ -171,11 +242,16 @@ class ResNet(nn.Module):
             for b in range(n):
                 s = stride if b == 0 else 1
                 ds = b == 0 and (s != 1 or inplanes != w * expansion)
-                block = BasicBlock if basic else Bottleneck
-                blocks.append(block(inplanes, w, s, downsample=ds, dilation=dil[b]))
+                if spec.radix:
+                    blocks.append(VariantBottleneck(inplanes, w, s, downsample=ds,
+                                                    dilation=dil[b], radix=spec.radix))
+                else:
+                    block = BasicBlock if basic else Bottleneck
+                    blocks.append(block(inplanes, w, s, downsample=ds, dilation=dil[b]))
                 inplanes = w * expansion
             self.add_module(f"layer{si}", nn.Sequential(*blocks))
         self.channels = tuple(w * expansion for w in (64, 128, 256, 512))  # c1..c4
+        self.radix = spec.radix
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         for i in range(1, self.n_stem + 1):

@@ -3,11 +3,11 @@
 ``load_jax_variables(model, variables)`` takes ``{"params", "batch_stats"}``
 as nested dicts of numpy arrays (the flax trees of ``HRNetSeg``,
 ``HRNetOCRSeg``, ``DeepLabV3``, the context-head nets, ``HRNetISASeg``,
-the oracle ``IdealSpatialOCRNet`` or ``CE2PNet``)
+the oracle ``IdealSpatialOCRNet``, ``CE2PNet`` or ``SegFixHRNet``)
 and fills the port's model of the same class (or, with ``key_of``, any
 module, such as one context module alone):
 
-  * conv kernels HWIO -> OIHW;
+  * conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in];
   * BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
     ``running_mean``/``running_var``;
   * any leaf with no counterpart, any port tensor left unfilled, or any
@@ -19,7 +19,14 @@ applies in the other direction (``hrnet_seg_path``, ``hrnet_ocr_path`` with
 ``resnet_backbone_path``; ``fcnet_path``, ``spatial_ocrnet_path``,
 ``asp_ocrnet_path`` with ``_asp_ocr``, ``base_ocnet_path``,
 ``asp_ocnet_path`` and ``isanet_path`` with ``_self_attention``,
-``ce2p_path``), carried here as copies because that module imports flax.
+``ce2p_path``; ``segfix_path`` and ``segfix_next_path`` with
+``hrnetnext_backbone_path`` for ``SegFixHRNet``, ``segfix_key`` and
+``segfix_next_key`` here), carried here as copies because that module
+imports flax.  ``HRNetSeg`` on ``HRNetNext`` (``hrnet2x20``) maps its
+backbone as SegFix's does.  A ResNeSt backbone (``radix``) maps each
+block's ``SplitAttentionConv`` (``conv2``: ``conv``, ``norm``, ``fc1``,
+``fc_bn``, ``fc2``) onto the port's names; the JAX package has no
+reference ``.pth`` map for it.
 The oracle nets share ``SpatialOCRNet``'s map (``mapper_for_model``,
 torch_import.py:958-962).  ``CE2PNet``'s map depends on its context:
 ``asp_ocr`` in the reference's layout, ``ocr`` and ``psp`` under the JAX
@@ -53,8 +60,10 @@ from contrastiveseg_tpu_torch.models.nets import (
     HRNetSeg,
     ISANet,
     ResNetContextNet,
+    SegFixHRNet,
     SpatialOCRNet,
 )
+from contrastiveseg_tpu_torch.models.hrnet import HRNetNext
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
@@ -89,10 +98,12 @@ def _block(base: str, sub: tuple) -> Optional[str]:
     return None
 
 
-def _backbone_key(path: tuple) -> Optional[str]:
+def _backbone_key(path: tuple, next_arch: bool = False) -> Optional[str]:
+    """An HRNet leaf; with ``next_arch`` an ``HRNetNext`` one (its stem
+    ``conv1``/``bn1``; stage s's new branch is i == s, not s - 1)."""
     name = path[0]
-    if name in ("stem1", "stem2"):
-        n = name[-1]
+    if name in ("stem1", "stem2") or (next_arch and name == "stem"):
+        n = "1" if next_arch else name[-1]
         return _convbn(f"conv{n}", f"bn{n}", path[1:])
     m = re.fullmatch(r"layer1_block(\d+)", name)
     if m:
@@ -100,7 +111,7 @@ def _backbone_key(path: tuple) -> Optional[str]:
     m = re.fullmatch(r"transition(\d)_b(\d)", name)
     if m:
         s, i = int(m.group(1)), int(m.group(2))
-        base = f"transition{s - 1}.{i}" + (".0" if i == s - 1 else "")
+        base = f"transition{s - 1}.{i}" + (".0" if i == s - int(not next_arch) else "")
         return _convbn(f"{base}.0", f"{base}.1", path[1:])
     m = re.fullmatch(r"stage(\d)_module(\d+)", name)
     if m:
@@ -142,10 +153,16 @@ def _prefixed(prefix: str, key: Optional[str]) -> Optional[str]:
     return None if key is None else f"{prefix}.{key}"
 
 
-def hrnet_seg_key(path: tuple) -> Optional[str]:
-    """flax leaf path of ``HRNetSeg`` -> the port's ``state_dict`` key."""
+def next_backbone_key(path: tuple) -> Optional[str]:
+    """flax ``HRNetNext`` leaf path -> the port's key."""
+    return _backbone_key(path, next_arch=True)
+
+
+def hrnet_seg_key(path: tuple, next_arch: bool = False) -> Optional[str]:
+    """flax leaf path of ``HRNetSeg`` (on ``HRNetNext`` with ``next_arch``)
+    -> the port's ``state_dict`` key."""
     if path[0] == "backbone":
-        return _prefixed("backbone", _backbone_key(path[1:]))
+        return _prefixed("backbone", _backbone_key(path[1:], next_arch))
     if path[0] == "cls_head":
         if path[1] == "conv":
             return _convbn("cls_head.0", "cls_head.1.0", path[2:])
@@ -204,16 +221,53 @@ def hrnet_ocr_key(path: tuple) -> Optional[str]:
     return None
 
 
-def resnet_backbone_key(path: tuple) -> Optional[str]:
+def segfix_key(path: tuple, next_arch: bool = False) -> Optional[str]:
+    """flax leaf path of ``SegFixHRNet`` -> the port's key: the backbone,
+    ``{mask,dir}_conv`` -> ``{mask,dir}_head.0`` and ``.1.0``,
+    ``{mask,dir}_cls`` -> ``{mask,dir}_head.2``."""
+    if path[0] == "backbone":
+        return _prefixed("backbone", _backbone_key(path[1:], next_arch))
+    m = re.fullmatch(r"(mask|dir)_(conv|cls)", path[0])
+    if m and m.group(2) == "conv":
+        return _cbr(f"{m.group(1)}_head", path[1:])
+    if m:
+        return _plain_conv(f"{m.group(1)}_head.2", path[1:])
+    return None
+
+
+def segfix_next_key(path: tuple) -> Optional[str]:
+    """``SegFixHRNet`` on ``HRNetNext`` (``hrnet2x20``)."""
+    return segfix_key(path, next_arch=True)
+
+
+def _split_attention(base: str, sub: tuple) -> Optional[str]:
+    """A ``SplitAttentionConv``: ``conv``, ``norm`` -> ``bn``, the dense
+    ``fc1``/``fc2`` and the BatchNorm ``fc_bn``."""
+    if sub == ("conv", "kernel"):
+        return f"{base}.conv.weight"
+    if len(sub) == 3 and sub[:2] == ("norm", "bn"):
+        return f"{base}.bn.{_BN_LEAF[sub[2]]}"
+    if len(sub) == 2 and sub[0] in ("fc1", "fc2"):
+        return f"{base}.{sub[0]}.{'weight' if sub[1] == 'kernel' else sub[1]}"
+    if len(sub) == 2 and sub[0] == "fc_bn":
+        return f"{base}.fc_bn.{_BN_LEAF[sub[1]]}"
+    return None
+
+
+def resnet_backbone_key(path: tuple, radix: bool = False) -> Optional[str]:
     """flax ``ResNet`` leaf path -> the port's key: the stem
-    ``resinit.conv{n}``/``resinit.bn{n}``, the blocks ``layer{i}.{k}``."""
+    ``resinit.conv{n}``/``resinit.bn{n}``, the blocks ``layer{i}.{k}``
+    (with ``radix``, ResNeSt's, whose ``conv2`` is a ``SplitAttentionConv``)."""
     m = re.fullmatch(r"stem(\d)?", path[0])
     if m:
         n = m.group(1) or "1"
         return _convbn(f"resinit.conv{n}", f"resinit.bn{n}", path[1:])
     m = re.fullmatch(r"layer(\d)_block(\d+)", path[0])
     if m:
-        return _block(f"layer{m.group(1)}.{m.group(2)}", path[1:])
+        base = f"layer{m.group(1)}.{m.group(2)}"
+        if radix and path[1] == "conv2":
+            return _split_attention(f"{base}.conv2", path[2:])
+        return _block(base, path[1:])
     return None
 
 
@@ -491,11 +545,20 @@ _KEY_MAPS = ((HRNetSeg, hrnet_seg_key), (HRNetOCRSeg, hrnet_ocr_key), (DeepLabV3
 
 def key_for(model: nn.Module):
     """The flax-path -> port-key map of ``model``'s class (the oracle OCR
-    nets are ``SpatialOCRNet``s; a ``CE2PNet``'s map is its context's)."""
+    nets are ``SpatialOCRNet``s; a ``CE2PNet``'s map is its context's; an
+    ``HRNetNext`` backbone and a ResNeSt one map as such)."""
     if isinstance(model, CE2PNet):
         return ce2p_key(model.context_kind)
+    next_arch = isinstance(getattr(model, "backbone", None), HRNetNext)
+    if isinstance(model, SegFixHRNet):
+        return segfix_next_key if next_arch else segfix_key
+    if isinstance(model, HRNetSeg) and next_arch:
+        return lambda path: hrnet_seg_key(path, next_arch=True)
     for cls, fn in _KEY_MAPS:
         if isinstance(model, cls):
+            if getattr(model.backbone, "radix", 0):
+                return lambda path: (_prefixed("backbone", resnet_backbone_key(path[1:], True))
+                                     if path[0] == "backbone" else fn(path))
             return fn
     raise TypeError(f"no JAX key map for {type(model).__name__}")
 
@@ -515,6 +578,8 @@ def load_jax_variables(model: nn.Module, variables: dict, key_of=None) -> None:
                 continue
             if arr.ndim == 4:  # HWIO -> OIHW
                 arr = np.transpose(arr, (3, 2, 0, 1))
+            elif arr.ndim == 2:  # a dense kernel, [in, out] -> [out, in]
+                arr = arr.T
             if tuple(arr.shape) != tuple(sd[key].shape):
                 raise ValueError(
                     f"shape mismatch at {key}: jax {arr.shape} vs "

@@ -24,8 +24,10 @@ Which source a file is, from its keys alone:
 
 The context-head nets load their reference segmentors too (FcnNet,
 SpatialOCRNet, ASPOCRNet, BaseOCNet, AspOCNet, ISANet), and so do the
-oracle OCR nets (``ideal_*``, in SpatialOCRNet's layout) and
-``ce2p_asp_ocrnet`` (CE2P_ASPOCR).  The nets the reference never registers
+oracle OCR nets (``ideal_*``, in SpatialOCRNet's layout),
+``ce2p_asp_ocrnet`` (CE2P_ASPOCR) and ``segfix_hrnet`` (SegFix_HRNet, on
+HRNet-W48 or the HRNet-2x20 HighResolutionNext: the published SegFix
+checkpoints).  The nets the reference never registers
 (``pspnet``, ``ccnet``, ``pyramid_ocnet``, ``hrnet_w48_isa``) and the two
 CE2P nets it cannot build (``ce2p_ocrnet``, ``ce2p_ideal_ocrnet``; JAX
 ``models/ce2p.py:112-118``) have ``reference_layout`` False: no reference

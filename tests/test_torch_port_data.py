@@ -269,10 +269,14 @@ def test_build_dataset_refuses_what_is_not_ported(tree):
     cfg, _ = _configs(*_overrides(tree, 0, 0))
     assert len(build_dataset(cfg, "train")) == 6
     assert type(build_dataset(cfg.updated("data.loader", "lip"))).__name__ == "LipDataset"
+    # SegFix's offset loader and multi-dataset training are ported now
+    # (tests/test_torch_port_segfix_data.py holds them against JAX).
+    assert type(build_dataset(cfg.updated("data.loader", "dt_offset"))).__name__ == (
+        "DTOffsetDataset")
+    multi = build_dataset(cfg.updated("data.data_dirs", [str(tree), str(tree)]))
+    assert type(multi).__name__ == "MultiDataset" and multi.sizes == [6, 6]
     with pytest.raises(NotImplementedError, match="ROADMAP 7"):
-        build_dataset(cfg.updated("data.loader", "dt_offset"))
-    with pytest.raises(NotImplementedError, match="ROADMAP 7"):
-        build_dataset(cfg.updated("data.data_dirs", [str(tree), str(tree)]))
+        build_dataset(cfg.updated("data.loader", "nonsense"))
 
 
 @pytest.mark.parametrize("drop_last", [True, False])

@@ -514,11 +514,15 @@ def test_refusals_and_multi_grid(tmp_path):
     at batch 1 refuses with a clear message."""
     for backbone, what in (
             ("resnext101_dilated8", "groups"), ("wide_resnet101_dilated8", "width_mult"),
-            ("resnest101_dilated8", "radix"), ("deepbase_dcn_resnet101_dilated8", "dcn_layer4"),
+            ("deepbase_dcn_resnet101_dilated8", "dcn_layer4"),
             ("wide_resnet38_dilated8", "WiderResNetA2")):
         cfg = get_preset("cityscapes_deeplab_v3").updated("network.backbone", backbone)
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP 7"):
             build_model(cfg)
+    # ResNeSt (radix) is ported now (tests/test_torch_port_resnest.py).
+    with torch.device("meta"):
+        assert build_model(get_preset("cityscapes_deeplab_v3").updated(
+            "network.backbone", "resnest101_dilated8")).backbone.radix == 2
     cfg = get_preset("cityscapes_deeplab_v3_contrast")
     with pytest.raises(NotImplementedError, match="pallas_conv"):
         build_model(cfg.updated("network.pallas_conv", True))

@@ -121,10 +121,16 @@ def test_evaluator_miou_matches_jax(monkeypatch):
 
 
 def test_build_evaluator_refuses_what_is_not_ported():
+    """Every task evaluator is ported now: the SegFix ones are held against
+    JAX in tests/test_torch_port_segfix.py."""
+    from contrastiveseg_tpu_torch.engine.evaluator import MLDirectionEvaluator, SegFixEvaluator
+
     cfg = get_preset("smoke_hrnet_w18")
     assert isinstance(build_evaluator(cfg, HRNetSeg(5, "hrnet18")), Evaluator)
-    with pytest.raises(NotImplementedError, match="ROADMAP 6"):
-        build_evaluator(cfg.updated("val.evaluator", "segfix"), HRNetSeg(5, "hrnet18"))
+    assert isinstance(build_evaluator(cfg.updated("val.evaluator", "segfix"),
+                                      HRNetSeg(5, "hrnet18")), SegFixEvaluator)
+    assert isinstance(build_evaluator(cfg.updated("val.evaluator", "ml_dir"),
+                                      HRNetSeg(5, "hrnet18")), MLDirectionEvaluator)
 
 
 def _trainer_config(tmp_path):

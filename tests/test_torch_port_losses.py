@@ -292,7 +292,7 @@ def test_contrast_ce_loss_without_a_bank(loss_type):
     assert float(metrics["port"]["loss_contrast"].detach()) > 0
 
 
-@pytest.mark.parametrize("loss_type", ["segfix_loss", "ms_fs_aux_rmi_loss"])
+@pytest.mark.parametrize("loss_type", ["ms_fs_aux_rmi_loss"])
 def test_build_loss_refuses_the_losses_not_ported(loss_type):
     _, cfg = _config("cityscapes_hrnet_w48", loss_type)
     with pytest.raises(NotImplementedError, match="ROADMAP 8"):

@@ -196,8 +196,10 @@ def test_build_model_knows_only_the_ported_names():
     model = build_model(cfg)
     assert sum(model.backbone.stage4[0].branches[i][0].conv1.out_channels
                for i in range(4)) == 720
+    with pytest.raises(NotImplementedError, match="ROADMAP 7"):
+        build_model(cfg.updated("network.model_name", "hrnet_w48_ocr_b_ha"))
     with pytest.raises(KeyError, match="hrnet_w48_mem"):
-        build_model(cfg.updated("network.model_name", "segfix_hrnet"))
+        build_model(cfg.updated("network.model_name", "no_such_net"))
     with pytest.raises(NotImplementedError, match="bf16"):
         build_model(cfg.updated("network.bf16", True))
     # network.pallas_conv is ported: the branch BasicBlocks' 3x3 convs become

@@ -19,7 +19,8 @@ against the JAX package.
   from a checkpoint on ``torch_port_helpers.write_tree``'s tree (the tiny
   HRNet of ``torch_port_helpers.tiny_hrnet``): the scores, confusion and
   PNGs of the checkpoint's model.
-* Refusals: ``crf_ss_test`` and the SegFix model name.
+* Refusals: ``crf_ss_test`` and an unknown mode; ``--phase test`` of a
+  SegFix net writes its offsets.
 """
 
 from __future__ import annotations
@@ -310,19 +311,27 @@ def test_phase_val_and_test_through_the_cli(tmp_path, capsys, monkeypatch):
 
 
 # -- refusals --------------------------------------------------------------
-def test_refusals():
+def test_refusals(tmp_path, monkeypatch):
     model = TinySeg()
     with pytest.raises(NotImplementedError, match="ROADMAP 8"):
         ptester.Tester(Config.from_args(overrides=["test.mode=crf_ss_test"]), model)
-    with pytest.raises(NotImplementedError, match="ROADMAP 7"):
-        ptester.Tester(Config.from_args(overrides=["network.model_name=segfix_hrnet"]), model)
     with pytest.raises(NotImplementedError, match="nonsense"):
         ptester.Tester(Config.from_args(overrides=["test.mode=nonsense"]), model)
     from tools import train_torch
 
-    cfg = get_preset("smoke_hrnet_w18").updated("network.model_name", "segfix_hrnet")
-    with pytest.raises(NotImplementedError, match="ROADMAP 7"):
-        train_torch.run(cfg, "test", "cpu")
+    # A SegFix net is no longer refused: --phase test runs test_offset and
+    # writes the offsets (tests/test_torch_port_segfix.py holds them against JAX).
+    tiny_hrnet(monkeypatch)
+    tree = write_tree(tmp_path / "cityscapes", n_train=0, n_val=2)
+    cfg = train_torch.build_config("smoke_hrnet_w18", None, _cli_overrides(tree, tmp_path) + [
+        "network.model_name=segfix_hrnet", "network.backbone=hrnet18",
+        f"test.out_dir={tmp_path / 'out'}"])
+    out = train_torch.run(cfg, "test", "cpu")
+    assert out["tester"].timing["images"] == 2
+    for name in ("f0", "f1"):
+        offsets = np.load(tmp_path / "out" / "offset" / f"{name}.npz")
+        assert offsets["mask"].shape == offsets["dir_label"].shape == (96, 192)
+        assert offsets["mask"].max() <= 1 and offsets["dir_label"].max() < 8
     # the writer refuses what is not a PNG mode, before any file is written
     with pytest.raises(ValueError):
         encode_png(np.zeros((2, 2), np.int32))

@@ -11,7 +11,10 @@ Mirrors ``tools/train.py``:
 test`` runs ``engine/tester.Tester`` over the ``test`` split (or
 ``test.test_dir``) in ``test.mode`` (``ss_test``, ``ms_test``,
 ``sscrop_test``, ``mscrop_test``, ``ms_test_depth``) and writes the label
-PNGs of a submission under ``test.out_dir``.  Both start from
+PNGs of a submission under ``test.out_dir``; for a SegFix net
+(``network.model_name=segfix_*``) it runs ``Tester.test_offset`` and writes
+``offset/{name}.npz``, which ``tools/segfix_torch.py`` applies to label
+PNGs.  Both start from
 ``network.resume=<checkpoint>``.  With ``--device cuda`` (the default) the
 run fails when CUDA is absent; it never falls back to the CPU.  Data comes
 from a Cityscapes-layout directory (``data.data_dir=...``, holding
@@ -70,7 +73,12 @@ def run(cfg, phase: str, device) -> dict:
     if phase == "val":
         return {"trainer": trainer, "scores": trainer.validate()}
     tester = Tester(cfg, trainer.state.model, device)
-    tester.test()
+    # SegFix nets give a boundary mask and directions (the reference's
+    # phase=test_offset, tester_offset.py); the others write labels.
+    if cfg.get("network.model_name", default="").startswith("segfix"):
+        tester.test_offset()
+    else:
+        tester.test()
     return {"trainer": trainer, "tester": tester}
 
 
