@@ -81,7 +81,7 @@ Phases (any failure raises, so the run exits non-zero):
      ``cityscapes_deeplab_v3``, ``cityscapes_deeplab_v3_contrast``,
      ``cityscapes_hrnet_w48_ocr`` and ``cityscapes_hrnet_w48_ocr_contrast``,
      each at full width (ResNet-101 with its 2048-channel layer4, HRNet-W48,
-     19 classes) for 3 steps at the preset's batch 8 from the same tree
+     19 classes) for 2 steps at the preset's batch 8 from the same tree
      (contrast live from step 0): step times, data wait, peak memory, the
      losses, the anchor count M of the contrast presets, and 0 launches of
      K1, K2 and K3; each trained model's eval forward on a 1x128x256 input
@@ -99,7 +99,7 @@ Phases (any failure raises, so the run exits non-zero):
      + 4 frames of 1024x2048, and ``pascal_context_hrnet_w48_isa`` from a
      Pascal-Context-layout tree (``write_pascal_context``: 500x375 and
      375x500 frames, 59 classes, ``reduce_zero_label``), each at full width
-     for 3 steps at the preset's batch 16, or at 8 with the batch-16
+     for 2 steps at the preset's batch 16, or at 8 with the batch-16
      allocator failure printed where 16 does not fit: step times, data wait,
      peak memory, each head's CE (finite, positive), 0 launches of K1-K3,
      the eval forward within 1e-4 of the CPU's; ``spatial_ocrnet`` and
@@ -115,14 +115,14 @@ Phases (any failure raises, so the run exits non-zero):
  16. the raw phase, from trees of raw PNGs (no ``.npy_cache`` sidecars, the
      rows of every PNG cycling through the five filters) under
      ``build/chip_smoke_raw/``: the headline from a Cityscapes tree of 8 + 4
-     frames of 1024x2048 at batch 8 (3 steps, >= 3 launches of each K1
+     frames of 1024x2048 at batch 8 (2 steps, >= 2 launches of each K1
      kernel) and its validation (``val.batch_size=2``), with PIL made
      unimportable and 0 fallbacks of the native PNG unfilter
      (``csrc/png_unfilter.cpp``, built with ``g++`` into
      ``build/pngunfilter/``); the native decode ms of each frame, the
      pipeline's seconds a batch at 1 and 4 workers, the data wait of steps
-     2-3; ``tools/cache_dataset_torch.py`` on the tree, every sidecar equal
-     to its decoded frame; then, each at full width for 3 steps at its
+     after the first; ``tools/cache_dataset_torch.py`` on the tree, every sidecar equal
+     to its decoded frame; then, each at full width for 2 steps at its
      preset's batch (or the largest that fits, after the allocator's
      message), from raw trees of its layout and classes: the oracle OCR
      nets ``cityscapes_ideal_{spatial,gather,distribute}_ocrnet`` (batch
@@ -156,13 +156,39 @@ Phases (any failure raises, so the run exits non-zero):
      train`` of ``cityscapes_segfix_hrnet`` raising the port's
      ``ValueError`` at its first step (the trainer hands the loss the
      label map alone, as the JAX trainer does); ``cityscapes_resnest_fcn``
-     (ResNeSt-101) for 3 steps at batch 16 (or 8 where 16 does not fit)
+     (ResNeSt-101) for 2 steps at batch 16 (or 8 where 16 does not fit)
      and one validation batch; 0 launches of K1-K3; its lines carry
      ``[segfix phase +N s]``;
- 18. a JSON line of the six kernels, the card line, and the result line.
+ 18. the JPEG phase, with PIL unimportable: every JPEG fixture of
+     ``tests/data_torch_jpeg/`` (ADE20K's 683x512 and 512x683, COCO's
+     640x480 and a 480x640 grey frame, VOC's 500x375 and a progressive
+     375x500, a 4:4:4 frame with restart markers, a 4:2:2 one with
+     optimised tables) decoded by the native decoder
+     (``csrc/jpeg_decode.cpp``, built with ``g++`` into
+     ``build/jpegdecode/``, 0 fallbacks) equal to the SHA-256 of PIL's
+     arrays in the manifest, both readings, with its decode ms; raw trees
+     under ``build/chip_smoke_jpeg/`` of 16 + 4 frames each: ADE20K,
+     COCO-Stuff and Pascal-Context of those JPEGs with PNG labels (0-150,
+     0-171, 0-59, ``reduce_zero_label``) and CamVid of 960x720 PNGs (labels
+     0-11); then ``ade20k_hrnet_w48_contrast``, ``ade20k_hrnet_w48``,
+     ``coco_stuff_hrnet_w48_contrast``, ``coco_stuff_hrnet_w48``,
+     ``pascal_context_hrnet_w48_contrast``, ``pascal_context_hrnet_w48`` and
+     ``camvid_hrnet_w48_contrast`` at full width (HRNet-W48) and the
+     preset's batch 16 (8 where 16 does not fit, after the allocator's
+     message), crop, classes and transforms: 3 steps for a contrast preset
+     (``contrast.warmup_iters=0``; a positive contrast term and each step's
+     anchor count M), 2 for a plain one; finite losses, step times, data
+     wait, peak memory, 0 launches of K1-K3; ``--phase val`` of the ADE20K
+     and Pascal-Context contrast presets in ``diverse_size`` over the 4 JPEG
+     val frames (images/s, a finite mIoU); the pipeline's host seconds for
+     an ADE20K batch of 16 at 1 and 4 workers; its lines carry ``[jpeg
+     phase +N s]``;
+ 19. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-17 print their step times (or seconds an image), peak memory and
-wall time.
+Phases 10-18 print their step times (or seconds an image), peak memory and
+wall time.  Phases 14-17 train each preset 2 steps (``CUT_STEPS``; 3 before
+phase 18 was added), which makes room for phase 18 in the time limit; every check they
+make stays (the raw headline's K1 launches are held to 2, one a step).
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
@@ -216,6 +242,10 @@ TEST_BATCH = 1
 SLICE = ["data.synthetic=true", "data.synthetic_size=[512,1024]", "train.batch_size=2",
          "contrast.warmup_iters=0", "solver.max_iters=3", "solver.display_iter=1"]
 ROOT = Path(__file__).resolve().parent
+# Train steps of each preset in phases 14-17 (3 before phase 18 was added; 2
+# make room for it inside the time limit).  Phase 18 takes 3 for a contrast preset
+# and 2 for its plain twin.
+CUT_STEPS = 2
 
 
 def card_line() -> str:
@@ -1116,7 +1146,7 @@ MODEL_PRESETS = ("cityscapes_deeplab_v3", "cityscapes_deeplab_v3_contrast",
 
 def run_models_phase(device, data_dir: Path) -> dict:
     """The paper's DeepLab-V3 and HRNet-W48 + OCR rows, with and without
-    contrast: each preset at full width and its batch 8 for 3 steps from the
+    contrast: each preset at full width and its batch 8 for 2 steps from the
     directory (no K1, K2 or K3 on this path); the two contrast trainers
     round-trip ``latest`` and run ``--phase val`` and ``ss_test`` at batch 1
     from it; a deep-base ResNet-101 ImageNet ``.pth`` in the reference's
@@ -1148,7 +1178,7 @@ def run_models_phase(device, data_dir: Path) -> dict:
     for preset in MODEL_PRESETS:
         contrastive = preset.endswith("_contrast")
         cfg = directory_config(preset, data_dir, root / preset, [
-            "solver.max_iters=3"] + (["contrast.warmup_iters=0"] if contrastive else []))
+            f"solver.max_iters={CUT_STEPS}"] + (["contrast.warmup_iters=0"] if contrastive else []))
         want = (8, 19, "deepbase_resnet101_dilated8" if "deeplab" in preset else "hrnet48")
         got = (cfg.get("train.batch_size"), cfg.get("data.num_classes"),
                cfg.get("network.backbone"))
@@ -1266,10 +1296,11 @@ def infer_from_latest(trainer, cfg, device, run, say) -> dict:
     preset = cfg.get("network.model_name")
     path = trainer.ckpt._path("latest")  # saved at the end of train()
     resumed = Trainer(cfg.updated("network.resume", path), device)
-    if resumed.state.step != 3 or not same_state(trainer.state, resumed.state):
+    if resumed.state.step != cfg.get("solver.max_iters") or not same_state(
+            trainer.state, resumed.state):
         raise AssertionError(f"{preset}: the checkpoint did not restore the trained state")
     say(f"{preset}: {Path(path).name} ({Path(path).stat().st_size / 2**20:.1f} MiB) restored "
-        "at step 3, every weight, BN statistic and momentum buffer equal")
+        f"at step {resumed.state.step}, every weight, BN statistic and momentum buffer equal")
     del resumed
     out = {}
     data_dir = Path(cfg.get("data.data_dir"))
@@ -1438,7 +1469,7 @@ def run_context_phase(device) -> dict:
     on a deep-base ResNet-101 (dilated 8, 1024x512 crops), ``pspnet`` and
     ``ccnet`` through ``cityscapes_fcnet``'s recipe, and
     ``pascal_context_hrnet_w48_isa`` (520x520 crops, 59 classes) from a
-    Pascal-Context-layout tree: 3 steps each at the preset's batch 16, or at
+    Pascal-Context-layout tree: 2 steps each at the preset's batch 16, or at
     8 where 16 does not fit the card (the allocator's message printed);
     each head's loss, the eval forward against the CPU's, 0 launches of
     K1-K3; ``latest`` of ``spatial_ocrnet`` and ``base_ocnet`` through
@@ -1480,7 +1511,8 @@ def run_context_phase(device) -> dict:
     for preset, override in CONTEXT_NETS:
         pascal = preset.startswith("pascal_context")
         cfg = directory_config(preset, pc_dir if pascal else cs_dir,
-                               root / "ckpt" / (override or preset), ["solver.max_iters=3"] + (
+                               root / "ckpt" / (override or preset),
+                               [f"solver.max_iters={CUT_STEPS}"] + (
                                    [f"network.model_name={override}"] if override else []))
         name = cfg.get("network.model_name")
         want = (16, 59, "hrnet48") if pascal else (16, 19, "deepbase_resnet101_dilated8")
@@ -1646,7 +1678,7 @@ def run_raw_headline(device, root: Path, say) -> dict:
         labels = sorted(root.glob("*/label/*.png"))
         ms_image, ms_label = decode_ms(images, True), decode_ms(labels, False)
         cfg = directory_config("cityscapes_hrnet_w48_mem", root, root / "ckpt", [
-            "contrast.warmup_iters=0", "solver.max_iters=3", "val.batch_size=2"])
+            "contrast.warmup_iters=0", f"solver.max_iters={CUT_STEPS}", "val.batch_size=2"])
         if (cfg.get("train.batch_size"), cfg.get("train_trans.random_crop.crop_size"),
                 cfg.get("data.workers")) != (8, [1024, 512], 1):
             raise AssertionError("the raw headline must run the recipe's batch 8, crop and "
@@ -1658,7 +1690,8 @@ def run_raw_headline(device, root: Path, say) -> dict:
         history = trainer.train()
         torch.cuda.synchronize()
         launches, peak = read_counts(), torch.cuda.max_memory_allocated(device)
-        check_history(history, launches, {n: 3 for n in k1.KERNELS}, "headline from raw PNGs")
+        check_history(history, launches, {n: CUT_STEPS for n in k1.KERNELS},
+                      "headline from raw PNGs")
         if any(launches[n] for n in ("conv3x3_fwd", "conv3x3_dw", "fused_block")):
             raise AssertionError(f"the raw headline launched K2 or K3: {launches}")
         scores = trainer.validate()
@@ -1682,7 +1715,7 @@ def run_raw_headline(device, root: Path, say) -> dict:
     say(f"native decode (zlib + unfilter) of a 1024x2048 frame: RGB image median "
         f"{statistics.median(ms_image):.1f} ms (min {min(ms_image):.1f}, max {max(ms_image):.1f}), "
         f"label median {statistics.median(ms_label):.1f} ms, on the host")
-    say(f"headline from raw PNGs at batch 8: steps 2-3 "
+    say(f"headline from raw PNGs at batch 8: steps after the first "
         f"{[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
         f"{[round(r['data_seconds'] * 1e3, 1) for r in steps]} ms (step 1: "
         f"{history[0]['seconds'] * 1e3:.1f} ms, data wait {history[0]['data_seconds'] * 1e3:.1f}"
@@ -1711,7 +1744,7 @@ def run_raw_headline(device, root: Path, say) -> dict:
 def run_raw_phase(device) -> dict:
     """Phase 16: the headline from raw PNGs (``run_raw_headline``), then the
     nets and losses this slice ports, each from a raw PNG tree of its
-    preset's layout and classes, 3 steps at the preset's batch (or the
+    preset's layout and classes, 2 steps at the preset's batch (or the
     largest that fits, after the allocator's message): the oracle OCR nets
     (and the two ``use_bg`` ones failing at their first forward, as in the
     JAX trainer), HRNet-W48 + OCR with ``fs_aux_rmi_loss`` on Pascal-Context
@@ -1754,7 +1787,7 @@ def run_raw_phase(device) -> dict:
         dataset = preset.split("_")[0] if not preset.startswith(("pascal", "coco")) else (
             "pascal_context" if preset.startswith("pascal") else "coco_stuff")
         cfg = directory_config(preset, trees[dataset], root / "ckpt" / preset,
-                               ["solver.max_iters=3"])
+                               [f"solver.max_iters={CUT_STEPS}"])
         name = cfg.get("network.model_name")
         got = (cfg.get("train.batch_size"), cfg.get("data.num_classes"),
                cfg.get("train_trans.random_crop.crop_size"))
@@ -1791,7 +1824,7 @@ def run_raw_phase(device) -> dict:
                "loss_type": c.get("loss.loss_type"), "model": type(model).__name__}
         say(f"{preset} ({name}, {res['model']}, {n_params / 1e6:.2f} M, {res['loss_type']}) at "
             f"batch {res['batch']} of {c.get('train_trans.random_crop.crop_size')} crops: steps "
-            f"2-3 {[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
+            f"after the first {[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
             f"{[round(r['data_seconds'] * 1e3, 1) for r in steps]} ms, peak "
             f"{fit['peak'] / 2**30:.3f} GiB, 0 launches of K1-K3"
             + (f" (at its batch {want[dataset][0]}: {fit['failure']})" if fit["failure"] else ""))
@@ -1861,7 +1894,7 @@ def run_segfix_phase(device) -> dict:
     ``cityscapes_segfix_hrnet2x_inst`` from the 16-bit instance maps;
     ``tools/segfix_torch.py`` on the card and on the CPU; one forward and
     backward of each net with ``SegFixLoss`` at the preset's batch 16 of
-    512x512; the train phase's ``ValueError``; 3 steps of
+    512x512; the train phase's ``ValueError``; 2 steps of
     ``cityscapes_resnest_fcn`` and one validation batch."""
     import gc
 
@@ -2104,7 +2137,7 @@ def run_segfix_phase(device) -> dict:
 
     # ResNeSt-101 FCN from the tree.
     cfg = directory_config("cityscapes_resnest_fcn", root, root / "ckpt" / "resnest",
-                           ["solver.max_iters=3"])
+                           [f"solver.max_iters={CUT_STEPS}"])
     if (cfg.get("network.backbone"), cfg.get("train.batch_size")) != (
             "deepbase_resnest101_dilated8", 16):
         raise AssertionError("cityscapes_resnest_fcn: not ResNeSt-101 at batch 16")
@@ -2128,7 +2161,7 @@ def run_segfix_phase(device) -> dict:
     steps = history[1:]
     say(f"cityscapes_resnest_fcn (FcnNet on ResNeSt-101, {res['resnest']['params'] / 1e6:.2f} M) "
         f"at batch {res['resnest']['batch']} of "
-        f"{fit['cfg'].get('train_trans.random_crop.crop_size')} crops: steps 2-3 "
+        f"{fit['cfg'].get('train_trans.random_crop.crop_size')} crops: steps after the first "
         f"{[round(r['seconds'] * 1e3, 1) for r in steps]} ms, data wait "
         f"{[round(r['data_seconds'] * 1e3, 1) for r in steps]} ms, peak "
         f"{fit['peak'] / 2**30:.3f} GiB"
@@ -2142,6 +2175,210 @@ def run_segfix_phase(device) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     res["launches"] = dict(total)
     return res
+
+
+JPEG_FIXTURES = ROOT / "tests" / "data_torch_jpeg"
+# The paper's four other datasets: (preset, tree, steps).
+JPEG_PRESETS = (
+    ("ade20k_hrnet_w48_contrast", "ade20k", 3), ("ade20k_hrnet_w48", "ade20k", 2),
+    ("coco_stuff_hrnet_w48_contrast", "coco_stuff", 3), ("coco_stuff_hrnet_w48", "coco_stuff", 2),
+    ("pascal_context_hrnet_w48_contrast", "pascal_context", 3),
+    ("pascal_context_hrnet_w48", "pascal_context", 2),
+    ("camvid_hrnet_w48_contrast", "camvid", 3))
+# tree: label values 0..n-1 (0 the ignored class of reduce_zero_label), and
+# the preset's classes.
+JPEG_TREES = {"ade20k": (151, 150), "coco_stuff": (172, 171), "pascal_context": (60, 59),
+              "camvid": (12, 12)}
+
+
+def write_jpeg_tree(root: Path, dataset: str, n_train: int = 16, n_val: int = 4,
+                    seed: int = 0) -> list[str]:
+    """A tree of ``dataset``'s layout, {root}/{split}/image/*.jpg and
+    label/*.png, no sidecars: the frames are copies of the committed JPEG
+    fixtures made for that dataset (``tests/data_torch_jpeg``, in turn), each
+    label a synthetic scene of the frame's size written by ``utils/png.py``.
+    Returns the fixtures used."""
+    import numpy as np
+
+    from contrastiveseg_tpu_torch.data.datasets import SyntheticSegDataset
+    from contrastiveseg_tpu_torch.utils.png import encode_png
+
+    files = json.loads((JPEG_FIXTURES / "manifest.json").read_text())["files"]
+    frames = [n for n, f in files.items() if f["dataset"] == dataset]
+    classes = JPEG_TREES[dataset][0]
+    for i in range(n_train + n_val):
+        name = frames[i % len(frames)]
+        w, h = files[name]["size"]
+        split = "train" if i < n_train else "val"
+        for kind in ("image", "label"):
+            (root / split / kind).mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(JPEG_FIXTURES / name, root / split / "image" / f"{i:04d}.jpg")
+        label = SyntheticSegDataset(classes, (h, w), 1, seed=seed + i)[0]["label"]
+        (root / split / "label" / f"{i:04d}.png").write_bytes(
+            encode_png(label.astype(np.uint8), level=1))
+    return frames
+
+
+def check_jpeg_fixtures(say) -> dict:
+    """Every committed fixture through ``utils/jpeg.read_jpeg``, both
+    readings equal to the manifest's digests of PIL's arrays; the decode ms
+    of each (median of 5, RGB reading)."""
+    import hashlib
+
+    from contrastiveseg_tpu_torch.utils.jpeg import read_jpeg
+
+    files = json.loads((JPEG_FIXTURES / "manifest.json").read_text())["files"]
+    ms = {}
+    for name, f in files.items():
+        path = JPEG_FIXTURES / name
+        for rgb, shape, digest in ((False, f["shape"], f["sha256"]),
+                                   (True, f["shape_rgb"], f["sha256_rgb"])):
+            a = read_jpeg(path, rgb=rgb)
+            if (list(a.shape), str(a.dtype)) != (shape, "uint8") or hashlib.sha256(
+                    a.tobytes()).hexdigest() != digest:
+                raise AssertionError(f"{name} (rgb={rgb}): {a.shape} {a.dtype} differs from "
+                                     "PIL's array in the manifest")
+        ms[name] = statistics.median(decode_ms([path] * 5, True))
+    say("native JPEG decode, every fixture equal to PIL's arrays (manifest SHA-256, both "
+        "readings): " + "; ".join(
+            f"{n} {files[n]['size'][0]}x{files[n]['size'][1]} {files[n]['mode']} "
+            f"{ms[n]:.2f} ms ({ms[n] / (files[n]['size'][0] * files[n]['size'][1] / 1e6):.2f} ms "
+            "a megapixel)" for n in files) + " on the host (median of 5)")
+    return ms
+
+
+def run_jpeg_phase(device) -> dict:
+    """Phase 18: the paper's ADE20K, COCO-Stuff, Pascal-Context and CamVid
+    rows from raw trees, with PIL unimportable: the JPEG fixtures through
+    the native decoder against the manifest, then the seven presets (3 steps
+    for a contrast preset, 2 for its plain twin, at the preset's batch 16 or
+    8 where 16 does not fit), ``--phase val`` of the ADE20K and
+    Pascal-Context contrast presets in ``diverse_size``, and the pipeline's
+    host seconds for an ADE20K batch of 16 at 1 and 4 workers."""
+    import gc
+    import importlib.util
+    import sys
+
+    import torch
+
+    from contrastiveseg_tpu_torch.data import native
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.ops import contrast
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[jpeg phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_jpeg"
+    shutil.rmtree(root, ignore_errors=True)
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "PIL"}
+    installed = importlib.util.find_spec("PIL") is not None if not saved else True
+    sys.modules["PIL"] = None  # an import of PIL raises while the phase runs
+    total, results = collections.Counter(), {}
+    sample, anchors = contrast.hard_anchor_sample, []
+
+    def counted(*args, **kwargs):  # each step's anchor rows, no sync
+        out = sample(*args, **kwargs)
+        anchors.append((out.valid.shape[0], out.valid.sum()))
+        return out
+
+    try:
+        fallbacks = native.JPEG_LIBRARY.fallbacks
+        decode = check_jpeg_fixtures(say)
+        t0 = time.perf_counter()
+        used = {d: write_jpeg_tree(root / d, d) for d in ("ade20k", "coco_stuff",
+                                                          "pascal_context")}
+        write_pascal_context(root / "camvid", 16, 4, sizes=((720, 960),),
+                             classes=JPEG_TREES["camvid"][0], sidecars=False)
+        say(f"wrote raw trees (no sidecars) in {time.perf_counter() - t0:.1f} s, 16 + 4 frames "
+            f"each: ADE20K, COCO-Stuff and Pascal-Context JPEGs ({used}), labels 0-150, 0-171 "
+            "and 0-59 as PNG; CamVid 960x720 PNG frames, labels 0-11")
+        for preset, tree, steps in JPEG_PRESETS:
+            contrastive = preset.endswith("_contrast")
+            cfg = directory_config(preset, root / tree, root / "ckpt" / preset, [
+                f"solver.max_iters={steps}"] + (["contrast.warmup_iters=0"] if contrastive else []))
+            got = (cfg.get("data.num_classes"), cfg.get("train.batch_size"),
+                   cfg.get("network.backbone"), cfg.get("loss.loss_type"))
+            want = (JPEG_TREES[tree][1], 16, "hrnet48",
+                    "contrast_ce_loss" if contrastive else "fs_ce_loss")
+            if got != want:
+                raise AssertionError(f"{preset}: classes, batch, backbone, loss {got}; "
+                                     f"want {want}")
+            anchors.clear()
+            contrast.hard_anchor_sample = counted
+            try:
+                fit = train_fitting(cfg, device, preset, say)
+            finally:
+                contrast.hard_anchor_sample = sample
+            trainer, c, history = fit["trainer"], fit["cfg"], fit["history"]
+            no_launch(fit["launches"], preset, total)
+            m = [(rows, int(valid)) for rows, valid in anchors[-len(history):]]
+            if not all(r["loss_seg"] > 0 for r in history):
+                raise AssertionError(f"{preset}: a seg loss is not positive: {history}")
+            if contrastive and (len(anchors) < len(history) or not all(
+                    r["loss_contrast"] > 0 and valid > 0 for r, (_, valid) in zip(history, m))):
+                raise AssertionError(f"{preset}: no anchors or no contrast term: {history}, "
+                                     f"M={m}")
+            model = trainer.state.model
+            res = {"batch": c.get("train.batch_size"), "failure": fit["failure"],
+                   "history": history, "peak": fit["peak"], "anchors": m if contrastive else None,
+                   "params": sum(p.numel() for p in model.parameters())}
+            say(f"{preset} ({type(model).__name__}, {res['params'] / 1e6:.2f} M, "
+                f"{c.get('loss.loss_type')}, {c.get('data.num_classes')} classes) at batch "
+                f"{res['batch']} of {c.get('train_trans.random_crop.crop_size')} crops: steps "
+                f"{[round(r['seconds'] * 1e3, 1) for r in history]} ms, data wait "
+                f"{[round(r['data_seconds'] * 1e3, 1) for r in history]} ms, peak "
+                f"{fit['peak'] / 2**30:.3f} GiB, 0 launches of K1-K3"
+                + (f", contrast {[round(r['loss_contrast'], 4) for r in history]}, anchors "
+                   f"(rows, M) {m}" if contrastive else "")
+                + (f" (at its batch 16: {fit['failure']})" if fit["failure"] else ""))
+            latest = trainer.ckpt._path("latest")
+            del trainer, model, fit
+            gc.collect()
+            torch.cuda.empty_cache()
+            if preset in ("ade20k_hrnet_w48_contrast", "pascal_context_hrnet_w48_contrast"):
+                vc = c.updated("network.resume", latest)
+                first_val = next(build_pipeline(vc, "val").epoch_iter(0))
+                if not isinstance(first_val["image"], list):
+                    raise AssertionError(f"{preset}: the val batches are not diverse_size")
+                torch.cuda.reset_peak_memory_stats(device)
+                reset_counts()
+                t0 = time.perf_counter()
+                scores = run(vc, "val", device)["scores"]
+                no_launch(read_counts(), f"{preset} --phase val", total)
+                if not math.isfinite(scores["miou"]):
+                    raise AssertionError(f"{preset} --phase val gave no mIoU: {scores}")
+                res["val"] = {"images_per_sec": scores["images_per_sec"], "miou": scores["miou"],
+                              "peak": torch.cuda.max_memory_allocated(device),
+                              "wall": time.perf_counter() - t0}
+                say(f"{preset} --phase val, diverse_size (4 JPEG frames, "
+                    f"{[tuple(x.shape[:2]) for x in first_val['image']]} after fit_stride 8, "
+                    f"val.batch_size {vc.get('val.batch_size')}): mIoU {scores['miou']:.6f}, "
+                    f"{scores['images_per_sec']:.3f} images/s, peak "
+                    f"{res['val']['peak'] / 2**30:.3f} GiB, {res['val']['wall']:.1f} s")
+            if preset == "ade20k_hrnet_w48_contrast":
+                res["host_seconds"] = {w: pipeline_seconds(c, w) for w in (1, 4)}
+                say(f"{preset}: the train pipeline alone, a batch of {c.get('train.batch_size')} "
+                    f"from JPEG frames: {res['host_seconds'][1]:.3f} s at 1 worker, "
+                    f"{res['host_seconds'][4]:.3f} s at 4")
+            results[preset] = res
+        route = native.JPEG_LIBRARY.route()
+        if native.JPEG_LIBRARY.fallbacks != fallbacks or Path(route).parent != (
+                ROOT / "build" / "jpegdecode"):
+            raise AssertionError(f"the JPEG decoder came from {route} with "
+                                 f"{native.JPEG_LIBRARY.fallbacks - fallbacks} fallbacks")
+        if sys.modules.get("PIL") is not None:
+            raise AssertionError("the JPEG phase imported PIL")
+    finally:
+        sys.modules.pop("PIL", None)
+        sys.modules.update(saved)
+    say(f"JPEG decoder: {Path(route).relative_to(ROOT)}, 0 fallbacks; PIL (installed: "
+        f"{installed}, loaded before the phase: {bool(saved)}) unimportable while the fixtures "
+        "were checked and the trees were read, trained on and validated")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"decode_ms": decode, "nets": results, "launches": dict(total)}
 
 
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
@@ -2386,8 +2623,9 @@ def main() -> None:
 
     libraries = [contrast_cuda.LIBRARY, conv_cuda.LIBRARY, block_cuda.LIBRARY]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        host_libs = [pool.submit(lib.build) for lib in (native.LIBRARY, native.PNG_LIBRARY)]
+    with ThreadPoolExecutor(3) as pool:
+        host_libs = [pool.submit(lib.build) for lib in (native.LIBRARY, native.PNG_LIBRARY,
+                                                        native.JPEG_LIBRARY)]
         built = cuda_lib.build_all(libraries, force=True)
         host_paths = [f.result() for f in host_libs]
     print(f"built {[(p.name, round(s, 2)) for p, s in built]} and "
@@ -2437,6 +2675,9 @@ def main() -> None:
     t0 = time.perf_counter()
     sp = run_segfix_phase(device)
     print(f"segfix phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    jp = run_jpeg_phase(device)
+    print(f"jpeg phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
@@ -2451,23 +2692,24 @@ def main() -> None:
           f"{[round(r['seconds'] * 1e3, 1) for r in phases['contrast']['history'][1:]]} ms, "
           f"peak {phases['contrast']['peak'] / 2**30:.3f} GiB (same call, same card)")
     print("models phase at batch 8 from the directory: " + "; ".join(
-        f"{p}: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in mp[p]['history'][1:]]} ms, "
+        f"{p}: steps after the first "
+        f"{[round(r['seconds'] * 1e3, 1) for r in mp[p]['history'][1:]]} ms, "
         f"data wait {[round(r['data_seconds'] * 1e3, 1) for r in mp[p]['history'][1:]]} ms, "
         f"peak {mp[p]['peak'] / 2**30:.3f} GiB" for p in MODEL_PRESETS) + " (same call)")
     print("context phase from the directories: " + "; ".join(
-        f"{n} ({r['params'] / 1e6:.2f} M) at batch {r['batch']}: steps 2-3 "
+        f"{n} ({r['params'] / 1e6:.2f} M) at batch {r['batch']}: steps after the first "
         f"{[round(x['seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, data wait "
         f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
         f"{r['peak'] / 2**30:.3f} GiB" + (f", val {r['val']['images_per_sec']:.3f} images/s"
                                           if "val" in r else "")
         for n, r in cp.items() if n != "launches") + " (same call)")
     hl = rp["headline"]
-    print(f"raw phase: headline from raw PNGs at batch 8: steps 2-3 "
+    print(f"raw phase: headline from raw PNGs at batch 8: steps after the first "
           f"{[round(r['seconds'] * 1e3, 1) for r in hl['history'][1:]]} ms, data wait "
           f"{[round(r['data_seconds'] * 1e3, 1) for r in hl['history'][1:]]} ms, decode "
           f"{hl['decode_ms_image']:.1f} ms a frame, pipeline {hl['host_seconds'][1]:.3f} s a "
           f"batch at 1 worker, {hl['host_seconds'][4]:.3f} s at 4; " + "; ".join(
-              f"{n} at batch {r['batch']}: steps 2-3 "
+              f"{n} at batch {r['batch']}: steps after the first "
               f"{[round(x['seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, data wait "
               f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
               f"{r['peak'] / 2**30:.3f} GiB" for n, r in rp["nets"].items() if "history" in r)
@@ -2479,10 +2721,21 @@ def main() -> None:
         f"image, loss step at batch 16 {sp['loss'][n]['seconds'][1] * 1e3:.1f} ms, "
         f"{sp['loss'][n]['peak'] / 2**30:.3f} GiB" for n, r in sp["nets"].items())
         + f"; dt targets {statistics.mean(sp['dt_seconds']):.3f} s a frame on the host; "
-        f"cityscapes_resnest_fcn at batch {sp['resnest']['batch']}: steps 2-3 "
+        f"cityscapes_resnest_fcn at batch {sp['resnest']['batch']}: steps after the first "
         f"{[round(r['seconds'] * 1e3, 1) for r in sp['resnest']['history'][1:]]} ms, data wait "
         f"{[round(r['data_seconds'] * 1e3, 1) for r in sp['resnest']['history'][1:]]} ms, peak "
         f"{sp['resnest']['peak'] / 2**30:.3f} GiB (same call)")
+    ade_host = jp["nets"]["ade20k_hrnet_w48_contrast"]["host_seconds"]
+    print("jpeg phase from raw JPEG (and CamVid PNG) trees: " + "; ".join(
+        f"{n} at batch {r['batch']}: steps after the first "
+        f"{[round(x['seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, data wait "
+        f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
+        f"{r['peak'] / 2**30:.3f} GiB" + (f", val {r['val']['images_per_sec']:.3f} images/s"
+                                          if "val" in r else "")
+        for n, r in jp["nets"].items())
+        + f"; decode {statistics.median(jp['decode_ms'].values()):.2f} ms a fixture (median); "
+        f"pipeline {ade_host[1]:.3f} s an ADE20K batch of 16 at 1 worker, {ade_host[4]:.3f} s "
+        "at 4 (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -2533,11 +2786,12 @@ def main() -> None:
         "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
         "max_abs_err_fp32": k3["errs"]["fp32"],
     })
-    for row in rows:  # summed over every run of phases 14-17; 14, 15, 17 fail on one
+    for row in rows:  # summed over every run of phases 14-18; 14, 15, 17, 18 fail on one
         row["launches_models_phase"] = mp["launches"][row["name"]]
         row["launches_context_phase"] = cp["launches"][row["name"]]
         row["launches_raw_phase"] = rp["launches"].get(row["name"], 0)
         row["launches_segfix_phase"] = sp["launches"].get(row["name"], 0)
+        row["launches_jpeg_phase"] = jp["launches"].get(row["name"], 0)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -6,8 +6,9 @@ The port's copy of ``contrastiveseg_tpu/data/datasets.py``.  Reference: lib/data
 remap to train ids (default_loader.py:94-106) and ``reduce_zero_label``
 (−1 shift, :83-92).  An image or label without a fresh ``.npy_cache``
 sidecar is decoded here: a PNG through the port's own reader
-(``utils/png.py``, native unfilter, no PIL), any other format (JPEG, BMP)
-through PIL where PIL is importable.  ``LipDataset`` (``data.loader=lip``,
+(``utils/png.py``, native unfilter, no PIL), a JPEG through its native
+decoder (``utils/jpeg.py``, no PIL), a BMP through PIL where PIL is
+importable.  ``LipDataset`` (``data.loader=lip``,
 JAX ``data/loaders_extra.py:30-50``) adds the CE2P edge target;
 ``data.loader=dt_offset`` and ``data.data_dirs`` (train split only) build
 ``data/loaders_extra.DTOffsetDataset`` and ``MultiDataset``.
@@ -20,6 +21,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from contrastiveseg_tpu_torch.utils.jpeg import read_jpeg
 from contrastiveseg_tpu_torch.utils.png import read_png
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
@@ -34,10 +36,19 @@ def decode_frame(path: str, rgb: bool) -> np.ndarray:
     """The array of the image file at ``path``, as PIL's
     ``np.asarray(Image.open(path))`` gives it, or with ``rgb`` as
     ``np.asarray(Image.open(path).convert("RGB"))``.  PNGs are read by
-    ``utils/png.read_png``; other formats need PIL, and without it raise a
-    RuntimeError that names the file and the sidecar tool."""
-    if path.lower().endswith(".png"):
+    ``utils/png.read_png`` and JPEGs by ``utils/jpeg.read_jpeg`` (native
+    code, no PIL, no fallback); other formats (BMP) by ``decode_with_pil``."""
+    lower = path.lower()
+    if lower.endswith(".png"):
         return read_png(path, rgb=rgb)
+    if lower.endswith((".jpg", ".jpeg")):
+        return read_jpeg(path, rgb=rgb)
+    return decode_with_pil(path, rgb)
+
+
+def decode_with_pil(path: str, rgb: bool) -> np.ndarray:
+    """``decode_frame``'s array through PIL; without PIL a RuntimeError that
+    names the file and the sidecar tool."""
     try:
         from PIL import Image
     except ImportError as err:
@@ -221,8 +232,8 @@ class DirectorySegDataset:
         tools/cache_dataset_torch.py --root <data_dir>` decodes each frame
         once into `.npy_cache/<name>.npy` beside it (the format of the JAX
         package's `tools/cache_dataset.py`), and an mmap'd read replaces the
-        decode.  A JPEG tree needs the sidecars where PIL is absent.  Stale
-        caches (source newer) are ignored."""
+        decode.  Only a BMP tree needs the sidecars where PIL is absent.
+        Stale caches (source newer) are ignored."""
         cache = os.path.join(os.path.dirname(path), ".npy_cache",
                              os.path.basename(path) + ".npy")
         try:

@@ -1,5 +1,6 @@
-"""ctypes bindings for the native data-path kernels: ``native/segdata.cpp``
-and the port's PNG unfilter, ``csrc/png_unfilter.cpp``.
+"""ctypes bindings for the native data-path kernels: ``native/segdata.cpp``,
+the port's PNG unfilter, ``csrc/png_unfilter.cpp``, and its JPEG decoder,
+``csrc/jpeg_decode.cpp``.
 
 Counterpart of ``contrastiveseg_tpu/data/native.py``, with its own build:
 at first use, never at import, ``g++`` compiles each source with the flags
@@ -13,9 +14,11 @@ label resize and the two normalizes.  The port's confusion matrix runs on
 the device (``ops/confusion.py``), so ``confusion_matrix_i64`` is not bound.
 Bound from the PNG library: ``png_unfilter``, the five PNG row filters
 undone for ``utils/png.py``.  Every wrapper returns None when its library
-could not be built or loaded; its caller then takes the numpy, PIL or
-Python fallback, and the library's ``fallbacks`` counts those calls.
-``route()`` says which route the process took.
+could not be built or loaded; its caller then takes the numpy or Python
+fallback, and the library's ``fallbacks`` counts those calls.  The JPEG
+library (``jpeg_info``, ``jpeg_decode``) has no fallback: ``utils/jpeg.py``
+raises where it cannot be loaded.  ``route()`` says which route the process
+took.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ SOURCE = ROOT / "native" / "segdata.cpp"
 BUILD_DIR = ROOT / "build" / "segdata"
 PNG_SOURCE = ROOT / "contrastiveseg_tpu_torch" / "csrc" / "png_unfilter.cpp"
 PNG_BUILD_DIR = ROOT / "build" / "pngunfilter"
+JPEG_SOURCE = ROOT / "contrastiveseg_tpu_torch" / "csrc" / "jpeg_decode.cpp"
+JPEG_BUILD_DIR = ROOT / "build" / "jpegdecode"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-fPIC", "-shared", "-std=c++17"]
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -50,6 +55,8 @@ SIGNATURES = {
 }
 PNG_SIGNATURES = {"png_unfilter": ([_u8p, ctypes.c_int64, ctypes.c_int64, _I, _u8p],
                                    ctypes.c_int64)}
+JPEG_SIGNATURES = {"jpeg_info": ([_u8p, ctypes.c_int64, _i32p], _I),
+                   "jpeg_decode": ([_u8p, ctypes.c_int64, _I, _u8p, ctypes.c_int64], _I)}
 
 
 class SegdataLibrary:
@@ -131,6 +138,8 @@ class SegdataLibrary:
 LIBRARY = SegdataLibrary()
 PNG_LIBRARY = SegdataLibrary(PNG_BUILD_DIR, PNG_SOURCE, PNG_SIGNATURES, stem="libpngunfilter",
                              fallback="python")
+JPEG_LIBRARY = SegdataLibrary(JPEG_BUILD_DIR, JPEG_SOURCE, JPEG_SIGNATURES,
+                              stem="libjpegdecode", fallback="none")
 
 
 def _ptr(a: np.ndarray, ctype):

@@ -43,6 +43,7 @@ from torch_port_helpers import (
     one_torch_thread,
     random_variables,
     shared_jax_compiles,
+    tiny_hrnet,
 )
 
 
@@ -157,7 +158,8 @@ def _snapshot(state):
     }
 
 
-def test_checkpoint_resume_is_bit_identical(tmp_path):
+def test_checkpoint_resume_is_bit_identical(tmp_path, monkeypatch):
+    tiny_hrnet(monkeypatch)  # the port against itself: its topology at a tiny width
     cfg = _trainer_config(tmp_path / "a")
     whole = Trainer(cfg, "cpu")
     hist_a = whole.train()
@@ -188,7 +190,8 @@ def test_checkpoint_resume_is_bit_identical(tmp_path):
     assert torch.equal(got["generator"], want["generator"])
 
 
-def test_save_by_mode(tmp_path):
+def test_save_by_mode(tmp_path, monkeypatch):
+    tiny_hrnet(monkeypatch)
     cfg = _trainer_config(tmp_path)
     state = Trainer(cfg, "cpu").state
     ckpt = CheckpointManager(str(tmp_path), "m")

@@ -17,7 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_TOOLS = ("train_torch.py", "profile_torch_step.py", "bench_block_torch.py",
               "bench_k1_variants.py", "bench_k2_variants.py", "evaluate_torch.py",
               "evaluate_cityscapes_torch.py", "export_torch.py", "serve_torch.py",
-              "cache_dataset_torch.py", "segfix_torch.py")
+              "cache_dataset_torch.py", "segfix_torch.py", "make_jpeg_fixtures_torch.py")
 PORT_FILES = sorted((ROOT / "contrastiveseg_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / name for name in PORT_TOOLS] + [ROOT / "chip_smoke.py"]
 FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax"}
@@ -58,7 +58,8 @@ def test_port_files_found():
             "export_torch.py", "serve_torch.py", "resnet.py", "ocr.py", "attention.py",
             "cc_attention.py", "ce2p.py", "rmi.py", "lovasz.py", "native.py",
             "cache_dataset_torch.py", "segfix.py", "offset_helper.py", "counters.py",
-            "instance_ap.py", "loaders_extra.py", "segfix_torch.py"} <= names
+            "instance_ap.py", "loaders_extra.py", "segfix_torch.py", "jpeg.py",
+            "make_jpeg_fixtures_torch.py"} <= names
     assert ROOT / "contrastiveseg_tpu_torch" / "models" / "attention.py" in PORT_FILES
     assert ROOT / "contrastiveseg_tpu_torch" / "ops" / "cc_attention.py" in PORT_FILES
     for module in ("models/ce2p.py", "losses/rmi.py", "losses/lovasz.py", "data/native.py"):
@@ -68,6 +69,7 @@ def test_port_files_found():
                    "metrics/instance_ap.py", "data/loaders_extra.py"):
         assert ROOT / "contrastiveseg_tpu_torch" / module in PORT_FILES
     assert ROOT / "tools" / "segfix_torch.py" in PORT_FILES
+    assert ROOT / "contrastiveseg_tpu_torch" / "utils" / "jpeg.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

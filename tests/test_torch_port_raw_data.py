@@ -5,8 +5,8 @@ LIP loader, against the JAX package.
   (``utils/png.filter_rows``), is read by the port's loader with PIL made
   unimportable: the samples equal the JAX loader's (which decodes through
   PIL), array for array.  A JPEG frame without a sidecar decodes through
-  PIL where PIL is importable, and without it raises a RuntimeError that
-  names the file and ``tools/cache_dataset_torch.py``.
+  the port's native decoder (``utils/jpeg.py``), PIL unimportable too,
+  into the JAX loader's sample.
 * ``tools/cache_dataset_torch.py`` writes the sidecars that
   ``tools/cache_dataset.py`` writes on the same tree (PNG RGB and palette
   frames, grey and 16-bit labels, a JPEG), file for file, array for array.
@@ -24,7 +24,6 @@ import shutil
 import sys
 
 import numpy as np
-import pytest
 from PIL import Image
 
 from contrastiveseg_tpu.data.datasets import build_dataset as jbuild_dataset
@@ -95,14 +94,11 @@ def test_png_tree_decodes_without_pil(tmp_path, monkeypatch):
     _block_pil(monkeypatch)
     ds = build_dataset(cfg, "train")
     assert [p for p, _ in ds.items] == [p for p, _ in jds.items] and ds.items[-1][0] == str(jpeg)
-    n_fallbacks = native.PNG_LIBRARY.fallbacks
-    for i in range(len(ds) - 1):
+    n_fallbacks = native.PNG_LIBRARY.fallbacks, native.JPEG_LIBRARY.fallbacks
+    for i in range(len(ds)):  # the JPEG last, through the native decoder
         _same_samples(ds[i], want[i])
-    assert native.PNG_LIBRARY.fallbacks == n_fallbacks and sys.modules["PIL"] is None
-    with pytest.raises(RuntimeError, match=r"f9\.jpg.*tools/cache_dataset_torch\.py"):
-        ds[len(ds) - 1]
-    monkeypatch.undo()  # PIL importable again: the JPEG decodes through it
-    _same_samples(ds[len(ds) - 1], want[-1])
+    assert (native.PNG_LIBRARY.fallbacks, native.JPEG_LIBRARY.fallbacks) == n_fallbacks
+    assert sys.modules["PIL"] is None
 
 
 def test_sidecar_tool_matches_the_jax_tool(tmp_path, monkeypatch):

@@ -66,6 +66,7 @@ from torch_port_helpers import (
     one_torch_thread,
     random_variables,
     shared_jax_compiles,
+    tiny_hrnet,
     write_tree,
 )
 
@@ -243,7 +244,8 @@ def test_plain_state_round_trips_a_checkpoint(tmp_path):
     assert fresh.optimizer.param_groups[0]["lr"] == state.optimizer.param_groups[0]["lr"]
 
 
-def test_trainer_trains_the_plain_preset_from_a_directory(tmp_path):
+def test_trainer_trains_the_plain_preset_from_a_directory(tmp_path, monkeypatch):
+    tiny_hrnet(monkeypatch)  # the port against itself: hrnet18's topology, tiny widths
     tree = write_tree(tmp_path / "cityscapes", n_train=4, n_val=2)
     cfg = _config("cityscapes_hrnet_w48")
     for k, v in {"data.synthetic": False, "data.data_dir": str(tree),

@@ -1,7 +1,9 @@
 """The port's trainer on a Cityscapes-layout tree, on the CPU.
 
-hrnet18 (``smoke_hrnet_w18``, 5 classes) at 64x64 crops of 96x192 frames
-written by ``torch_port_helpers.write_tree``, ``data.synthetic=false``,
+hrnet18 (``smoke_hrnet_w18``, 5 classes, at the widths of
+``torch_port_helpers.tiny_hrnet``: every check compares the port with
+itself) at 64x64 crops of 96x192 frames written by
+``torch_port_helpers.write_tree``, ``data.synthetic=false``,
 4 steps and a validation at step 4.  Against the reference run
 (``solver.display_iter=1``, ``train.device_prefetch=1``):
 
@@ -26,12 +28,15 @@ from contrastiveseg_tpu_torch.engine import trainer as trainer_mod
 from contrastiveseg_tpu_torch.engine.trainer import Trainer
 from contrastiveseg_tpu_torch.presets import get_preset
 
-from torch_port_helpers import one_torch_thread, write_tree
+from torch_port_helpers import one_torch_thread, tiny_hrnet, write_tree
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    with one_torch_thread():
+def _one_thread_tiny_hrnet():
+    """The port against itself: hrnet18's topology at a tiny width
+    (``tiny_hrnet``), on one torch thread."""
+    with one_torch_thread(), pytest.MonkeyPatch.context() as mp:
+        tiny_hrnet(mp)
         yield
 
 

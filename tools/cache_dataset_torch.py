@@ -7,12 +7,15 @@ the same walk (``{root}/{split}/image`` and every label directory beside
 it), the same ``.npy_cache/<name>.npy`` files (images as the RGB uint8
 array, labels as their raw decoded form), read by the port's
 ``DirectorySegDataset`` whenever a sidecar is at least as new as its
-source.  PNGs are decoded by the port's reader (``utils/png.py``, native
-unfilter, no PIL); JPEG and BMP frames through PIL, so a JPEG tree
-(ADE20K, COCO-Stuff, Pascal-Context, LIP, Mapillary) needs this tool run on
-a machine with PIL before it trains where PIL is absent.  A PNG tree needs
-no sidecars: the loader decodes its PNGs itself, and the sidecars only save
-that decode (tens of ms a 1024x2048 frame).
+source.  Frames are decoded by ``data/datasets.decode_frame``, as the
+loader decodes them: PNGs by the port's reader (``utils/png.py``, native
+unfilter) and JPEGs by its native decoder (``utils/jpeg.py``), neither
+through PIL; BMP frames through PIL, so only a BMP tree needs this tool run
+on a machine with PIL before it trains where PIL is absent.  A PNG or JPEG
+tree needs no sidecars: the loader decodes its frames itself, and the
+sidecars only save that decode (tens of ms a 1024x2048 frame), or carry a
+JPEG the native decoder refuses (arithmetic-coded, 12-bit, lossless), which
+this tool decodes through PIL.
 
     python tools/cache_dataset_torch.py --root /data/cityscapes --splits train,val
 
@@ -30,7 +33,22 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from contrastiveseg_tpu_torch.data.datasets import IMG_EXTS, decode_frame  # noqa: E402
+from contrastiveseg_tpu_torch.data.datasets import (  # noqa: E402
+    IMG_EXTS,
+    decode_frame,
+    decode_with_pil,
+)
+from contrastiveseg_tpu_torch.utils.jpeg import UnsupportedJPEG  # noqa: E402
+
+
+def decode(path: str, rgb: bool) -> np.ndarray:
+    """``decode_frame``'s array; a JPEG of a format the native decoder
+    refuses through PIL, which this tool runs beside and the loader never
+    takes."""
+    try:
+        return decode_frame(path, rgb=rgb)
+    except UnsupportedJPEG:
+        return decode_with_pil(path, rgb)
 
 
 def cache_dir_files(d: str, as_rgb: bool) -> tuple[int, int]:
@@ -48,7 +66,7 @@ def cache_dir_files(d: str, as_rgb: bool) -> tuple[int, int]:
         if os.path.exists(dst) and os.path.getmtime(dst) >= os.path.getmtime(src):
             kept += 1
             continue
-        np.save(dst, decode_frame(src, rgb=as_rgb))
+        np.save(dst, decode(src, as_rgb))
         new += 1
     return (new, kept)
 
