@@ -127,8 +127,8 @@ Phases (any failure raises, so the run exits non-zero):
      message), from raw trees of its layout and classes: the oracle OCR
      nets ``cityscapes_ideal_{spatial,gather,distribute}_ocrnet`` (batch
      16), with ``_spatial_ocrnet_b`` and ``_c`` built and raising their
-     ``ValueError`` at the first forward, as the JAX trainer fails at their
-     init; ``pascal_context_hrnet_w48_ocr_rmi`` and
+     ``ValueError`` at the first forward (of a batch of 2), as the JAX
+     trainer fails at their init; ``pascal_context_hrnet_w48_ocr_rmi`` and
      ``coco_stuff_hrnet_w48_ocr_rmi`` (``fs_aux_rmi_loss``, batch 16 of
      520x520, 59 and 171 classes); the six LIP presets (batch 32 of
      473x473, 20 classes; two on CE2P), ``lip_hrnet_w48_ocr`` also through
@@ -142,7 +142,8 @@ Phases (any failure raises, so the run exits non-zero):
      (HRNet-W48) and ``cityscapes_segfix_hrnet2x`` (HRNet-2x20) each, a
      seeded random-init net written as a reference SegFix ``.pth`` and
      loaded strictly (bit for bit) through ``network.pretrained``, then
-     ``--phase val`` at the preset's batch 4 over the 4 val frames (the
+     ``--phase val`` at batch 2 (``SEGFIX_VAL_BATCH``; the presets' 4 meets
+     cuDNN's FFT pick, 18-25 s a batch) over the 4 val frames (the
      dt-offset loader, the SegFix evaluator: ``mask_acc``, ``dir_acc_mask``,
      ``dir_acc_gt``, seconds a val batch, the model's share of it, peak
      memory) and ``--phase test`` (``test_offset``, batch ``TEST_BATCH``:
@@ -183,12 +184,36 @@ Phases (any failure raises, so the run exits non-zero):
      val frames (images/s, a finite mIoU); the pipeline's host seconds for
      an ADE20K batch of 16 at 1 and 4 workers; its lines carry ``[jpeg
      phase +N s]``;
- 19. a JSON line of the six kernels, the card line, and the result line.
+ 19. the transformer phase, each net at full width trained 2 steps, with
+     finite losses, most parameters changed and 0 launches of K1-K3, one
+     net of each family (``ms_ocr``, ``setr_pup``, ``semantic_fpn`` on
+     PVT-Small) from a reference ``.pth`` of a seeded net (a bias on every
+     conv that feeds a BN, folded on load; every tensor bit for bit):
+     ``ms_ocr`` (MscaleOCR on HRNet-W48, ``ms_fs_aux_rmi_loss``) through
+     ``cityscapes_hrnet_w48_ocr``'s recipe at batch 8 of 1024x512 (4 where 8
+     does not fit) from phase 9's Cityscapes tree, its stem BN run twice a
+     step (the trunk at 0.5x and 1.0x) with its running statistics moved,
+     ``pred_05x`` at half the batch's size, then ``--phase val`` at
+     ``TEST_BATCH``; ``setr_pup``, ``setr_mla`` and ``setr_naive`` on ViT-L
+     (24 layers, width 1024, 16 heads) through ``cityscapes_hrnet_w48``'s
+     recipe at SETR's published 768x768 crop (``SETR_CROP``), batch 2 (1
+     where 2 does not fit), then ``setr_pup``'s ``sscrop_test`` at 768x768
+     on a 1024x2048 frame (the position table is the crop's grid);
+     ``semantic_fpn`` on PVT-Small and on Twins-SVT-Small through
+     ``ade20k_hrnet_w48``'s recipe with the PVT recipe's AdamW (lr 1e-4,
+     weight decay 1e-4; SVT with ``network.clip_grad_norm=1.0``, the clipped
+     global norm printed each step) at batch 16 of 520x520 (8 where 16 does
+     not fit) from phase 18's ADE20K JPEG tree with PIL unimportable, then
+     PVT-Small's ``--phase val`` in ``diverse_size`` (its position tables
+     resized to each frame's grids); step times, data wait, peak memory and
+     parameter counts; its lines carry ``[transformer phase +N s]``;
+ 20. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-18 print their step times (or seconds an image), peak memory and
+Phases 10-19 print their step times (or seconds an image), peak memory and
 wall time.  Phases 14-17 train each preset 2 steps (``CUT_STEPS``; 3 before
 phase 18 was added), which makes room for phase 18 in the time limit; every check they
-make stays (the raw headline's K1 launches are held to 2, one a step).
+make stays (the raw headline's K1 launches are held to 2, one a step).  Phase
+17 validates at batch 2, not 4, which makes room for phase 19.
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
@@ -212,6 +237,7 @@ the bound that PRs 1-2 reported.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import re
@@ -1423,10 +1449,11 @@ def reference_pth(model, path: Path) -> tuple[dict, int]:
     return want, len(pairs)
 
 
-def train_fitting(cfg, device, name: str, say, batches=(16, 8)) -> dict:
+def train_fitting(cfg, device, name: str, say, batches=(16, 8), before=None) -> dict:
     """Train ``cfg`` (its ``solver.max_iters`` steps) at the first of
-    ``batches`` (the preset's) that fits the card; returns the trainer, the
-    config run, the first batch (a copy), the history, launches and peak of
+    ``batches`` (the preset's) that fits the card, calling ``before(trainer)``
+    on each trainer before it trains; returns the trainer, the config run,
+    the first batch (a copy), the history, launches and peak of
     ``train_phase``, and the failure at the preset's batch (the allocator's
     message) or None."""
     import gc
@@ -1439,6 +1466,8 @@ def train_fitting(cfg, device, name: str, say, batches=(16, 8)) -> dict:
     for batch in batches:
         c = cfg.updated("train.batch_size", batch)
         trainer = Trainer(c, device)
+        if before is not None:
+            before(trainer)
         first, step = [], trainer.train_step
 
         def keep_first(state, b, step=step, first=first):
@@ -1650,9 +1679,6 @@ def run_raw_headline(device, root: Path, say) -> dict:
     """The headline at batch 8 from a Cityscapes tree of raw PNGs (no
     sidecars, every row filter), with PIL unimportable; then the sidecar
     tool on the tree."""
-    import importlib.util
-    import sys
-
     import numpy as np
     import torch
 
@@ -1669,10 +1695,7 @@ def run_raw_headline(device, root: Path, say) -> dict:
     say(f"wrote 8 train and 4 val frames of 1024x2048 as raw PNGs, rows cycling through filters "
         f"{FILTERS}, no sidecars, in {time.perf_counter() - t0:.1f} s")
     # PIL unimportable while the phase reads the tree: an import of it raises.
-    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "PIL"}
-    installed = importlib.util.find_spec("PIL") is not None if not saved else True
-    sys.modules["PIL"] = None
-    try:
+    with pil_unimportable() as (installed, loaded):
         fallbacks = native.PNG_LIBRARY.fallbacks
         images = sorted(root.glob("*/image/*.png"))
         labels = sorted(root.glob("*/label/*.png"))
@@ -1703,14 +1726,9 @@ def run_raw_headline(device, root: Path, say) -> dict:
                 ROOT / "build" / "pngunfilter"):
             raise AssertionError(f"the PNG unfilter came from {route} with "
                                  f"{native.PNG_LIBRARY.fallbacks - fallbacks} Python fallbacks")
-        if sys.modules.get("PIL") is not None:
-            raise AssertionError("the raw headline imported PIL")
-    finally:
-        sys.modules.pop("PIL", None)
-        sys.modules.update(saved)
     steps = history[1:]
     say(f"PNG unfilter: {Path(route).relative_to(ROOT)}, 0 Python fallbacks; PIL (installed: "
-        f"{installed}, loaded before the phase: {bool(saved)}) unimportable while the tree was "
+        f"{installed}, loaded before the phase: {loaded}) unimportable while the tree was "
         "read, trained on and validated")
     say(f"native decode (zlib + unfilter) of a 1024x2048 frame: RGB image median "
         f"{statistics.median(ms_image):.1f} ms (min {min(ms_image):.1f}, max {max(ms_image):.1f}), "
@@ -1793,8 +1811,8 @@ def run_raw_phase(device) -> dict:
                cfg.get("train_trans.random_crop.crop_size"))
         if got != want[dataset]:
             raise AssertionError(f"{preset}: batch, classes, crop {got}; want {want[dataset]}")
-        if preset in IDEAL_BG_NETS:
-            trainer = Trainer(cfg, device)
+        if preset in IDEAL_BG_NETS:  # its first forward raises: batch 2 reads less of the tree
+            trainer = Trainer(cfg.updated("train.batch_size", 2), device)
             try:
                 trainer.train()
                 raise AssertionError(f"{preset} trained without ground-truth labels")
@@ -1859,6 +1877,10 @@ def run_raw_phase(device) -> dict:
 
 SEGFIX_PRESETS = ("cityscapes_segfix_hrnet", "cityscapes_segfix_hrnet2x")
 SEGFIX_HW = (1024, 2048)  # the phase's frames, Cityscapes' size
+# Phase 17 validates at batch 2, not the presets' 4: at 4 cuDNN picks FFT
+# convolutions for the W48 trunk, 18.4-25.0 s a batch of 1024x2048 frames
+# (PERF.md section 5), which phase 19 needs the time of.
+SEGFIX_VAL_BATCH = 2
 
 
 def segfix_pth(cfg, path: Path) -> dict:
@@ -1950,6 +1972,7 @@ def run_segfix_phase(device) -> dict:
             raise AssertionError(f"{preset}: val batch, loader, net {got}")
         pth = root / f"{name}.pth"
         want = segfix_pth(cfg, pth)
+        cfg = cfg.updated("val.batch_size", SEGFIX_VAL_BATCH)
         vc = cfg.updated("network.pretrained", str(pth))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
@@ -1969,7 +1992,8 @@ def run_segfix_phase(device) -> dict:
                 and scores["miou"] == scores["dir_acc_gt"]):
             raise AssertionError(f"{preset} --phase val: {type(ev).__name__}, {scores}")
         peak_val = torch.cuda.max_memory_allocated(device)
-        images = torch.zeros((4, *hw, 3), device=device)
+        b = SEGFIX_VAL_BATCH
+        images = torch.zeros((b, *hw, 3), device=device)
         model.eval()
         ev.predict(images, hw)  # warm
         torch.cuda.synchronize()
@@ -1981,15 +2005,16 @@ def run_segfix_phase(device) -> dict:
         del images
         n_params = sum(p.numel() for p in model.parameters())
         r = {"params": n_params, "scores": {k: scores[k] for k in keys},
-             "images_per_sec": scores["images_per_sec"], "val_batch_seconds": 4 / scores[
+             "images_per_sec": scores["images_per_sec"], "val_batch_seconds": b / scores[
                  "images_per_sec"], "val_wall": wall, "model_seconds_batch": model_s,
              "peak_val": peak_val, "backbone": type(model.backbone).__name__}
         say(f"{preset} ({r['backbone']}, {n_params / 1e6:.2f} M) from a reference .pth, loaded "
-            f"bit for bit: --phase val at batch 4 (4 frames of {hw[0]}x{hw[1]}): mask_acc "
+            f"bit for bit: --phase val at batch {b} (the preset's 4; 4 frames of "
+            f"{hw[0]}x{hw[1]}): mask_acc "
             f"{scores['mask_acc']:.6f}, dir_acc_mask {scores['dir_acc_mask']:.6f}, "
             f"dir_acc_gt {scores['dir_acc_gt']:.6f} (= miou), {scores['images_per_sec']:.3f} "
             f"images/s, {r['val_batch_seconds']:.3f} s a val batch; the model's forward, "
-            f"resize and argmax on a batch of 4 alone {model_s:.3f} s "
+            f"resize and argmax on a batch of {b} alone {model_s:.3f} s "
             f"({100 * model_s / r['val_batch_seconds']:.1f}% of the batch); peak "
             f"{peak_val / 2**30:.3f} GiB; phase wall {wall:.1f} s")
         del out, trainer, model, ev
@@ -2191,6 +2216,26 @@ JPEG_TREES = {"ade20k": (151, 150), "coco_stuff": (172, 171), "pascal_context": 
               "camvid": (12, 12)}
 
 
+@contextlib.contextmanager
+def pil_unimportable():
+    """A block in which an import of PIL raises (phases 16, 18 and 19 read
+    their trees so); yields whether PIL is installed and whether it was
+    loaded before, and fails if the block imported it."""
+    import importlib.util
+    import sys
+
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "PIL"}
+    installed = importlib.util.find_spec("PIL") is not None if not saved else True
+    sys.modules["PIL"] = None
+    try:
+        yield installed, bool(saved)
+        if sys.modules.get("PIL") is not None:
+            raise AssertionError("the phase imported PIL")
+    finally:
+        sys.modules.pop("PIL", None)
+        sys.modules.update(saved)
+
+
 def write_jpeg_tree(root: Path, dataset: str, n_train: int = 16, n_val: int = 4,
                     seed: int = 0) -> list[str]:
     """A tree of ``dataset``'s layout, {root}/{split}/image/*.jpg and
@@ -2256,8 +2301,6 @@ def run_jpeg_phase(device) -> dict:
     Pascal-Context contrast presets in ``diverse_size``, and the pipeline's
     host seconds for an ADE20K batch of 16 at 1 and 4 workers."""
     import gc
-    import importlib.util
-    import sys
 
     import torch
 
@@ -2273,9 +2316,6 @@ def run_jpeg_phase(device) -> dict:
 
     root = ROOT / "build" / "chip_smoke_jpeg"
     shutil.rmtree(root, ignore_errors=True)
-    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "PIL"}
-    installed = importlib.util.find_spec("PIL") is not None if not saved else True
-    sys.modules["PIL"] = None  # an import of PIL raises while the phase runs
     total, results = collections.Counter(), {}
     sample, anchors = contrast.hard_anchor_sample, []
 
@@ -2284,7 +2324,7 @@ def run_jpeg_phase(device) -> dict:
         anchors.append((out.valid.shape[0], out.valid.sum()))
         return out
 
-    try:
+    with pil_unimportable() as (installed, loaded):  # an import of PIL raises in the phase
         fallbacks = native.JPEG_LIBRARY.fallbacks
         decode = check_jpeg_fixtures(say)
         t0 = time.perf_counter()
@@ -2369,16 +2409,269 @@ def run_jpeg_phase(device) -> dict:
                 ROOT / "build" / "jpegdecode"):
             raise AssertionError(f"the JPEG decoder came from {route} with "
                                  f"{native.JPEG_LIBRARY.fallbacks - fallbacks} fallbacks")
-        if sys.modules.get("PIL") is not None:
-            raise AssertionError("the JPEG phase imported PIL")
-    finally:
-        sys.modules.pop("PIL", None)
-        sys.modules.update(saved)
     say(f"JPEG decoder: {Path(route).relative_to(ROOT)}, 0 fallbacks; PIL (installed: "
-        f"{installed}, loaded before the phase: {bool(saved)}) unimportable while the fixtures "
+        f"{installed}, loaded before the phase: {loaded}) unimportable while the fixtures "
         "were checked and the trees were read, trained on and validated")
+    return {"decode_ms": decode, "nets": results, "launches": dict(total), "root": root}
+
+
+# Phase 19: SETR's published Cityscapes crop, and the nets on each family.
+SETR_CROP = 768
+SETR_NETS = ("setr_pup", "setr_mla", "setr_naive")
+FPN_BACKBONES = ("pvt_small", "svt_small")
+
+
+def seeded_reference_pth(cfg, path: Path) -> tuple[dict, int]:
+    """A seeded random-init net of ``cfg`` written by ``reference_pth`` (a
+    bias on every conv that feeds a BN); returns the tensors a load must give
+    and the number of biases."""
+    import torch
+
+    from contrastiveseg_tpu_torch.engine.state import init_weights
+    from contrastiveseg_tpu_torch.models.nets import build_model
+
+    model = build_model(cfg)
+    init_weights(model, torch.Generator().manual_seed(17))
+    return reference_pth(model, path)
+
+
+def run_transformer_phase(device, data_dir: Path, jpeg_root: Path) -> dict:
+    """Phase 19: the transformer and multi-scale families at full width,
+    trained 2 steps, one net of each family started from a reference
+    ``.pth`` of a seeded net (loaded bit for bit): ``ms_ocr`` on HRNet-W48 (``ms_fs_aux_rmi_loss``,
+    batch 8 of 1024x512, else 4) from the Cityscapes tree, then ``--phase
+    val`` at ``TEST_BATCH``; ``setr_pup``, ``setr_mla`` and ``setr_naive`` on
+    ViT-L at 768x768 (batch 2, else 1), then ``setr_pup``'s ``sscrop_test``
+    at 768x768 on a 1024x2048 frame; ``semantic_fpn`` on PVT-Small and
+    SVT-Small with AdamW (SVT with a gradient clip) from the ADE20K JPEG
+    tree, PIL unimportable (batch 16, else 8), then PVT-Small's ``--phase
+    val`` in ``diverse_size``, which resizes its position tables."""
+    import gc
+
+    import torch
+
+    from contrastiveseg_tpu_torch.models.vit import VIT_SPECS
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[transformer phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_transformer"
     shutil.rmtree(root, ignore_errors=True)
-    return {"decode_ms": decode, "nets": results, "launches": dict(total)}
+    root.mkdir(parents=True)
+    total, results = collections.Counter(), {}
+
+    def train(name, cfg, batches, extra_check=None, keep_latest=True, from_pth=False):
+        """Train ``cfg`` at the first of ``batches`` that fits (with
+        ``from_pth``, from the net's reference ``.pth``, held to load bit for
+        bit), and hold the losses and the parameters; returns the fit and
+        the result row."""
+        src = "a seeded init"
+        if from_pth:
+            t0 = time.perf_counter()
+            pth = root / f"{name}.pth"
+            want, n_bias = seeded_reference_pth(cfg, pth)
+            cfg = cfg.updated("network.pretrained", str(pth))
+            src = (f"a reference .pth ({pth.stat().st_size / 2**20:.1f} MiB, {n_bias} conv biases "
+                   f"folded, written in {time.perf_counter() - t0:.1f} s), every tensor loaded "
+                   "bit for bit")
+        loads, start = [], {}
+
+        def before(trainer):
+            model = trainer.state.model
+            if from_pth:
+                loads.append(loaded_exactly(model, want))
+            start.update({k: p.detach().cpu().clone() for k, p in model.named_parameters()})
+            if not keep_latest:  # the phase reads no checkpoint of it: skip the write
+                trainer.ckpt.save = lambda *args, **kwargs: None
+            if extra_check is not None:
+                extra_check(trainer)
+
+        fit = train_fitting(cfg, device, name, say, batches, before)
+        no_launch(fit["launches"], name, total)
+        if not all(loads):
+            raise AssertionError(f"{name}: the reference .pth did not load bit for bit")
+        model = fit["trainer"].state.model
+        n_tensors = len(start)
+        changed = sum(not torch.equal(p.detach().cpu(), start[k])
+                      for k, p in model.named_parameters())
+        n_params = sum(p.numel() for p in model.parameters())
+        if changed < n_tensors // 2:  # (biases before a BN start at 0 and keep no gradient)
+            raise AssertionError(f"{name}: {changed} of {n_tensors} parameters changed")
+        res = {"batch": fit["cfg"].get("train.batch_size"), "failure": fit["failure"],
+               "history": fit["history"], "peak": fit["peak"], "params": n_params}
+        say(f"{name} ({type(model).__name__}, {n_params / 1e6:.2f} M, "
+            f"{fit['cfg'].get('optim.optim_method')}, {fit['cfg'].get('loss.loss_type')}) from "
+            f"{src}; at batch {res['batch']} of "
+            f"{fit['cfg'].get('train_trans.random_crop.crop_size')} crops: steps "
+            f"{[round(r['seconds'] * 1e3, 1) for r in fit['history']]} ms, data wait "
+            f"{[round(r['data_seconds'] * 1e3, 1) for r in fit['history']]} ms, peak "
+            f"{fit['peak'] / 2**30:.3f} GiB, {changed} of {n_tensors} parameters changed, 0 "
+            "launches of K1-K3" + (f" (at its batch {batches[0]}: {fit['failure']})"
+                                   if fit["failure"] else ""))
+        return fit, res
+
+    # (a) MscaleOCR on HRNet-W48: the trunk at 0.5x and 1.0x.
+    cfg = directory_config("cityscapes_hrnet_w48_ocr", data_dir, root / "ckpt" / "ms_ocr", [
+        "network.model_name=ms_ocr", "loss.loss_type=ms_fs_aux_rmi_loss",
+        f"solver.max_iters={CUT_STEPS}"])
+    if (cfg.get("train.batch_size"), cfg.get("network.backbone"),
+            cfg.get("train_trans.random_crop.crop_size")) != (8, "hrnet48", [1024, 512]):
+        raise AssertionError("ms_ocr: not HRNet-W48 at batch 8 of 1024x512")
+    seen = {"bn_calls": 0, "shapes": None}
+
+    def watch(trainer):
+        model = trainer.state.model
+        bn = next(m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d))
+        seen["bn"], seen["bn_calls"] = bn, 0
+        seen["mean0"] = bn.running_mean.clone()
+        bn.register_forward_hook(lambda *a: seen.__setitem__("bn_calls", seen["bn_calls"] + 1))
+        model.register_forward_hook(lambda m, i, o: seen.__setitem__("shapes", (
+            tuple(i[0].shape), {k: tuple(v.shape) for k, v in o.items()})))
+
+    fit, res = train("ms_ocr", cfg, (8, 4), watch, from_pth=True)
+    (x_shape, shapes), steps = seen["shapes"], len(fit["history"])
+    moved = not torch.equal(seen["bn"].running_mean, seen["mean0"])
+    if (seen["bn_calls"] != 2 * steps or not moved
+            or shapes["pred_05x"][1:3] != (x_shape[1] // 2, x_shape[2] // 2)
+            or shapes["seg"][1:3] != x_shape[1:3]):
+        raise AssertionError(f"ms_ocr: BN calls {seen['bn_calls']} in {steps} steps, moved "
+                             f"{moved}, shapes {x_shape} -> {shapes}")
+    say(f"ms_ocr: the stem BN ran {seen['bn_calls']} times in {steps} steps (the trunk at 0.5x "
+        f"and 1.0x) and its running statistics moved; a {x_shape[1]}x{x_shape[2]} batch gives "
+        f"pred_05x {shapes['pred_05x'][1:3]}, seg {shapes['seg'][1:3]}; loss_seg (RMI + aux) "
+        f"{[round(r['loss_seg'], 4) for r in fit['history']]}, loss (+ 0.05 x the two scales' "
+        f"CE) {[round(r['loss'], 4) for r in fit['history']]}")
+    latest = fit["trainer"].ckpt._path("latest")
+    c = fit["cfg"]
+    del fit
+    gc.collect()
+    torch.cuda.empty_cache()
+    vc = c.updated("network.resume", latest).updated("val.batch_size", TEST_BATCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = run(vc, "val", device)["scores"]
+    no_launch(read_counts(), "ms_ocr --phase val", total)
+    if not 0.0 <= scores["miou"] <= 1.0:
+        raise AssertionError(f"ms_ocr --phase val gave no mIoU: {scores}")
+    res["val"] = {"miou": scores["miou"], "images_per_sec": scores["images_per_sec"],
+                  "peak": torch.cuda.max_memory_allocated(device),
+                  "wall": time.perf_counter() - t0}
+    say(f"ms_ocr --phase val (4 frames of 1024x2048, batch {TEST_BATCH}): mIoU "
+        f"{scores['miou']:.6f}, {scores['images_per_sec']:.3f} images/s, peak "
+        f"{res['val']['peak'] / 2**30:.3f} GiB, wall {res['val']['wall']:.1f} s")
+    results["ms_ocr"] = res
+    shutil.rmtree(root / "ckpt", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) SETR on ViT-L at the published 768x768 Cityscapes crop.
+    crop = f"[{SETR_CROP},{SETR_CROP}]"
+    for name in SETR_NETS:
+        cfg = directory_config("cityscapes_hrnet_w48", data_dir, root / "ckpt" / name, [
+            f"network.model_name={name}", "network.backbone=vit_large",
+            f"train.data_transformer.input_size={crop}",
+            f"train_trans.random_crop.crop_size={crop}", f"solver.max_iters={CUT_STEPS}"])
+        # setr_pup from its reference .pth, which its test below starts from too
+        fit, res = train(name, cfg, (2, 1), keep_latest=False, from_pth=name == "setr_pup")
+        model, vit_l = fit["trainer"].state.model, VIT_SPECS["vit_large"]
+        if (model.spec, model.grid) != (vit_l, (SETR_CROP // vit_l.patch_size,) * 2):
+            raise AssertionError(f"{name}: not ViT-L on the crop's grid")
+        del fit, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        results[name] = res
+    frame = root / "frame"
+    frame.mkdir()
+    src = sorted((data_dir / "val" / "image").glob("*.png"))[0]
+    shutil.copyfile(src, frame / src.name)
+    c = (cfg.updated("network.model_name", "setr_pup")
+         .updated("network.pretrained", str(root / "setr_pup.pth"))
+         .updated("test.mode", "sscrop_test").updated("test.crop_size", [SETR_CROP, SETR_CROP])
+         .updated("test.batch_size", 1).updated("test.test_dir", str(frame))
+         .updated("test.out_dir", str(root / "setr_test")))
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    tester = run(c, "test", device)["tester"]
+    no_launch(read_counts(), "setr_pup sscrop_test", total)
+    labels = list((root / "setr_test" / "label").glob("*.png"))
+    if tester.timing["images"] != 1 or len(labels) != 1:
+        raise AssertionError(f"setr_pup sscrop_test wrote {len(labels)} label PNGs")
+    results["setr_pup"]["test"] = {"seconds": tester.timing["seconds"],
+                                   "infer_seconds": tester.timing["infer_seconds"],
+                                   "peak": torch.cuda.max_memory_allocated(device)}
+    say(f"setr_pup --phase test sscrop_test (crops of {SETR_CROP}x{SETR_CROP}, the net's grid) "
+        f"on one 1024x2048 frame: {tester.timing['seconds']:.3f} s ({tester.timing['infer_seconds']:.3f} s "
+        f"in the model), peak {results['setr_pup']['test']['peak'] / 2**30:.3f} GiB, wall "
+        f"{time.perf_counter() - t0:.1f} s; a 1024x2048 ss_test would raise: the position "
+        "table is the crop's grid")
+    del tester
+    (root / "setr_pup.pth").unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Semantic-FPN on PVT-Small and Twins-SVT-Small, the PVT recipe's AdamW.
+    with pil_unimportable() as (installed, loaded):
+        for backbone in FPN_BACKBONES:
+            extra = ["network.model_name=semantic_fpn", f"network.backbone={backbone}",
+                     "optim.optim_method=adamw", "lr.base_lr=0.0001",
+                     "optim.adamw.weight_decay=0.0001", f"solver.max_iters={CUT_STEPS}"]
+            if backbone.startswith("svt"):
+                extra.append("network.clip_grad_norm=1.0")
+            cfg = directory_config("ade20k_hrnet_w48", jpeg_root / "ade20k",
+                                   root / "ckpt" / backbone, extra)
+            clips = []
+
+            def count_clips(trainer, clip=cfg.get("network.clip_grad_norm", default=None)):
+                if clip:  # the optimizer's pre-hook clips; count the steps whose norm it cut
+                    params = list(trainer.state.model.parameters())
+                    trainer.state.optimizer.register_step_pre_hook(lambda *a: clips.append(float(
+                        torch.linalg.vector_norm(torch.stack([
+                            torch.linalg.vector_norm(p.grad) for p in params])))))
+
+            name = f"semantic_fpn/{backbone}"
+            pvt = backbone == "pvt_small"
+            fit, res = train(name.replace("/", "_"), cfg, (16, 8), count_clips,
+                             keep_latest=pvt, from_pth=pvt)
+            opt = fit["trainer"].state.optimizer
+            if type(opt).__name__ != "AdamW" or (backbone.startswith("svt") and not (
+                    len(clips) == len(fit["history"]) and all(n <= 1.0 + 1e-4 for n in clips))):
+                raise AssertionError(f"{name}: {type(opt).__name__}, gradient norms after the "
+                                     f"clip {clips}")
+            if clips:
+                say(f"{name}: network.clip_grad_norm=1.0 ran on the card each step, global norms "
+                    f"after it {[round(n, 4) for n in clips]}")
+            res["clip_norms"] = clips
+            latest = fit["trainer"].ckpt._path("latest")
+            c = fit["cfg"]
+            del fit, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+            if pvt:
+                vc = c.updated("network.resume", latest)
+                torch.cuda.reset_peak_memory_stats(device)
+                reset_counts()
+                t0 = time.perf_counter()
+                scores = run(vc, "val", device)["scores"]
+                no_launch(read_counts(), f"{name} --phase val", total)
+                if not 0.0 <= scores["miou"] <= 1.0:
+                    raise AssertionError(f"{name} --phase val gave no mIoU: {scores}")
+                res["val"] = {"miou": scores["miou"], "images_per_sec": scores["images_per_sec"],
+                              "peak": torch.cuda.max_memory_allocated(device),
+                              "wall": time.perf_counter() - t0}
+                say(f"{name} --phase val, diverse_size (4 ADE20K JPEG frames, each at its own "
+                    f"size: the position tables resized to its grids): mIoU {scores['miou']:.6f}, "
+                    f"{scores['images_per_sec']:.3f} images/s, peak "
+                    f"{res['val']['peak'] / 2**30:.3f} GiB, wall {res['val']['wall']:.1f} s")
+            results[name] = res
+    say(f"PIL (installed: {installed}, loaded before the phase: {loaded}) unimportable while the "
+        "JPEG tree was read, trained on and validated")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"nets": results, "launches": dict(total)}
 
 
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
@@ -2678,6 +2971,10 @@ def main() -> None:
     t0 = time.perf_counter()
     jp = run_jpeg_phase(device)
     print(f"jpeg phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tf = run_transformer_phase(device, dr["data_dir"], jp["root"])
+    print(f"transformer phase wall time {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(jp["root"], ignore_errors=True)
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
     print(f"flag-off slice: steps 2-3 {[round(r['seconds'] * 1e3, 1) for r in sl['history'][1:]]}"
@@ -2716,7 +3013,7 @@ def main() -> None:
           + " (same call)")
 
     print("segfix phase: " + "; ".join(
-        f"{n}: val {r['val_batch_seconds']:.3f} s a batch of 4 (model "
+        f"{n}: val {r['val_batch_seconds']:.3f} s a batch of {SEGFIX_VAL_BATCH} (model "
         f"{r['model_seconds_batch']:.3f} s), test_offset {r['test']['seconds_image']:.3f} s an "
         f"image, loss step at batch 16 {sp['loss'][n]['seconds'][1] * 1e3:.1f} ms, "
         f"{sp['loss'][n]['peak'] / 2**30:.3f} GiB" for n, r in sp["nets"].items())
@@ -2736,6 +3033,13 @@ def main() -> None:
         + f"; decode {statistics.median(jp['decode_ms'].values()):.2f} ms a fixture (median); "
         f"pipeline {ade_host[1]:.3f} s an ADE20K batch of 16 at 1 worker, {ade_host[4]:.3f} s "
         "at 4 (same call)")
+    print("transformer phase: " + "; ".join(
+        f"{n} ({r['params'] / 1e6:.2f} M) at batch {r['batch']}: steps after the first "
+        f"{[round(x['seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, data wait "
+        f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
+        f"{r['peak'] / 2**30:.3f} GiB" + (f", val {r['val']['images_per_sec']:.3f} images/s"
+                                          if "val" in r else "")
+        for n, r in tf["nets"].items()) + " (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -2786,12 +3090,13 @@ def main() -> None:
         "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
         "max_abs_err_fp32": k3["errs"]["fp32"],
     })
-    for row in rows:  # summed over every run of phases 14-18; 14, 15, 17, 18 fail on one
+    for row in rows:  # summed over every run of phases 14-19; 14, 15, 17-19 fail on one
         row["launches_models_phase"] = mp["launches"][row["name"]]
         row["launches_context_phase"] = cp["launches"][row["name"]]
         row["launches_raw_phase"] = rp["launches"].get(row["name"], 0)
         row["launches_segfix_phase"] = sp["launches"].get(row["name"], 0)
         row["launches_jpeg_phase"] = jp["launches"].get(row["name"], 0)
+        row["launches_transformer_phase"] = tf["launches"].get(row["name"], 0)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -47,8 +47,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init: conv and linear kernels lecun-normal (flax's default,
     std 1/sqrt(fan_in), a grouped conv's fan-in that of one group), or 0
     where the conv is marked ``zero_init`` (BaseOC's ``W``,
-    ``models/layers.conv``); biases 0, BN scale 1 / bias 0 / stats 0, 1.
-    Other parameters (CCNet's ``gamma``) keep their own init."""
+    ``models/layers.conv``); biases 0, BN scale 1 / bias 0 / stats 0, 1,
+    LayerNorm scale 1 / bias 0; a module's other tensors from its own
+    ``seeded_init(generator)`` (the ViT and PVT position tables) where it
+    has one.  Other parameters (CCNet's ``gamma``) keep their own init."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -56,8 +58,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(0 * w if getattr(m, "zero_init", False) else w)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
+        if hasattr(m, "seeded_init"):
+            m.seeded_init(generator)
 
 
 def create_train_state(cfg, model: nn.Module, device: torch.device | str,

@@ -23,6 +23,12 @@ resized to the image's original size), which ``tools/segfix_torch.py``
 applies to another net's label PNGs; ``tools/train_torch.py --phase test``
 picks it for a ``segfix*`` net, as ``tools/train.py`` does.
 
+The SETR nets run at their train crop only (their position table has a
+row a patch of it, as the JAX ``model.init`` sizes it): ``sscrop_test`` with
+``test.crop_size`` the crop tests them, as in the JAX tester, and any other
+mode raises the model's ``ValueError``.  MS-OCR's and Semantic-FPN's
+``seg`` is at the input's size, like the other plain nets'.
+
 Not ported: ``crf_ss_test`` (needs ``ops/crf.py``, ROADMAP 8); refused.
 """
 

@@ -5,9 +5,8 @@ lib/loss/loss_manager.py:27-42), with the JAX builders' config reads: the
 CE and OHEM losses, the contrast losses (their seg term CE, RMI with
 ``contrast.use_rmi`` or CE + Lovasz with ``contrast.use_lovasz``), the RMI
 losses (``rmi_loss``, ``fs_rmi_loss``, ``fs_aux_rmi_loss``; :94-183) and
-``fs_ce_lovasz_loss`` (:186-207) and ``segfix_loss`` (:252-259,
-``losses/segfix.py``).  MscaleOCR's ``ms_fs_aux_rmi_loss`` (ROADMAP 7.5,
-its net is not ported) is refused by name.
+``fs_ce_lovasz_loss`` (:186-207), MscaleOCR's ``ms_fs_aux_rmi_loss``
+(:221-249) and ``segfix_loss`` (:252-259, ``losses/segfix.py``).
 """
 
 from __future__ import annotations
@@ -127,6 +126,28 @@ class LovaszSegLoss:
         return loss, {"loss_seg": loss, "loss": loss}
 
 
+@dataclasses.dataclass(frozen=True)
+class MsAuxRMILoss:
+    """``ms_fs_aux_rmi_loss``: ``fs_aux_rmi_loss`` on ``seg`` and
+    ``seg_aux``, plus ``scale_weight`` times the CE of each of MscaleOCR's
+    ``pred_05x`` and ``pred_10x`` (the labels scaled nearest to
+    ``pred_05x``'s half size); ``loss_seg`` is the RMI + aux term."""
+
+    rmi: RMISegLoss
+    scale_weight: float = 0.05
+    class_weight: Optional[tuple[float, ...]] = None
+    ignore_index: int = -1
+
+    def __call__(self, outputs, targets, with_embed=True, bank=None, scores=None,
+                 generator=None):
+        loss, metrics = self.rmi(outputs, targets)
+        for k in ("pred_05x", "pred_10x"):
+            if k in outputs:
+                loss = loss + self.scale_weight * cross_entropy(
+                    outputs[k], targets, self.class_weight, self.ignore_index)
+        return loss, {**metrics, "loss": loss}
+
+
 def _rmi(cfg, use_aux: bool) -> RMISegLoss:
     return RMISegLoss(cfg.get("data.num_classes"), _rmi_params(cfg), use_aux,
                       **_aux_weights(cfg), **_common(cfg))
@@ -150,6 +171,9 @@ LOSSES = {
     "fs_rmi_loss": lambda cfg: _rmi(cfg, use_aux=False),
     "fs_aux_rmi_loss": lambda cfg: _rmi(cfg, use_aux=True),
     "fs_ce_lovasz_loss": lambda cfg: LovaszSegLoss(**_common(cfg)),
+    "ms_fs_aux_rmi_loss": lambda cfg: MsAuxRMILoss(
+        _rmi(cfg, use_aux=True),
+        cfg.get("loss.params.ms_scale_weight", default=0.05), **_common(cfg)),
     "segfix_loss": lambda cfg: SegFixLoss(
         num_directions=cfg.get("data.dt_num_classes", default=8),
         mask_threshold=cfg.get("loss.params.mask_threshold", default=0.5),
@@ -157,16 +181,11 @@ LOSSES = {
         direction_weight=cfg.get("loss.params.direction_weight", default=1.0)),
 }
 
-NOT_PORTED = {
-    "ms_fs_aux_rmi_loss": "ROADMAP 8 (MscaleOCR's loss; its ms_ocr net, ROADMAP 7.5, is not ported)",
-}
 
 
 def build_loss(cfg):
     """LossManager.get_seg_loss for the losses the port has."""
     name = cfg.get("loss.loss_type")
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"loss.loss_type={name!r} is not ported yet: {NOT_PORTED[name]}")
     if name not in LOSSES:
         raise KeyError(f"unknown loss {name!r}; the port has {sorted(LOSSES)}")
     return LOSSES[name](cfg)

@@ -21,6 +21,7 @@ from torch import nn
 
 from contrastiveseg_tpu_torch.ops.conv import supported
 from contrastiveseg_tpu_torch.ops.conv_cuda import conv3x3
+from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_half_pixel_nchw
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -147,3 +148,17 @@ class Bottleneck(nn.Module):
         out = self.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         return self.relu(out + residual)
+
+
+class Upsample(nn.Module):
+    """x ``factor`` half-pixel bilinear upsample of an NCHW map (the
+    reference's ``nn.Upsample(scale_factor, mode="bilinear")``, align_corners
+    False; JAX ``resize_bilinear_half_pixel``)."""
+
+    def __init__(self, factor: int):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return resize_bilinear_half_pixel_nchw(
+            x, (x.shape[2] * self.factor, x.shape[3] * self.factor))

@@ -50,6 +50,27 @@ the JAX package; inside, the models run NCHW and permute once, here.
   "dir": data.dt_num_classes logits}`` at that stride.  Like the JAX net it
   takes no ``pallas_conv``.
 
+* ``MscaleOCR`` (``ms_ocr``, :756-852; reference ms_ocrnet.py): the
+  hierarchical multi-scale attention OCR on HRNet.  One trunk (the backbone,
+  ``ocr``: the OCR block with its aux head, and ``scale_attn``) runs at 0.5x
+  and at 1.0x, so each BN's running statistics move twice a train step, the
+  0.5x ones first, as flax's shared submodule moves them; the 0.5x attention
+  fuses ``up(attn * p_05x) + (1 - up(attn)) * p_10x``, and likewise the aux
+  logits, all half-pixel bilinear.  Outputs ``seg``/``pred`` and
+  ``aux``/``seg_aux`` at the input size, ``pred_05x``/``attn_05x`` at half of
+  it, ``pred_10x``.
+* ``models/vit.SETR`` (``setr_naive``, ``setr_pup``, ``setr_mla``,
+  :900-918) on ``network.backbone`` (a ``vit_*`` name, else ``vit_base``),
+  its position table sized by the train crop.
+* ``PyramidSegNet`` (``semantic_fpn``, :921-1020; reference
+  nets/semantic_fpn.py): a ``backbone_selector`` backbone (PVT, PCPVT, SVT,
+  HRNet, ...), the FPN ``neck`` (biased 1x1 laterals, nearest top-down sum,
+  biased 3x3 convs) and the ``decoder`` (a scale head a level: 3x3
+  ConvBNReLU then x2 half-pixel upsamples down to stride 4, summed, 1x1
+  ``cls_seg``), the logits upsampled to the input (align corners).  The JAX
+  ``FPNSemanticDecoder`` is ``FPNNeck`` and ``FPNSemanticDecoder`` here,
+  under the reference's keys.
+
 With a projection head, ``seg`` and ``seg_aux`` stay at the network's
 stride (4 for HRNet, 8 for DeepLab) and the loss upsamples them; without,
 both are upsampled to the input here.  Module names follow the reference's
@@ -57,6 +78,9 @@ torch keys.
 """
 
 from __future__ import annotations
+
+import math
+from collections import OrderedDict
 
 import torch
 from torch import nn
@@ -77,11 +101,15 @@ from contrastiveseg_tpu_torch.models.heads import (
     conv_bn_relu,
 )
 from contrastiveseg_tpu_torch.models.hrnet import HRNET_SPECS, HRNEXT_SPECS, HRNet, HRNetNext
-from contrastiveseg_tpu_torch.models.layers import ConvBN, TorchBatchNorm, conv
+from contrastiveseg_tpu_torch.models.layers import ConvBN, TorchBatchNorm, Upsample, conv
 from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR, SpatialOCRASP
+from contrastiveseg_tpu_torch.models.backbone_selector import build_backbone
 from contrastiveseg_tpu_torch.models.resnet import ResNet, backbone_spec
+from contrastiveseg_tpu_torch.models.vit import SETR, VIT_SPECS, ViTFeatures
 from contrastiveseg_tpu_torch.ops.resize import (
     resize_bilinear_align_corners_nchw,
+    resize_bilinear_half_pixel_nchw,
+    resize_nearest_nchw,
     scale_target_nearest,
 )
 
@@ -585,9 +613,171 @@ def _ce2p(context: str):
 MODELS.update({"ce2p_asp_ocrnet": _ce2p("asp_ocr"), "ce2p_ocrnet": _ce2p("ocr"),
                "ce2p_ideal_ocrnet": _ce2p("ocr")})
 
+class _MsOCRTrunk(nn.Module):
+    """The trunk of ``MscaleOCR`` (JAX ``_MsOCRTrunk``; the reference's
+    OCR_block and make_attn_head): ``backbone`` (HRNet), ``ocr``
+    (``conv3x3_ocr`` 3x3 ConvBNReLU to 256, ``aux_head`` 3x3 ConvBNReLU to
+    256 and a biased 1x1 to the classes, ``ocr_gather_head``,
+    ``ocr_distri_head`` (``SpatialOCR`` key 128, out 256), biased 1x1
+    ``cls_head``) and ``scale_attn`` (two 3x3 ConvBNReLU of 256, a bias-free
+    1x1 to one channel, sigmoid)."""
+
+    def __init__(self, num_classes: int, arch: str = "hrnet48"):
+        super().__init__()
+        self.backbone = HRNet(HRNET_SPECS[arch])
+        width = sum(self.backbone.out_channels)
+        self.ocr = nn.Module()
+        self.ocr.conv3x3_ocr = conv_bn_relu(width, 256, 3)
+        self.ocr.aux_head = nn.Sequential(*conv_bn_relu(width, 256, 3),
+                                          conv(256, num_classes, 1, bias=True))
+        self.ocr.ocr_gather_head = SpatialGather()
+        self.ocr.ocr_distri_head = SpatialOCR(256, 128, 256, 0.05)
+        self.ocr.cls_head = conv(256, num_classes, 1, bias=True)
+        self.scale_attn = nn.Sequential(OrderedDict([
+            ("conv0", conv(256, 256, 3)), ("bn0", TorchBatchNorm(256)), ("re0", nn.ReLU()),
+            ("conv1", conv(256, 256, 3)), ("bn1", TorchBatchNorm(256)), ("re1", nn.ReLU()),
+            ("conv2", conv(256, 1, 1)), ("sig", nn.Sigmoid())]))
+
+    def trunk(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """NCHW images -> the class logits, aux logits and attention, each
+        upsampled (half-pixel) to the images' size."""
+        cat = _fuse(self.backbone(x))
+        aux = self.ocr.aux_head(cat)
+        f = self.ocr.conv3x3_ocr(cat)
+        f = self.ocr.ocr_distri_head(f, self.ocr.ocr_gather_head(f, aux))
+        size = x.shape[2:]
+        return {k: resize_bilinear_half_pixel_nchw(v, size) for k, v in (
+            ("cls_out", self.ocr.cls_head(f)), ("aux_out", aux),
+            ("logit_attn", self.scale_attn(f)))}
+
+
+class MscaleOCR(_MsOCRTrunk):
+    """Hierarchical multi-scale attention OCR (two scales, 0.5x and 1.0x)."""
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        x = x.permute(0, 3, 1, 2)
+        size = x.shape[2:]
+        lo = self.trunk(resize_bilinear_half_pixel_nchw(x, (size[0] // 2, size[1] // 2)))
+        hi = self.trunk(x)
+        attn = lo["logit_attn"]
+        attn_up = resize_bilinear_half_pixel_nchw(attn, size)
+        pred = (resize_bilinear_half_pixel_nchw(attn * lo["cls_out"], size)
+                + (1.0 - attn_up) * hi["cls_out"])
+        aux = (resize_bilinear_half_pixel_nchw(attn * lo["aux_out"], size)
+               + (1.0 - attn_up) * hi["aux_out"])
+        out = {"seg": pred, "pred": pred, "aux": aux, "seg_aux": aux,
+               "pred_05x": lo["cls_out"], "pred_10x": hi["cls_out"], "attn_05x": attn}
+        return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
+
+
+class FPNNeck(nn.Module):
+    """mmseg's FPN: biased 1x1 ``lateral_convs``, each coarser lateral added
+    to the next finer one by a nearest resize (coarsest first), biased 3x3
+    ``fpn_convs``."""
+
+    def __init__(self, in_channels, fpn_dim: int = 256):
+        super().__init__()
+        self.lateral_convs = nn.ModuleList(conv(c, fpn_dim, 1, bias=True) for c in in_channels)
+        self.fpn_convs = nn.ModuleList(conv(fpn_dim, fpn_dim, 3, bias=True)
+                                       for _ in in_channels)
+
+    def forward(self, feats: list[torch.Tensor]) -> list[torch.Tensor]:
+        laterals = [lat(f) for lat, f in zip(self.lateral_convs, feats)]
+        for i in range(len(laterals) - 1, 0, -1):
+            laterals[i - 1] = laterals[i - 1] + resize_nearest_nchw(
+                laterals[i], laterals[i - 1].shape[2:])
+        return [c(f) for c, f in zip(self.fpn_convs, laterals)]
+
+
+class FPNSemanticDecoder(nn.Module):
+    """SemanticFPN's decoder: ``scale_heads`` (a level of stride s:
+    max(1, log2(s / 4)) 3x3 ConvBNReLU of ``channels``, each followed on
+    the coarser levels by a x2 half-pixel upsample: slots conv ``3k``,
+    BNReLU ``3k+1``, upsample ``3k+2``; ``2k``, ``2k+1`` on the finest), summed
+    (half-pixel resized to the finest), and the 1x1 ``cls_seg``."""
+
+    def __init__(self, num_classes: int, fpn_dim: int = 256, channels: int = 128,
+                 feature_strides: tuple[int, ...] = (4, 8, 16, 32)):
+        super().__init__()
+        s0 = feature_strides[0]
+        heads = []
+        for i, s in enumerate(feature_strides):
+            layers = []
+            for k in range(max(1, int(math.log2(s) - math.log2(s0)))):
+                layers += conv_bn_relu(fpn_dim if k == 0 else channels, channels, 3)
+                if s != s0:
+                    layers.append(Upsample(2))
+            heads.append(nn.Sequential(*layers))
+        self.scale_heads = nn.ModuleList(heads)
+        self.cls_seg = conv(channels, num_classes, 1, bias=True)
+
+    def forward(self, feats: list[torch.Tensor]) -> torch.Tensor:
+        merged = None
+        for head, f in zip(self.scale_heads, feats):
+            f = head(f)
+            merged = f if merged is None else merged + resize_bilinear_half_pixel_nchw(
+                f, merged.shape[2:])
+        return self.cls_seg(merged)
+
+
+class PyramidSegNet(nn.Module):
+    """Semantic-FPN on a 4-scale backbone: ``backbone``, ``neck``,
+    ``decoder``; ``{"seg": NHWC logits upsampled to the input}``."""
+
+    def __init__(self, num_classes: int, backbone: str = "pvt_small", fpn_dim: int = 256,
+                 img_size: int = 224, input_hw: tuple[int, int] | None = None):
+        super().__init__()
+        self.backbone = build_backbone(backbone, img_size, input_hw)
+        # The reference builds SemanticFPN on PVT-family (and HRNet) trunks;
+        # the ViT adapter's names are the JAX package's.
+        self.reference_layout = not isinstance(self.backbone, ViTFeatures)
+        self.neck = FPNNeck(self.backbone.out_channels, fpn_dim)
+        self.decoder = FPNSemanticDecoder(num_classes, fpn_dim)
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        seg = self.decoder(self.neck(self.backbone(x.permute(0, 3, 1, 2))))
+        seg = resize_bilinear_align_corners_nchw(seg, x.shape[1:3])
+        return {"seg": seg.permute(0, 2, 3, 1)}
+
+
+def _train_hw(cfg) -> tuple[int, int]:
+    """The train crop (H, W): ``train.data_transformer.input_size`` is [W, H]."""
+    w, h = cfg.get("train.data_transformer.input_size", default=[224, 224])
+    return int(h), int(w)
+
+
+def _setr(decoder: str):
+    def build(cfg) -> SETR:
+        backbone = cfg.get("network.backbone", default="vit_base")
+        arch = backbone if backbone.startswith("vit") else "vit_base"
+        p = VIT_SPECS[arch].patch_size
+        h, w = _train_hw(cfg)
+        return SETR(cfg.get("data.num_classes"), arch, decoder, grid=(h // p, w // p))
+
+    return build
+
+
+def _semantic_fpn(cfg) -> PyramidSegNet:
+    # img_size = input_size[0] (JAX nets.py:1012-1019), the train width.
+    h, w = _train_hw(cfg)
+    return PyramidSegNet(cfg.get("data.num_classes"),
+                         cfg.get("network.backbone", default="pvt_small"),
+                         img_size=w, input_hw=(h, w))
+
+
+def _ms_ocr(cfg) -> MscaleOCR:
+    backbone = cfg.get("network.backbone", default="hrnet48")
+    return MscaleOCR(cfg.get("data.num_classes"),
+                     backbone if backbone in HRNET_SPECS else "hrnet48")
+
+
+MODELS.update({"setr_naive": _setr("naive"), "setr_pup": _setr("pup"),
+               "setr_mla": _setr("mla"), "semantic_fpn": _semantic_fpn, "ms_ocr": _ms_ocr})
+
 # Models of the JAX registry that the port refuses by name until they are ported.
 _LATER_MODELS = {
-    f"hrnet_w{w}_ocr_b_ha": "ROADMAP 7 (HANet height attention)" for w in (18, 32, 48, 64)}
+    **{f"hrnet_w{w}_ocr_b_ha": "ROADMAP 7 (HANet height attention)" for w in (18, 32, 48, 64)},
+    "deeplab_v3_mobilenet": "ROADMAP 7 (other models: mobilenet)"}
 
 # Config switches of the JAX models that the port does not have yet; a
 # config that turns one on is refused rather than silently ignored.

@@ -27,6 +27,16 @@ backbone as SegFix's does.  A ResNeSt backbone (``radix``) maps each
 block's ``SplitAttentionConv`` (``conv2``: ``conv``, ``norm``, ``fc1``,
 ``fc_bn``, ``fc2``) onto the port's names; the JAX package has no
 reference ``.pth`` map for it.
+``MscaleOCR`` (``ms_ocr_key``), ``SETR`` (``setr_key``: the encoder's
+``_setr_encoder_path``) and ``PyramidSegNet`` (``pyramid_key``:
+``semantic_fpn_decoder_path`` and the backbone's map, ``pvt_key`` for PVT
+(``pvt_backbone_path``) and PCPVT/SVT (``pcpvt_backbone_path``)) map onto
+the reference layouts too.  Where a port tensor is not the JAX leaf
+transposed, the map returns a ``Leaf`` with its conversion: SETR's patch
+embed (a conv kernel here, the reference's ``Linear`` in the port) and
+position table, PVT v1's tables ([1, g, g, C] -> [1, g*g, C]), and PVT's
+separate ``k``/``v`` dense layers, which fill the halves of the fused
+``kv`` (``part`` 0 and 1, stacked along the output rows).
 The oracle nets share ``SpatialOCRNet``'s map (``mapper_for_model``,
 torch_import.py:958-962).  ``CE2PNet``'s map depends on its context:
 ``asp_ocr`` in the reference's layout, ``ocr`` and ``psp`` under the JAX
@@ -42,7 +52,7 @@ from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -59,14 +69,32 @@ from contrastiveseg_tpu_torch.models.nets import (
     HRNetOCRSeg,
     HRNetSeg,
     ISANet,
+    MscaleOCR,
+    PyramidSegNet,
     ResNetContextNet,
     SegFixHRNet,
     SpatialOCRNet,
 )
-from contrastiveseg_tpu_torch.models.hrnet import HRNetNext
+from contrastiveseg_tpu_torch.models.hrnet import HRNet, HRNetNext
+from contrastiveseg_tpu_torch.models.pvt import PVT
+from contrastiveseg_tpu_torch.models.resnet import ResNet
+from contrastiveseg_tpu_torch.models.vit import SETR, ViTFeatures
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
+
+
+class Leaf(NamedTuple):
+    """A port tensor that is not just the JAX leaf (transposed): ``convert``
+    takes the JAX array to the port's layout; ``part`` k places it as the
+    k-th block of rows of a tensor that several leaves fill."""
+
+    key: str
+    convert: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    part: Optional[int] = None
+
+
+Target = Optional[Union[str, Leaf]]
 
 
 def flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -149,7 +177,9 @@ def _proj_head(sub: tuple) -> Optional[str]:
     return None
 
 
-def _prefixed(prefix: str, key: Optional[str]) -> Optional[str]:
+def _prefixed(prefix: str, key: Target) -> Target:
+    if isinstance(key, Leaf):
+        return key._replace(key=f"{prefix}.{key.key}")
     return None if key is None else f"{prefix}.{key}"
 
 
@@ -536,6 +566,191 @@ def ce2p_key(context: str):
     return key
 
 
+def ms_ocr_key(path: tuple) -> Optional[str]:
+    """flax leaf path of ``MscaleOCR`` (everything under its shared trunk
+    ``ocr``) -> the port's key (torch_import.ms_ocr_path)."""
+    if path[0] != "ocr":
+        return None
+    sub = path[1:]
+    if sub[0] == "backbone":
+        return _prefixed("backbone", _backbone_key(sub[1:]))
+    if sub[0] in ("conv3x3_ocr", "aux_conv"):
+        return _cbr("ocr." + {"conv3x3_ocr": "conv3x3_ocr", "aux_conv": "aux_head"}[sub[0]],
+                    sub[1:])
+    if sub[0] == "aux_cls":
+        return _plain_conv("ocr.aux_head.2", sub[1:])
+    if sub[0] == "ocr_distri":
+        return _ocr_distri(sub[1:], base="ocr.ocr_distri_head")
+    if sub[0] == "cls":
+        return _plain_conv("ocr.cls_head", sub[1:])
+    m = re.fullmatch(r"attn(\d)", sub[0])
+    if m and m.group(1) == "2":
+        return _plain_conv("scale_attn.conv2", sub[1:])
+    if m:
+        return _convbn(f"scale_attn.conv{m.group(1)}", f"scale_attn.bn{m.group(1)}", sub[1:])
+    return None
+
+
+def _layernorm(base: str, sub: tuple) -> Optional[str]:
+    return {("scale",): f"{base}.weight", ("bias",): f"{base}.bias"}.get(sub)
+
+
+def _dense(base: str, sub: tuple) -> Optional[str]:
+    return {("kernel",): f"{base}.weight", ("bias",): f"{base}.bias"}.get(sub)
+
+
+def _patch_conv_to_linear(kernel: np.ndarray) -> np.ndarray:
+    """The JAX strided-conv kernel [p, p, 3, D] -> the reference's patch
+    ``Linear`` weight [D, p*p*3] (torch_import._patch_linear_to_conv
+    inverted)."""
+    return np.ascontiguousarray(kernel.reshape(-1, kernel.shape[-1]).T)
+
+
+def vit_encoder_key(path: tuple) -> Target:
+    """flax ``ViT`` leaf path -> the port's key (torch_import.
+    _setr_encoder_path): block i is ``transformer.net.{2i}`` (attention)
+    and ``.{2i+1}`` (feed-forward)."""
+    name, sub = path[0], path[1:]
+    if name == "linear_encoding":
+        return Leaf("linear_encoding.weight", _patch_conv_to_linear) if sub == (
+            "kernel",) else _dense("linear_encoding", sub)
+    if path == ("pos_embed",):
+        return Leaf("position_encoding.pe.weight", np.asarray)
+    if name == "pre_head_ln":
+        return _layernorm("pre_head_ln", sub)
+    m = re.fullmatch(r"block(\d+)", name)
+    if not m:
+        return None
+    attn, ff = (f"transformer.net.{2 * int(m.group(1)) + j}.fn" for j in (0, 1))
+    if sub[0] in ("norm1", "norm2"):
+        return _layernorm(f"{attn if sub[0] == 'norm1' else ff}.norm", sub[1:])
+    if sub[0] in ("qkv", "proj"):
+        return _dense(f"{attn}.fn.{sub[0]}", sub[1:])
+    if sub[0] in ("fc1", "fc2"):
+        return _dense(f"{ff}.fn.net.{0 if sub[0] == 'fc1' else 3}", sub[1:])
+    return None
+
+
+def setr_key(path: tuple) -> Target:
+    """flax ``SETR`` leaf path -> the port's key (torch_import._setr_path):
+    the encoder at the top level, Naive ``conv1``/``bn1``/``conv2``, PUP
+    ``pup{i}`` -> ``decode_net.{2i}``, MLA ``mla{k}_{in,intmd,out1,out2}``
+    -> ``net{k+1}_{in.layer_1, intmd.layer_intmd, out.layer_2,
+    out.layer_3}``, ``cls`` -> ``output_net.conv_1``."""
+    if path[0] == "backbone":
+        return vit_encoder_key(path[1:])
+    if path[0] in ("conv1", "conv2"):
+        return _plain_conv(path[0], path[1:])
+    if path[0] == "bn1" and len(path) == 3 and path[1] == "bn":
+        return f"bn1.{_BN_LEAF[path[2]]}"
+    m = re.fullmatch(r"pup(\d)", path[0])
+    if m:
+        return _plain_conv(f"decode_net.{2 * int(m.group(1))}", path[1:])
+    m = re.fullmatch(r"mla(\d)_(in|intmd|out1|out2)", path[0])
+    if m:
+        layer = {"in": "in.layer_1", "intmd": "intmd.layer_intmd", "out1": "out.layer_2",
+                 "out2": "out.layer_3"}[m.group(2)]
+        return _plain_conv(f"net{int(m.group(1)) + 1}_{layer}", path[1:])
+    if path[0] == "cls":
+        return _plain_conv("output_net.conv_1", path[1:])
+    return None
+
+
+def _pvt_block(base: str, sub: tuple) -> Target:
+    """``PVTBlock`` (torch_import._pvt_block): the JAX ``k`` and ``v`` fill
+    the fused ``attn.kv``."""
+    if sub[0] in ("norm1", "norm2"):
+        return _layernorm(f"{base}.{sub[0]}", sub[1:])
+    if sub[0] in ("fc1", "fc2"):
+        return _dense(f"{base}.mlp.{sub[0]}", sub[1:])
+    if sub[0] != "attn":
+        return None
+    name, leaf = sub[1], sub[2:]
+    if name in ("q", "proj", "qkv"):
+        return _dense(f"{base}.attn.{name}", leaf)
+    if name in ("k", "v") and leaf in (("kernel",), ("bias",)):
+        return Leaf(f"{base}.attn.kv.{'weight' if leaf == ('kernel',) else 'bias'}",
+                    part=0 if name == "k" else 1)
+    if name == "sr":
+        return _plain_conv(f"{base}.attn.sr", leaf)
+    if name == "sr_norm":
+        return _layernorm(f"{base}.attn.norm", leaf)
+    return None
+
+
+def _flat_table(table: np.ndarray) -> np.ndarray:
+    """A v1 position table [1, g, g, C] -> the reference's [1, g*g, C]."""
+    return np.ascontiguousarray(table.reshape(1, -1, table.shape[-1]))
+
+
+def pvt_key(path: tuple, v1: bool) -> Target:
+    """flax ``PVT`` leaf path -> the port's key (torch_import.
+    _pvt_family_path; ``v1``: PVT v1's names, else PCPVT/SVT's)."""
+    name, sub = path[0], path[1:]
+    m = re.fullmatch(r"(patch|patch_norm|pos_embed|pos_cnn)(\d)", name)
+    if m:
+        kind, i = m.group(1), int(m.group(2))
+        embed = f"patch_embed{i + 1}" if v1 else f"patch_embeds.{i}"
+        if kind == "patch":
+            return _plain_conv(f"{embed}.proj", sub)
+        if kind == "patch_norm":
+            return _layernorm(f"{embed}.norm", sub)
+        if kind == "pos_embed":
+            return Leaf(f"pos_embed{i + 1}", _flat_table) if not sub else None
+        return _plain_conv(f"pos_block.{i}.proj.0", sub)
+    m = re.fullmatch(r"stage(\d)_block(\d+)", name)
+    if m:
+        i, b = int(m.group(1)), m.group(2)
+        return _pvt_block(f"block{i + 1}.{b}" if v1 else f"blocks.{i}.{b}", sub)
+    return None
+
+
+def fpn_decoder_key(path: tuple) -> Optional[str]:
+    """The JAX ``FPNSemanticDecoder`` (relative to it) -> the port's
+    ``neck`` and ``decoder`` (torch_import.semantic_fpn_decoder_path)."""
+    m = re.fullmatch(r"(lateral|fpn_conv)(\d)", path[0])
+    if m:
+        kind = "lateral_convs" if m.group(1) == "lateral" else "fpn_convs"
+        return _plain_conv(f"neck.{kind}.{m.group(2)}", path[1:])
+    m = re.fullmatch(r"scale_head(\d)_(\d)", path[0])
+    if m:
+        i, k = int(m.group(1)), int(m.group(2))
+        idx = 3 * k if i > 0 else 2 * k
+        return _convbn(f"decoder.scale_heads.{i}.{idx}",
+                       f"decoder.scale_heads.{i}.{idx + 1}.0", path[1:])
+    if path[0] == "cls":
+        return _plain_conv("decoder.cls_seg", path[1:])
+    return None
+
+
+def backbone_key(backbone: nn.Module):
+    """The map of a ``backbone_selector`` backbone (paths relative to it)."""
+    if isinstance(backbone, PVT):
+        return lambda path: pvt_key(path, backbone.v1)
+    if isinstance(backbone, ViTFeatures):
+        return lambda path: _prefixed("vit", vit_encoder_key(path[1:])) if path[
+            0] == "vit" else None
+    if isinstance(backbone, HRNetNext):
+        return next_backbone_key
+    if isinstance(backbone, HRNet):
+        return _backbone_key
+    if isinstance(backbone, ResNet):
+        return lambda path: resnet_backbone_key(path, bool(backbone.radix))
+    raise TypeError(f"no JAX key map for a {type(backbone).__name__} backbone")
+
+
+def pyramid_key(model: PyramidSegNet):
+    """The map of a ``PyramidSegNet``: its backbone's and the decoder's."""
+    trunk = backbone_key(model.backbone)
+
+    def key(path: tuple) -> Target:
+        if path[0] == "backbone":
+            return _prefixed("backbone", trunk(path[1:]))
+        return fpn_decoder_key(path[1:]) if path[0] == "decoder" else None
+
+    return key
+
+
 _KEY_MAPS = ((HRNetSeg, hrnet_seg_key), (HRNetOCRSeg, hrnet_ocr_key), (DeepLabV3, deeplab_key),
              (FcnNet, fcnet_key), (SpatialOCRNet, spatial_ocrnet_key),
              (ASPOCRNet, asp_ocrnet_key), (BaseOCNet, base_ocnet_key),
@@ -549,6 +764,12 @@ def key_for(model: nn.Module):
     ``HRNetNext`` backbone and a ResNeSt one map as such)."""
     if isinstance(model, CE2PNet):
         return ce2p_key(model.context_kind)
+    if isinstance(model, MscaleOCR):
+        return ms_ocr_key
+    if isinstance(model, SETR):
+        return setr_key
+    if isinstance(model, PyramidSegNet):
+        return pyramid_key(model)
     next_arch = isinstance(getattr(model, "backbone", None), HRNetNext)
     if isinstance(model, SegFixHRNet):
         return segfix_next_key if next_arch else segfix_key
@@ -563,29 +784,54 @@ def key_for(model: nn.Module):
     raise TypeError(f"no JAX key map for {type(model).__name__}")
 
 
+def _port_layout(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 4:  # a conv kernel, HWIO -> OIHW
+        return np.transpose(arr, (3, 2, 0, 1))
+    if arr.ndim == 2:  # a dense kernel, [in, out] -> [out, in]
+        return arr.T
+    return arr
+
+
+def to_port(tree: dict, key_of) -> tuple[dict[str, np.ndarray], list[str]]:
+    """A flax tree of arrays (``{"params", "batch_stats"}``, or any tree of
+    the params' structure, such as an optimizer moment) -> ({port key:
+    array in the port's layout}, the leaves ``key_of`` does not map)."""
+    out: dict[str, np.ndarray] = {}
+    parts: dict[str, dict[int, np.ndarray]] = {}
+    unmapped = []
+    for path, arr in flatten(tree).items():
+        target = key_of(path[1:] if path[0] in ("params", "batch_stats") else path)
+        if target is None:
+            unmapped.append("/".join(path))
+            continue
+        leaf = target if isinstance(target, Leaf) else Leaf(target)
+        arr = leaf.convert(arr) if leaf.convert else _port_layout(arr)
+        if leaf.part is None:
+            out[leaf.key] = arr
+        else:
+            parts.setdefault(leaf.key, {})[leaf.part] = arr
+    for key, blocks in parts.items():
+        out[key] = np.concatenate([blocks[i] for i in sorted(blocks)], axis=0)
+    return out, unmapped
+
+
 def load_jax_variables(model: nn.Module, variables: dict, key_of=None) -> None:
     """Fill ``model`` from the JAX package's variables of the same net (or
     module, with its ``key_of`` map)."""
     key_of = key_of or key_for(model)
     sd = model.state_dict()
+    arrays, unused = to_port({col: variables.get(col, {}) for col in ("params", "batch_stats")},
+                             key_of)
+    unused += [k for k in arrays if k not in sd]
     new_sd: dict[str, torch.Tensor] = {}
-    unused = []
-    for col in ("params", "batch_stats"):
-        for path, arr in flatten(variables.get(col, {})).items():
-            key = key_of(path)
-            if key is None or key not in sd:
-                unused.append("/".join((col,) + path))
-                continue
-            if arr.ndim == 4:  # HWIO -> OIHW
-                arr = np.transpose(arr, (3, 2, 0, 1))
-            elif arr.ndim == 2:  # a dense kernel, [in, out] -> [out, in]
-                arr = arr.T
-            if tuple(arr.shape) != tuple(sd[key].shape):
-                raise ValueError(
-                    f"shape mismatch at {key}: jax {arr.shape} vs "
-                    f"port {tuple(sd[key].shape)}")
-            new_sd[key] = torch.as_tensor(np.ascontiguousarray(arr),
-                                          dtype=sd[key].dtype)
+    for key, arr in arrays.items():
+        if key not in sd:
+            continue
+        if tuple(arr.shape) != tuple(sd[key].shape):
+            raise ValueError(
+                f"shape mismatch at {key}: jax {arr.shape} vs "
+                f"port {tuple(sd[key].shape)}")
+        new_sd[key] = torch.as_tensor(np.ascontiguousarray(arr), dtype=sd[key].dtype)
     missing = [k for k in sd
                if k not in new_sd and not k.endswith("num_batches_tracked")]
     if unused or missing:

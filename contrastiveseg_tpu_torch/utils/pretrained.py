@@ -27,7 +27,13 @@ SpatialOCRNet, ASPOCRNet, BaseOCNet, AspOCNet, ISANet), and so do the
 oracle OCR nets (``ideal_*``, in SpatialOCRNet's layout),
 ``ce2p_asp_ocrnet`` (CE2P_ASPOCR) and ``segfix_hrnet`` (SegFix_HRNet, on
 HRNet-W48 or the HRNet-2x20 HighResolutionNext: the published SegFix
-checkpoints).  The nets the reference never registers
+checkpoints), ``ms_ocr`` (MscaleOCR), ``semantic_fpn`` (SemanticFPN on a
+PVT, PCPVT or SVT trunk) and the SETR nets.  SETR's encoder is the net
+itself (the reference's SETR subclasses SegmentationTransformer), so its
+keys have no ``backbone.``: for a net without a ``backbone`` module every
+file is a segmentor; the MLA decoder's ``net1_intmd``, which the
+reference builds and never calls, is dropped from the file
+(``reference_unused``).  The nets the reference never registers
 (``pspnet``, ``ccnet``, ``pyramid_ocnet``, ``hrnet_w48_isa``) and the two
 CE2P nets it cannot build (``ce2p_ocrnet``, ``ce2p_ideal_ocrnet``; JAX
 ``models/ce2p.py:112-118``) have ``reference_layout`` False: no reference
@@ -128,7 +134,14 @@ def load_pretrained(model: nn.Module, path: str) -> Optional[dict[str, torch.Ten
     """Fill ``model`` (any of the port's segmentors) from the ``.pth`` at
     ``path``; returns the file's queue buffers (CPU tensors keyed by
     ``QUEUE_KEYS``), or None when it has none."""
-    weights, queues, imagenet = split_source(load_torch_state(path))
+    target = model.state_dict()
+    sd = load_torch_state(path)
+    if any(k.startswith("backbone.") for k in target):
+        weights, queues, imagenet = split_source(sd)
+    else:
+        weights, queues, imagenet = sd, None, False
+    unused = getattr(model, "reference_unused", ())
+    weights = {k: v for k, v in weights.items() if not k.startswith(unused)}
     if not imagenet and not getattr(model, "reference_layout", True):
         raise ValueError(
             f"{path} is a segmentor checkpoint, but {type(model).__name__} has no reference "
@@ -136,7 +149,6 @@ def load_pretrained(model: nn.Module, path: str) -> Optional[dict[str, torch.Ten
             "or hrnet_w48_isa (lib/models/model_manager.py:48-82) and cannot build CE2P_OCRNet "
             "or CE2P_IdealOCRNet, so no reference checkpoint of them exists; start the net "
             "from an ImageNet backbone .pth")
-    target = model.state_dict()
     if (imagenet and any(k.startswith("backbone.resinit.") for k in target)
             and not any(k.startswith("backbone.resinit.") for k in weights)):
         weights = {next((k.replace(a, b, 1) for a, b in TORCHVISION_STEM.items()

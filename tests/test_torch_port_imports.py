@@ -70,6 +70,8 @@ def test_port_files_found():
         assert ROOT / "contrastiveseg_tpu_torch" / module in PORT_FILES
     assert ROOT / "tools" / "segfix_torch.py" in PORT_FILES
     assert ROOT / "contrastiveseg_tpu_torch" / "utils" / "jpeg.py" in PORT_FILES
+    for module in ("models/vit.py", "models/pvt.py", "models/backbone_selector.py"):
+        assert ROOT / "contrastiveseg_tpu_torch" / module in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -212,7 +212,32 @@ def random_variables(jax_model, input_shape, seed: int = 1) -> dict:
                 out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
         return out
 
-    return {col: fill(dict(shapes[col])) for col in ("params", "batch_stats")}
+    return {col: fill(dict(shapes.get(col, {}))) for col in ("params", "batch_stats")}
+
+
+def assert_scaled_close(got, want, rtol: float = 1e-4, err_msg: str = "",
+                        floor: float = 1e-30) -> float:
+    """``max|got - want| <= rtol * max(max|want|, floor)``: a tensor held to
+    a share of its own largest value (a weight gradient sums many terms, and
+    its small entries carry the rounding of the large ones); ``floor`` for a
+    tensor whose exact value is ~0 (the gradient of a conv bias that feeds a
+    BN).  Returns the share."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape, err_msg)
+    share = float(np.abs(got - want).max() / max(np.abs(want).max(), floor))
+    assert share <= rtol, f"{err_msg}: max error {share:.3g} of the tensor's largest value"
+    return share
+
+
+def no_dropout(torch_model):
+    """``torch_model`` with every ``nn.Dropout``'s rate set to 0 (the JAX
+    side patches flax's ``Dropout`` to the identity)."""
+    import torch
+
+    for m in torch_model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return torch_model
 
 
 def bn_counts(torch_model, x):
