@@ -207,13 +207,41 @@ Phases (any failure raises, so the run exits non-zero):
      PVT-Small's ``--phase val`` in ``diverse_size`` (its position tables
      resized to each frame's grids); step times, data wait, peak memory and
      parameter counts; its lines carry ``[transformer phase +N s]``;
- 20. a JSON line of the six kernels, the card line, and the result line.
+ 20. the extras phase, at full width: (a) ``cityscapes_hrnet_w48_mem`` at
+     batch 8 from phase 9's tree with ``solver.grad_accum_steps=2`` and
+     ``contrast.momentum_encoder=true``, 2 steps: finite losses, a positive
+     contrast term, K1 launched exactly once a microbatch (4 each), the key
+     parameters apart from the query's, the peak memory; (b) the same preset
+     with ``network.bf16=true``, 2 steps, its step times and peak beside
+     phase 9's fp32 ones, parameters and bank fp32, K1 once a step;
+     (c) ``cityscapes_base_ocnet`` and ``cityscapes_pyramid_ocnet`` at their
+     preset's batch 16 with ``solver.grad_accum_steps=2`` from phase 15's
+     16-frame tree, 2 steps each, the peak over the memory allocated
+     before the trainer held to within 3% of the same at batch 8 in phase
+     15 (batch 16 in one program does not fit);
+     (e) ``lr.lr_policy=swa_lambda_poly`` with ``solver.max_iters=4`` at
+     batch 2: the SWA update after step 4 (the only one), the swap, the BN
+     re-estimation over 20 train batches (every statistic new and finite,
+     the momenta restored) and the validation over the 4 val frames with a
+     finite mIoU; (d) ``network.freeze_bn=true``, one step at batch 2 from
+     BN statistics re-estimated over 2 batches (a fine-tune's start): every
+     running statistic bit for bit unchanged, the parameters moved;
+     (f) ``lr.lr_policy=plateau`` with ``lr.plateau.patience=0`` and
+     ``solver.test_interval=1``, 3 steps at batch 2: the mIoU, scale and LR
+     after each validation, held to a ``PlateauController`` fed the same
+     mIoUs, and whether and why the LR dropped; checkpoints are not
+     written; its lines carry ``[extras phase +N s]``;
+ 21. a JSON line of the six kernels, the card line, and the result line.
 
-Phases 10-19 print their step times (or seconds an image), peak memory and
+Phases 10-20 print their step times (or seconds an image), peak memory and
 wall time.  Phases 14-17 train each preset 2 steps (``CUT_STEPS``; 3 before
 phase 18 was added), which makes room for phase 18 in the time limit; every check they
 make stays (the raw headline's K1 launches are held to 2, one a step).  Phase
-17 validates at batch 2, not 4, which makes room for phase 19.
+17 validates at batch 2, not 4, which makes room for phase 19.  To make room
+for phase 20, ``spatial_asp_ocrnet`` (phase 15), the oracle gather and
+distribute OCR nets (phase 16) and ``setr_mla`` and ``setr_naive`` (phase
+19) train one step (``ONE_STEP``), and phase 20 reuses the trees of phases
+9 and 15; every check stays.
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
@@ -272,6 +300,13 @@ ROOT = Path(__file__).resolve().parent
 # make room for it inside the time limit).  Phase 18 takes 3 for a contrast preset
 # and 2 for its plain twin.
 CUT_STEPS = 2
+# One step only, to make room for phase 20: spatial_asp_ocrnet (phase 15; its
+# 9.4-9.6 s step-2 times are in PERF.md section 5), the oracle gather and
+# distribute OCR nets (phase 16: without labels they compute ideal_spatial's
+# forward, which trains 2 steps), and the second and third SETR decoders
+# (phase 19; setr_pup trains 2 steps).
+ONE_STEP = ("cityscapes_spatial_asp_ocrnet", "cityscapes_ideal_gather_ocrnet",
+            "cityscapes_ideal_distribute_ocrnet", "setr_mla", "setr_naive")
 
 
 def card_line() -> str:
@@ -1454,7 +1489,8 @@ def train_fitting(cfg, device, name: str, say, batches=(16, 8), before=None) -> 
     ``batches`` (the preset's) that fits the card, calling ``before(trainer)``
     on each trainer before it trains; returns the trainer, the config run,
     the first batch (a copy), the history, launches and peak of
-    ``train_phase``, and the failure at the preset's batch (the allocator's
+    ``train_phase``, the device memory allocated before the trainer
+    (``base``), and the failure at the preset's batch (the allocator's
     message) or None."""
     import gc
 
@@ -1465,6 +1501,7 @@ def train_fitting(cfg, device, name: str, say, batches=(16, 8), before=None) -> 
     failure = None
     for batch in batches:
         c = cfg.updated("train.batch_size", batch)
+        base = torch.cuda.memory_allocated(device)
         trainer = Trainer(c, device)
         if before is not None:
             before(trainer)
@@ -1479,7 +1516,7 @@ def train_fitting(cfg, device, name: str, say, batches=(16, 8), before=None) -> 
         try:
             history, launches, peak = train_phase(trainer, device, f"{name} at batch {batch}")
             return {"trainer": trainer, "cfg": c, "first": first[0], "history": history,
-                    "launches": launches, "peak": peak, "failure": failure}
+                    "launches": launches, "peak": peak, "failure": failure, "base": base}
         except torch.cuda.OutOfMemoryError as err:
             if batch == batches[-1]:
                 raise
@@ -1539,9 +1576,10 @@ def run_context_phase(device) -> dict:
 
     for preset, override in CONTEXT_NETS:
         pascal = preset.startswith("pascal_context")
+        steps = 1 if preset in ONE_STEP else CUT_STEPS
         cfg = directory_config(preset, pc_dir if pascal else cs_dir,
                                root / "ckpt" / (override or preset),
-                               [f"solver.max_iters={CUT_STEPS}"] + (
+                               [f"solver.max_iters={steps}"] + (
                                    [f"network.model_name={override}"] if override else []))
         name = cfg.get("network.model_name")
         want = (16, 59, "hrnet48") if pascal else (16, 19, "deepbase_resnet101_dilated8")
@@ -1576,7 +1614,7 @@ def run_context_phase(device) -> dict:
             + ", ".join(f"{k} {v:.6f}" for k, v in heads.items()))
         same_on_the_cpu(model, name, say)
         res = {"preset": preset, "batch": batch, "failure_at_16": failure, "history": history,
-               "peak": peak, "params": n_params, "heads": heads}
+               "peak": peak, "base": run16["base"], "params": n_params, "heads": heads}
         if name in ("spatial_ocrnet", "base_ocnet"):
             res.update(infer_from_latest(trainer, c, device, run, say))
             for phase in ("val", "ss_test"):
@@ -1648,8 +1686,10 @@ def run_context_phase(device) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         pth.unlink()
-    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(pc_dir, ignore_errors=True)
+    shutil.rmtree(root / "ckpt", ignore_errors=True)
     results["launches"] = dict(total)
+    results["tree"] = cs_dir  # phase 20 trains the OCNets at batch 16 from it
     return results
 
 
@@ -1804,8 +1844,9 @@ def run_raw_phase(device) -> dict:
     for preset in IDEAL_NETS + IDEAL_BG_NETS + RMI_NETS + LIP_NETS:
         dataset = preset.split("_")[0] if not preset.startswith(("pascal", "coco")) else (
             "pascal_context" if preset.startswith("pascal") else "coco_stuff")
+        steps = 1 if preset in ONE_STEP else CUT_STEPS
         cfg = directory_config(preset, trees[dataset], root / "ckpt" / preset,
-                               [f"solver.max_iters={CUT_STEPS}"])
+                               [f"solver.max_iters={steps}"])
         name = cfg.get("network.model_name")
         got = (cfg.get("train.batch_size"), cfg.get("data.num_classes"),
                cfg.get("train_trans.random_crop.crop_size"))
@@ -2574,7 +2615,8 @@ def run_transformer_phase(device, data_dir: Path, jpeg_root: Path) -> dict:
         cfg = directory_config("cityscapes_hrnet_w48", data_dir, root / "ckpt" / name, [
             f"network.model_name={name}", "network.backbone=vit_large",
             f"train.data_transformer.input_size={crop}",
-            f"train_trans.random_crop.crop_size={crop}", f"solver.max_iters={CUT_STEPS}"])
+            f"train_trans.random_crop.crop_size={crop}",
+            f"solver.max_iters={1 if name in ONE_STEP else CUT_STEPS}"])
         # setr_pup from its reference .pth, which its test below starts from too
         fit, res = train(name, cfg, (2, 1), keep_latest=False, from_pth=name == "setr_pup")
         model, vit_l = fit["trainer"].state.model, VIT_SPECS["vit_large"]
@@ -2672,6 +2714,253 @@ def run_transformer_phase(device, data_dir: Path, jpeg_root: Path) -> dict:
         "JPEG tree was read, trained on and validated")
     shutil.rmtree(root, ignore_errors=True)
     return {"nets": results, "launches": dict(total)}
+
+
+EXTRAS_OCNETS = ("cityscapes_base_ocnet", "cityscapes_pyramid_ocnet")
+
+
+def run_extras_phase(device, data_dir: Path, context_dir: Path, fp32: dict,
+                     batch8_peaks: dict) -> dict:
+    """Phase 20: the training extras at full width.  (a) the headline at
+    batch 8 with ``solver.grad_accum_steps=2`` and the momentum key encoder,
+    2 steps, K1 held to one launch a microbatch; (b) the headline in bf16,
+    2 steps, beside the fp32 directory slice (``fp32``: phase 9's history and
+    peak); (c) ``base_ocnet`` and ``pyramid_ocnet`` at their preset's batch
+    16 in 2 microbatches, 2 steps each, from phase 15's 16-frame tree, their
+    peak over the memory allocated before the trainer held to within 3% of
+    the same at batch 8 (``batch8_peaks``: name -> (peak, allocated
+    before)); (e) SWA
+    (``swa_lambda_poly``, 4 steps at batch 2): the update at step 4, the swap,
+    the BN re-estimation over 20 batches and the final validation; (d)
+    ``network.freeze_bn``: one step at batch 2 from BN statistics
+    re-estimated over 2 batches (a fine-tune's start), every BN statistic
+    bit for bit unchanged and the parameters moved; (f) ``lr.lr_policy=
+    plateau`` with patience 0, validating after each of 3 steps, the LR after
+    each validation held to the JAX controller's scale on the mIoUs read."""
+    import gc
+
+    import torch
+
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine import trainer as trainer_module
+    from contrastiveseg_tpu_torch.engine.optim import PlateauController, build_schedule
+    from contrastiveseg_tpu_torch.engine.prefetch import device_batches
+    from contrastiveseg_tpu_torch.engine.swa import reestimate_bn
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[extras phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_extras"
+    shutil.rmtree(root, ignore_errors=True)
+    total, results = collections.Counter(), {}
+    small = ["train.batch_size=2", "val.batch_size=1", "contrast.warmup_iters=0"]
+
+    def unsaved(cfg):
+        trainer = Trainer(cfg, device)
+        trainer.ckpt.save = lambda *args, **kwargs: None  # the phase reads no checkpoint
+        return trainer
+
+    def headline(tag: str, extra: list[str]):
+        cfg = directory_config("cityscapes_hrnet_w48_mem", data_dir, root / tag, extra)
+        return cfg, unsaved(cfg)
+
+    def steps_ms(history) -> list:
+        return [round(r["seconds"] * 1e3, 1) for r in history]
+
+    def release(*trainers) -> None:
+        for t in trainers:
+            t.state = t.evaluator = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def contrast_live(history, what: str) -> None:
+        if not all(r["loss_contrast"] > 0 for r in history):
+            raise AssertionError(f"{what}: the contrast term is not positive: {history}")
+
+    def bn_stats(model) -> dict:
+        return {k: v.clone() for k, v in model.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+
+    # (a) Gradient accumulation and the momentum key encoder on the headline.
+    cfg, trainer = headline("accum", ["contrast.warmup_iters=0", "solver.max_iters=2",
+                                      "solver.grad_accum_steps=2",
+                                      "contrast.momentum_encoder=True"])
+    if cfg.get("train.batch_size") != 8 or trainer.state.key_params is None:
+        raise AssertionError("(a) must run the headline's batch 8 with a key encoder")
+    history, launches, peak = train_phase(trainer, device, "(a) accum 2 + key encoder")
+    total.update(launches)
+    contrast_live(history, "(a)")
+    if any(launches[n] != 4 for n in k1.KERNELS):
+        raise AssertionError(f"(a): K1 launched {launches}, not once a microbatch (4)")
+    apart = max(float((trainer.state.key_params[k] - p.detach()).abs().max())
+                for k, p in trainer.state.model.named_parameters())
+    if not apart > 0:
+        raise AssertionError("(a): the key parameters equal the query's after 2 steps")
+    results["accum"] = {"history": history, "peak": peak, "key_apart": apart}
+    say(f"(a) cityscapes_hrnet_w48_mem at batch 8 in 2 microbatches of 4, key encoder "
+        f"(momentum {cfg.get('contrast.encoder_momentum', default=0.999)}): steps "
+        f"{steps_ms(history)} ms, peak {peak / 2**30:.3f} GiB (one program at batch 8, "
+        f"phase 9: {fp32['peak'] / 2**30:.3f} GiB); K1 launches {launches['infonce_pass1']} "
+        f"each, one a microbatch; key parameters up to {apart:.3e} from the query's")
+    release(trainer)
+
+    # (b) bf16 compute on the headline, beside phase 9's fp32 steps.
+    cfg, trainer = headline("bf16", ["contrast.warmup_iters=0", "solver.max_iters=2",
+                                     "network.bf16=True"])
+    history, launches, peak = train_phase(trainer, device, "(b) bf16")
+    total.update(launches)
+    contrast_live(history, "(b)")
+    if any(launches[n] != 2 for n in k1.KERNELS):
+        raise AssertionError(f"(b): K1 launched {launches}, not once a step (2)")
+    model, bank = trainer.state.model, trainer.state.bank.storage
+    fp32_state = (model.bf16 and bank.dtype == torch.float32
+                  and all(p.dtype == torch.float32 for p in model.parameters()))
+    del model, bank  # release() frees the trainer's tensors only with no other reference
+    if not fp32_state:
+        raise AssertionError("(b): the parameters and the bank must stay fp32 under bf16")
+    results["bf16"] = {"history": history, "peak": peak}
+    say(f"(b) cityscapes_hrnet_w48_mem in bf16 at batch 8: steps {steps_ms(history)} ms, peak "
+        f"{peak / 2**30:.3f} GiB; fp32 (phase 9, this run): steps {steps_ms(fp32['history'])} "
+        f"ms, peak {fp32['peak'] / 2**30:.3f} GiB; parameters and bank fp32")
+    release(trainer)
+
+    # (c) The OCNets at their preset's batch 16, in two microbatches of 8.
+    for preset in EXTRAS_OCNETS:
+        cfg = directory_config(preset, context_dir, root / preset,
+                               ["solver.max_iters=2", "solver.grad_accum_steps=2"])
+        name = cfg.get("network.model_name")
+        if cfg.get("train.batch_size") != 16:
+            raise AssertionError(f"(c) {preset} must run its preset's batch 16")
+        base = torch.cuda.memory_allocated(device)
+        trainer = unsaved(cfg)
+        history, launches, peak = train_phase(trainer, device, f"(c) {name} at 16 in 2 x 8")
+        no_launch(launches, name, total)
+        b8, b8_base = batch8_peaks[name]
+        if peak - base > 1.03 * (b8 - b8_base):
+            raise AssertionError(
+                f"(c) {name}: peak {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} over what "
+                f"was allocated before its trainer) at 16 in 2 x 8, over its batch-8 peak "
+                f"{b8 / 2**30:.3f} GiB ({(b8 - b8_base) / 2**30:.3f} over) by more than 3%")
+        results[name] = {"history": history, "peak": peak, "batch8_peak": b8,
+                         "growth": peak - base, "batch8_growth": b8 - b8_base}
+        say(f"(c) {name} at its preset's batch 16 in 2 microbatches of 8: steps "
+            f"{steps_ms(history)} ms, peak {peak / 2**30:.3f} GiB, "
+            f"{(peak - base) / 2**30:.3f} over what was allocated before its trainer (at batch "
+            f"8, phase 15: {b8 / 2**30:.3f} GiB, {(b8 - b8_base) / 2**30:.3f} over; batch 16 in "
+            "one program does not fit)")
+        release(trainer)
+
+    # (e) SWA: update at the last step, swap, BN re-estimation, validation.
+    calls = []
+    originals = {f: getattr(trainer_module, f) for f in
+                 ("update_swa", "swap_to_swa", "reestimate_bn")}
+
+    def record(f):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = originals[f](*args, **kwargs)
+            calls.append((f, trainer.state.step, time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    cfg, trainer = headline("swa", small + ["solver.max_iters=4",
+                                            "lr.lr_policy=swa_lambda_poly"])
+    for f in originals:
+        setattr(trainer_module, f, record(f))
+    try:
+        before = bn_stats(trainer.state.model)
+        history, launches, peak = train_phase(trainer, device, "(e) SWA")
+    finally:
+        for f, fn in originals.items():
+            setattr(trainer_module, f, fn)
+    total.update(launches)
+    if [(f, step) for f, step, _ in calls] != [("update_swa", 4), ("swap_to_swa", 4),
+                                              ("reestimate_bn", 4)]:
+        raise AssertionError(f"(e): SWA calls {calls}")
+    after = bn_stats(trainer.state.model)
+    bns = [m for m in trainer.state.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    if not (all(torch.isfinite(v).all() for v in after.values())
+            and all(m.momentum == 0.1 for m in bns)
+            and sum(not torch.equal(v, before[k]) for k, v in after.items()) == len(after)):
+        raise AssertionError("(e): the re-estimated BN statistics are not all new and finite, "
+                             "or a BN momentum was not restored")
+    scores = trainer.last_scores
+    if not math.isfinite(scores["miou"]):
+        raise AssertionError(f"(e): the validation after the swap gave {scores}")
+    results["swa"] = {"history": history, "calls": calls, "miou": scores["miou"]}
+    say(f"(e) swa_lambda_poly, 4 steps at batch 2: SWA update after step 4 (the only one of "
+        f"max_iters 4), swap, BN re-estimation over 20 train batches in "
+        f"{calls[2][2]:.2f} s ({len(after)} statistics, all new and finite, momenta 0.1 "
+        f"restored), validation over the 4 val frames at batch 1: mIoU {scores['miou']:.6f}")
+    release(trainer)
+
+    # (d) freeze_bn: one step from re-estimated statistics.
+    cfg, trainer = headline("freeze", small + ["solver.max_iters=1", "network.freeze_bn=True"])
+    batches = device_batches(build_pipeline(cfg, "train").iter_from(0), device)
+    try:
+        reestimate_bn(trainer.state.model, batches, 2)
+    finally:
+        batches.close()
+    before = bn_stats(trainer.state.model)
+    params0 = {k: p.detach().clone() for k, p in trainer.state.model.named_parameters()}
+    history, launches, peak = train_phase(trainer, device, "(d) freeze_bn")
+    total.update(launches)
+    after = bn_stats(trainer.state.model)
+    same = sum(torch.equal(v, before[k]) for k, v in after.items())
+    moved = sum(not torch.equal(p, params0[k])
+                for k, p in trainer.state.model.named_parameters())
+    if same != len(after) or moved < len(params0) // 2:
+        raise AssertionError(f"(d): {same} of {len(after)} BN statistics unchanged, {moved} of "
+                             f"{len(params0)} parameters moved")
+    results["freeze_bn"] = {"history": history}
+    say(f"(d) network.freeze_bn, 1 step at batch 2 from BN statistics re-estimated over 2 "
+        f"batches: {same} of {len(after)} running statistics bit for bit unchanged, {moved} of "
+        f"{len(params0)} parameters moved, loss {history[0]['loss']:.6f}")
+    release(trainer)
+
+    # (f) plateau: the LR after each validation.
+    cfg, trainer = headline("plateau", small + ["solver.max_iters=3", "lr.lr_policy=plateau",
+                                                "lr.plateau.patience=0",
+                                                "solver.test_interval=1"])
+    read = []
+    set_scale = trainer_module.set_plateau_scale
+
+    def traced(scheduler, scale):
+        set_scale(scheduler, scale)
+        read.append((trainer.last_scores["miou"], scale,
+                     scheduler.optimizer.param_groups[0]["lr"]))
+
+    trainer_module.set_plateau_scale = traced
+    try:
+        history, launches, peak = train_phase(trainer, device, "(f) plateau")
+    finally:
+        trainer_module.set_plateau_scale = set_scale
+    total.update(launches)
+    pc, base = PlateauController.from_config(cfg), cfg.get("lr.base_lr")
+    sched = build_schedule(cfg)
+    want = [pc.step(m) for m, _, _ in read]
+    if len(read) != 3 or [s for _, s, _ in read] != want or not all(
+            math.isclose(lr, base * sched(i + 1) * s, rel_tol=1e-12)
+            for i, (_, s, lr) in enumerate(read)):
+        raise AssertionError(f"(f): (mIoU, scale, LR) after each validation {read}, scales "
+                             f"wanted {want}")
+    dropped = [i + 1 for i, (_, s, _) in enumerate(read) if s < (read[i - 1][1] if i else 1.0)]
+    results["plateau"] = {"read": read, "dropped": dropped}
+    say("(f) lr.lr_policy=plateau, patience 0, validating after each of 3 steps at batch 2: "
+        + "; ".join(f"after step {i + 1}: mIoU {m:.6f}, scale {s:g}, LR {lr:.3e}"
+                    for i, (m, s, lr) in enumerate(read))
+        + (f"; the LR dropped after step(s) {dropped}, where the mIoU did not improve on the "
+           "best by 1e-4 (relative)" if dropped else
+           "; the LR did not drop: each mIoU improved on the best by more than 1e-4 "
+           "(relative)"))
+    release(trainer)
+    shutil.rmtree(root, ignore_errors=True)
+    results["launches"] = dict(total)
+    return results
 
 
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
@@ -2974,6 +3263,15 @@ def main() -> None:
     t0 = time.perf_counter()
     tf = run_transformer_phase(device, dr["data_dir"], jp["root"])
     print(f"transformer phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if any(cp[n]["batch"] != 8 for n in ("base_ocnet", "pyramid_ocnet")):
+        raise AssertionError("phase 15 trained the OCNets at batch 16: phase 20 compares its "
+                             "accumulated batch 16 with their batch-8 peaks")
+    ex = run_extras_phase(device, dr["data_dir"], cp["tree"], dr,
+                          {n: (cp[n]["peak"], cp[n]["base"]) for n in ("base_ocnet",
+                                                                      "pyramid_ocnet")})
+    print(f"extras phase wall time {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(cp["tree"].parent, ignore_errors=True)
     shutil.rmtree(jp["root"], ignore_errors=True)
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
@@ -2999,7 +3297,7 @@ def main() -> None:
         f"{[round(x['data_seconds'] * 1e3, 1) for x in r['history'][1:]]} ms, peak "
         f"{r['peak'] / 2**30:.3f} GiB" + (f", val {r['val']['images_per_sec']:.3f} images/s"
                                           if "val" in r else "")
-        for n, r in cp.items() if n != "launches") + " (same call)")
+        for n, r in cp.items() if n not in ("launches", "tree")) + " (same call)")
     hl = rp["headline"]
     print(f"raw phase: headline from raw PNGs at batch 8: steps after the first "
           f"{[round(r['seconds'] * 1e3, 1) for r in hl['history'][1:]]} ms, data wait "
@@ -3040,6 +3338,17 @@ def main() -> None:
         f"{r['peak'] / 2**30:.3f} GiB" + (f", val {r['val']['images_per_sec']:.3f} images/s"
                                           if "val" in r else "")
         for n, r in tf["nets"].items()) + " (same call)")
+    print(f"extras phase: the headline at batch 8 in 2 microbatches with the key encoder: "
+          f"steps {[round(r['seconds'] * 1e3, 1) for r in ex['accum']['history']]} ms, peak "
+          f"{ex['accum']['peak'] / 2**30:.3f} GiB; in bf16: steps "
+          f"{[round(r['seconds'] * 1e3, 1) for r in ex['bf16']['history']]} ms, peak "
+          f"{ex['bf16']['peak'] / 2**30:.3f} GiB (fp32, the directory slice: steps "
+          f"{[round(r['seconds'] * 1e3, 1) for r in dr['history']]} ms, peak "
+          f"{dr['peak'] / 2**30:.3f} GiB); " + "; ".join(
+              f"{n} at batch 16 in 2 x 8: steps "
+              f"{[round(x['seconds'] * 1e3, 1) for x in ex[n]['history']]} ms, peak "
+              f"{ex[n]['peak'] / 2**30:.3f} GiB (batch 8: {ex[n]['batch8_peak'] / 2**30:.3f} GiB)"
+              for n in ("base_ocnet", "pyramid_ocnet")) + " (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -3090,13 +3399,14 @@ def main() -> None:
         "bound_ms_fp32": b32, "bound_by_fp32": by32, "bound_ms_fp32_simt": b32s,
         "max_abs_err_fp32": k3["errs"]["fp32"],
     })
-    for row in rows:  # summed over every run of phases 14-19; 14, 15, 17-19 fail on one
+    for row in rows:  # summed over every run of phases 14-20; 14, 15, 17-19 fail on one
         row["launches_models_phase"] = mp["launches"][row["name"]]
         row["launches_context_phase"] = cp["launches"][row["name"]]
         row["launches_raw_phase"] = rp["launches"].get(row["name"], 0)
         row["launches_segfix_phase"] = sp["launches"].get(row["name"], 0)
         row["launches_jpeg_phase"] = jp["launches"].get(row["name"], 0)
         row["launches_transformer_phase"] = tf["launches"].get(row["name"], 0)
+        row["launches_extras_phase"] = ex["launches"].get(row["name"], 0)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -2,9 +2,11 @@
 
 Counterpart of ``CheckpointManager`` in ``contrastiveseg_tpu/engine/checkpoint.py``
 (:41-106): the model (parameters and BN statistics), the optimizer, the LR
-scheduler, the step, the memory bank's rows and pointers, and the state of
-the host generator that the train step splits its seeds from, so a resumed
-run continues exactly where the saved one stopped.  The save modes are the
+scheduler (with the plateau scale), the step, the memory bank's rows and
+pointers, the key encoder's parameters with ``contrast.momentum_encoder``
+(:36-37, 102), and the state of the host generator that the train step
+splits its seeds from, so a resumed run continues exactly where the saved
+one stopped.  The save modes are the
 reference's (module_runner.py:186-214): ``latest`` always, plus
 ``performance`` / ``val_loss`` / ``iters`` / ``epoch``.
 
@@ -33,6 +35,7 @@ def state_dict(state: TrainState) -> dict:
         "scheduler": state.scheduler.state_dict(),
         "generator": state.generator.get_state(),
         "bank": None,
+        "key_params": state.key_params,
     }
     if state.bank is not None:
         tree["bank"] = {"storage": state.bank.storage,
@@ -54,6 +57,14 @@ def load_state_dict(state: TrainState, tree: dict) -> TrainState:
             dst, src = getattr(state.bank, key), tree["bank"][key]
             if dst.shape != src.shape:
                 raise ValueError(f"bank {key} has shape {tuple(src.shape)} in the "
+                                 f"checkpoint, {tuple(dst.shape)} in the state")
+            dst.copy_(src)
+    # A checkpoint without key parameters keeps the state's (JAX :102).
+    if state.key_params is not None and tree.get("key_params") is not None:
+        for name, dst in state.key_params.items():
+            src = tree["key_params"][name]
+            if dst.shape != src.shape:
+                raise ValueError(f"key parameter {name} has shape {tuple(src.shape)} in the "
                                  f"checkpoint, {tuple(dst.shape)} in the state")
             dst.copy_(src)
     state.step = int(tree["step"])

@@ -15,8 +15,19 @@ OptimScheduler, optim_scheduler.py:42-159), ``build_optimizer`` :87-150:
     when their global norm is at least ``max_norm``, before any decay, as
     ``optax.clip_by_global_norm`` (torch's ``clip_grad_norm_`` divides by
     ``norm + 1e-6`` instead), in a step pre-hook of the optimizer;
-  * ``lambda_poly``: ``lr = base_lr * (1 - step/max_iters)^power``, with the
-    optional linear warmup (``lr.is_warm``);
+  * the LR policies of ``build_schedule`` (:45-85): ``lambda_poly`` and
+    ``swa_lambda_poly`` (``base_lr * (1 - step/max_iters)^power``),
+    ``lambda_cosine``, ``swa_lambda_cosine`` and ``warmup_cosine`` (the
+    clipped cosine), ``step`` (``lr.step.gamma`` every ``lr.step.step_size``
+    steps), ``multistep`` (``lr.multistep.gamma`` at each of
+    ``lr.multistep.stepvalue``) and ``plateau`` (constant), each with the
+    optional warmup (``lr.is_warm``);
+  * ``plateau``'s decay: ``PlateauController`` (:157-219), the torch
+    ``ReduceLROnPlateau`` state machine, reads the validation metric and
+    ``set_plateau_scale`` (:222-239) rescales the LR.  JAX multiplies the
+    optimizer's update by the scale (``optax.chain(tx, scale)``), which for
+    SGD, Adam and AdamW is the update of every group's LR times the scale:
+    here ``PlateauLambdaLR`` folds it into the LR, and keeps it in its state;
   * backbone vs head LR groups through ``lr.nbb_mult``.
 
 The scheduler is stepped after each optimizer step, so the LR of step k is
@@ -25,6 +36,7 @@ the schedule at k, the same count optax reads.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -51,14 +63,39 @@ def with_warmup(sched: Callable[[int], float], warm_iters: int,
     return warmed
 
 
+def cosine_schedule(max_iters: int) -> Callable[[int], float]:
+    def factor(step: int) -> float:
+        return 0.5 * (1.0 + math.cos(math.pi * min(max(step / max_iters, 0.0), 1.0)))
+
+    return factor
+
+
 def build_schedule(cfg) -> Callable[[int], float]:
+    """The multiplier of ``lr.base_lr`` at each step."""
     policy = cfg.get("lr.lr_policy", default="lambda_poly")
-    if policy != "lambda_poly":
-        raise NotImplementedError(
-            f"lr.lr_policy={policy!r} is not ported yet (ROADMAP 5, training extras); "
-            "the port has lambda_poly")
-    sched = poly_schedule(cfg.get("solver.max_iters", default=40000),
-                          float(cfg.get("lr.lambda_poly.power", default=0.9)))
+    max_iters = cfg.get("solver.max_iters", default=40000)
+    if policy in ("lambda_poly", "swa_lambda_poly"):
+        sched = poly_schedule(max_iters, float(cfg.get("lr.lambda_poly.power", default=0.9)))
+    elif policy in ("lambda_cosine", "swa_lambda_cosine", "warmup_cosine"):
+        sched = cosine_schedule(max_iters)
+    elif policy == "step":
+        gamma = cfg.get("lr.step.gamma", default=0.1)
+        size = cfg.get("lr.step.step_size", default=100)
+
+        def sched(step: int) -> float:
+            return gamma ** (step // size)
+    elif policy == "multistep":
+        gamma = cfg.get("lr.multistep.gamma", default=0.1)
+        stepvalues = cfg.get("lr.multistep.stepvalue", default=[])
+
+        def sched(step: int) -> float:
+            return gamma ** sum(step >= s for s in stepvalues)
+    elif policy == "plateau":
+        # Constant: PlateauController rescales it from the validation metric.
+        def sched(step: int) -> float:
+            return 1.0
+    else:
+        raise NotImplementedError(f"lr policy {policy!r}")
     if cfg.get("lr.is_warm", default=False):
         sched = with_warmup(sched, cfg.get("lr.warm.warm_iters", default=1000),
                             cfg.get("lr.warm.power", default=1.0))
@@ -129,5 +166,91 @@ def build_optimizer(cfg, model: torch.nn.Module):
         params = list(model.parameters())
         opt.register_step_pre_hook(
             lambda *_: clip_by_global_norm(params, float(clip)))
-    sched = torch.optim.lr_scheduler.LambdaLR(opt, build_schedule(cfg))
-    return opt, sched
+    return opt, PlateauLambdaLR(opt, build_schedule(cfg))
+
+
+class PlateauLambdaLR(torch.optim.lr_scheduler.LambdaLR):
+    """``LambdaLR`` whose LRs are also multiplied by ``plateau_scale`` (1
+    unless ``set_plateau_scale`` changes it); the scale is part of
+    ``state_dict``, as the JAX scale is part of the optimizer state."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, lr_lambda: Callable[[int], float]):
+        self.plateau_scale = 1.0
+        super().__init__(optimizer, lr_lambda)
+
+    def get_lr(self) -> list[float]:
+        return [lr * self.plateau_scale for lr in super().get_lr()]
+
+
+def set_plateau_scale(scheduler: PlateauLambdaLR, scale: float) -> None:
+    """Set the plateau scale, and with it the LR of the next optimizer step
+    (the JAX ``set_plateau_scale`` rewrites the scale the next update reads)."""
+    scheduler.plateau_scale = float(scale)
+    lrs = [base * lam(scheduler.last_epoch) * scheduler.plateau_scale
+           for lam, base in zip(scheduler.lr_lambdas, scheduler.base_lrs)]
+    for group, lr in zip(scheduler.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    scheduler._last_lr = lrs
+
+
+class PlateauController:
+    """torch ``ReduceLROnPlateau``'s state machine on a multiplicative scale
+    (a copy of the JAX ``PlateauController``): mode, factor, patience,
+    threshold, threshold mode, cooldown and ``min_lr`` as the reference's
+    plateau settings (optim_scheduler.py:117-125).  ``step(metric)`` returns
+    the LR scale in [min_scale, 1], which the trainer hands to
+    ``set_plateau_scale``."""
+
+    def __init__(self, mode: str = "max", factor: float = 0.1,
+                 patience: int = 10, threshold: float = 1e-4,
+                 threshold_mode: str = "rel", cooldown: int = 0,
+                 min_scale: float = 0.0):
+        if mode not in ("min", "max") or threshold_mode not in ("rel", "abs"):
+            raise ValueError(f"plateau mode {mode!r}, threshold mode {threshold_mode!r}")
+        self.mode, self.factor, self.patience = mode, factor, patience
+        self.threshold, self.threshold_mode = threshold, threshold_mode
+        self.cooldown, self.min_scale = cooldown, min_scale
+        self.best = math.inf if mode == "min" else -math.inf
+        self.num_bad = 0
+        self.cooldown_left = 0
+        self.scale = 1.0
+
+    @classmethod
+    def from_config(cls, cfg) -> "PlateauController":
+        p = cfg.get("lr.plateau", default={})
+        base_lr = float(cfg.get("lr.base_lr"))
+        return cls(
+            mode=p.get("mode", "max"),
+            factor=p.get("factor", 0.1),
+            patience=p.get("patience", 10),
+            threshold=p.get("threshold", 1e-4),
+            threshold_mode=p.get("thre_mode", p.get("threshold_mode", "rel")),
+            cooldown=p.get("cooldown", 0),
+            min_scale=p.get("min_lr", 0.0) / base_lr if base_lr else 0.0,
+        )
+
+    def _is_better(self, metric: float) -> bool:
+        if self.mode == "min":
+            thr = (self.best * (1 - self.threshold) if self.threshold_mode == "rel"
+                   else self.best - self.threshold)
+            return metric < thr
+        thr = (self.best * (1 + self.threshold) if self.threshold_mode == "rel"
+               else self.best + self.threshold)
+        return metric > thr
+
+    def step(self, metric: float) -> float:
+        # torch's ReduceLROnPlateau.step order: the cooldown counts down each
+        # step (and clears num_bad), then the decay check.
+        if self._is_better(metric):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.cooldown_left > 0:
+            self.cooldown_left -= 1
+            self.num_bad = 0
+        if self.num_bad > self.patience:
+            self.scale = max(self.scale * self.factor, self.min_scale)
+            self.cooldown_left = self.cooldown
+            self.num_bad = 0
+        return self.scale

@@ -5,7 +5,9 @@ Counterpart of ``contrastiveseg_tpu/engine/state.py`` (``create_train_state``
 model, optimizer, scheduler and bank are updated in place by the train step.
 Randomness comes from one host ``torch.Generator`` (the counterpart of the
 JAX ``rng`` key), from which each use draws its own seed, the way
-``jax.random.split`` hands out keys.
+``jax.random.split`` hands out keys.  With ``contrast.momentum_encoder`` the
+state also holds the key encoder's parameters (JAX ``state.py:30``), an EMA
+of the model's, by ``named_parameters`` name; they start as a copy.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class TrainState:
     generator: torch.Generator  # host rng; split per step
     device: torch.device
     step: int = 0
+    key_params: Optional[dict[str, torch.Tensor]] = None  # contrast.momentum_encoder
 
 
 def split(generator: torch.Generator, n: int) -> list[int]:
@@ -70,7 +73,8 @@ def create_train_state(cfg, model: nn.Module, device: torch.device | str,
     ``.pth``, ``utils/pretrained.py``) over them, move the model to
     ``device``, and build the optimizer, the LR schedule and (with memory)
     the bank, which the file's queue buffers seed when it has them (JAX
-    ``engine/trainer.py:58-100``)."""
+    ``engine/trainer.py:58-100``), and with ``contrast.momentum_encoder``
+    the key parameters, a copy of the model's (:103-105)."""
     device = torch.device(device)
     rng = torch.Generator().manual_seed(cfg.get("seed", default=304))
     s_params, s_bank, s_state = split(rng, 3)
@@ -97,6 +101,9 @@ def create_train_state(cfg, model: nn.Module, device: torch.device | str,
                                      f"{tuple(queues[key].shape)}, the config's bank "
                                      f"{(C, M, D)}")
             bank = bank_from_queues(*(queues[k].to(device) for k in QUEUE_KEYS))
+    key_params = None
+    if cfg.get("contrast.momentum_encoder", default=False):
+        key_params = {name: p.detach().clone() for name, p in model.named_parameters()}
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler,
                       bank=bank, generator=torch.Generator().manual_seed(s_state),
-                      device=device)
+                      device=device, key_params=key_params)

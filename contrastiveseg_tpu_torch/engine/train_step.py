@@ -1,25 +1,45 @@
 """The train step of the port.
 
 Counterpart of ``make_train_step`` in ``contrastiveseg_tpu/engine/train_step.py``
-(:24-138), the single-program path: split the rng, forward, loss with the
-contrast term gated by ``step >= warmup_iters``, backward, enqueue the
-detached embeddings with stride-subsampled labels (only when the state has
-a memory bank, as at JAX :100), optimizer step.
-Gradient accumulation and the momentum key encoder are not ported yet
-(ROADMAP 5).
+(:24-226): split the rng, forward, loss with the contrast term gated by
+``step >= warmup_iters``, backward, enqueue the keys with stride-subsampled
+labels (only when the state has a memory bank, as at JAX :100), optimizer
+step.  The keys are the detached embeddings or, with ``momentum_encoder``,
+those of the key encoder.  Three options of the JAX step:
+
+* ``freeze_bn`` (the JAX ``train="freeze_bn"`` sentinel, ``layers.py:23-40``,
+  which every flax BatchNorm of the JAX package honours): each BatchNorm
+  normalises with its running statistics and writes none; dropout stays
+  live and every parameter keeps its gradient.
+* ``momentum_encoder`` (:100-119): once a step, before the key forward, the
+  key parameters move to ``k * m + q * (1 - m)``; the key forward is
+  gradient-free, runs the model with the key parameters and copies of its
+  buffers, so it reads the BN statistics (in train mode, the batch's own;
+  under ``freeze_bn``, the running ones) and writes none, under the query
+  forward's dropout draw; the bank takes its embeddings.
+* ``grad_accum_steps`` A > 1 (:140-226): the batch splits into A
+  microbatches, whose gradients are summed and divided by A before one
+  optimizer step (so the scheduler, the warmup gate, the EMA update, the
+  step count and the weight decay fire once); metrics are the microbatches'
+  mean; BN statistics chain from one microbatch to the next.  Every
+  microbatch draws its contrast negatives from the step's initial bank:
+  each one's keys and labels are kept, and enqueued in microbatch order
+  after the last backward, which gives JAX's chained enqueues.
 
 Dropout draws from torch's default generator of the device, seeded per
-step from the state's rng inside ``torch.random.fork_rng``, so the global
-generator is left as it was.  Anchor sampling and the enqueue draw from
-their own per-step device generators.  ``draws`` replaces those two with
-given uniform scores (the parity tests pass the JAX package's draws).
+microbatch from the state's rng inside ``torch.random.fork_rng``, so the
+global generator is left as it was.  Anchor sampling and the enqueue draw
+from their own device generators.  ``draws`` replaces those two with given
+uniform scores, one ``Draws`` a microbatch (the parity tests pass the JAX
+package's draws).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
+from torch import nn
 
 from contrastiveseg_tpu_torch.engine.state import TrainState, device_generator, split
 from contrastiveseg_tpu_torch.losses.contrast import AnchorScores
@@ -32,60 +52,114 @@ class Draws(NamedTuple):
     queue: Optional[torch.Tensor] = None  # enqueue pixel scores [B, C, N_queue]
 
 
+def set_train_mode(model: nn.Module, freeze_bn: bool = False) -> None:
+    """``model.train()``, with every BatchNorm in eval mode under ``freeze_bn``."""
+    model.train()
+    if freeze_bn:
+        for m in model.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.eval()
+
+
+@torch.no_grad()
+def ema_update(key_params: dict[str, torch.Tensor], model: nn.Module, m: float) -> None:
+    """``k = k * m + q * (1 - m)`` for every parameter."""
+    for name, q in model.named_parameters():
+        key_params[name].mul_(m).add_(q * (1.0 - m))
+
+
 def make_train_step(
     loss_fn: Callable,
     warmup_iters: int = 0,
     network_stride: int = 4,
     pixel_update_freq: int = 10,
     queue_include_class0: bool = True,
+    freeze_bn: bool = False,
+    momentum_encoder: bool = False,
+    encoder_momentum: float = 0.999,
+    grad_accum_steps: int = 1,
 ):
     """Build ``train_step(state, batch, draws=None) -> metrics``.
 
     ``batch``: {"image": [B, H, W, 3] float, "label": [B, H, W] int} on the
-    state's device.  The state is updated in place; metrics are detached
-    0-d tensors (no host sync).
+    state's device.  ``draws``: a ``Draws``, or with ``grad_accum_steps`` > 1
+    a sequence of one a microbatch.  The state is updated in place; metrics
+    are detached 0-d tensors (no host sync).
     """
+    A = grad_accum_steps
+
+    def forward(model, images, seed, devices, params=None):
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(seed)
+            if params is None:
+                return model(images)
+            buffers = {name: b.clone() for name, b in model.named_buffers()}
+            return torch.func.functional_call(model, {**params, **buffers}, (images,))
 
     def train_step(state: TrainState, batch: dict,
-                   draws: Optional[Draws] = None) -> dict[str, torch.Tensor]:
-        s_drop, s_sample, s_queue = split(state.generator, 3)
+                   draws: Union[Draws, Sequence[Draws], None] = None
+                   ) -> dict[str, torch.Tensor]:
         images, labels = batch["image"], batch["label"]
+        B = images.shape[0]
+        if B % A != 0:
+            raise ValueError(f"batch size {B} not divisible by grad_accum_steps {A}")
+        if draws is not None and A == 1:
+            draws = [draws]
+        seeds = split(state.generator, 3 * A)
         with_embed = state.step >= warmup_iters
         model = state.model
-        model.train()
-
+        set_train_mode(model, freeze_bn)
         devices = [state.device] if state.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(s_drop)
-            out = model(images)
-        loss, metrics = loss_fn(
-            out, labels, with_embed, state.bank,
-            scores=draws.anchor if draws is not None else None,
-            generator=device_generator(s_sample, state.device))
+        # The EMA fires once a step; the single-program JAX step updates the
+        # key parameters only where it has a bank (:104), the microbatched
+        # one always (:161-165).
+        keyed = momentum_encoder and state.key_params is not None
+        if keyed and (A > 1 or state.bank is not None):
+            ema_update(state.key_params, model, encoder_momentum)
+
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        pending, metrics = [], []
+        for i, (img, lab) in enumerate(zip(images.chunk(A), labels.chunk(A))):
+            s_drop, s_sample, s_queue = seeds[3 * i:3 * i + 3]
+            d = draws[i] if draws is not None else None
+            out = forward(model, img, s_drop, devices)
+            loss, m = loss_fn(out, lab, with_embed, state.bank,
+                              scores=d.anchor if d is not None else None,
+                              generator=device_generator(s_sample, state.device))
+            loss.backward()
+            metrics.append({k: v.detach() for k, v in m.items()})
+            if state.bank is not None:
+                # Reference _dequeue_and_enqueue (trainer_contrastive.py:102-138):
+                # keys are the detached embeddings, labels strided (not interp'd).
+                if keyed:
+                    with torch.no_grad():
+                        keys = forward(model, img, s_drop, devices, state.key_params)["embed"]
+                else:
+                    keys = out["embed"].detach()
+                pending.append((keys, lab, s_queue, d))
+            del out, loss, m
+        for keys, lab, s_queue, d in pending:
+            b, h, w, D = keys.shape
+            lab_s = subsample_stride(lab, network_stride)[:, :h, :w]
+            enqueue(state.bank, keys.reshape(b, h * w, D), lab_s.reshape(b, -1),
+                    pixel_update_freq=pixel_update_freq,
+                    include_class0=queue_include_class0,
+                    scores=d.queue if d is not None else None,
+                    generator=device_generator(s_queue, state.device))
         for p in model.parameters():
             # A parameter the loss does not reach (CE2P's edge branch under
             # fs_auxce_loss) still takes its weight decay and momentum, as
             # every parameter does in the JAX step; torch's SGD would skip it.
             if p.grad is None and p.requires_grad:
                 p.grad = torch.zeros_like(p)
-
-        if state.bank is not None:
-            # Reference _dequeue_and_enqueue (trainer_contrastive.py:102-138):
-            # keys are the detached embeddings, labels strided (not interp'd).
-            keys = out["embed"].detach()
-            B, h, w, D = keys.shape
-            lab_s = subsample_stride(labels, network_stride)[:, :h, :w]
-            enqueue(state.bank, keys.reshape(B, h * w, D), lab_s.reshape(B, -1),
-                    pixel_update_freq=pixel_update_freq,
-                    include_class0=queue_include_class0,
-                    scores=draws.queue if draws is not None else None,
-                    generator=device_generator(s_queue, state.device))
+            elif A > 1 and p.grad is not None:
+                p.grad.div_(A)  # the mean gradient, summed first as in JAX (:220)
 
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        if A == 1:
+            return metrics[0]
+        return {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
 
     return train_step

@@ -27,9 +27,17 @@ The train step hands the loss the label map alone, as the JAX trainer does
 SegFix preset raises ``losses/segfix.py``'s ``ValueError`` at its first
 step, where the JAX step fails (ROADMAP §3); its val and test phases run.
 
-Not ported yet, and refused with ``NotImplementedError`` when a config needs
-them: multi-GPU (ROADMAP §1 item 4), SWA, gradient accumulation, the
-momentum encoder and freeze-BN (item 5).
+The step takes ``network.freeze_bn``, ``contrast.momentum_encoder`` (with
+``contrast.encoder_momentum``) and ``solver.grad_accum_steps`` (JAX
+:130-140).  Under an ``swa_*`` LR policy the parameters are averaged after
+the steps that ``engine/swa.swa_due`` names (JAX :263-273, 303-310); at the
+end of the run the average replaces them, the BN statistics are
+re-estimated over 20 train batches (``engine/swa.reestimate_bn``, JAX
+:345-382) and the model validated (:335-341).  Under ``lr.lr_policy=plateau``
+each validation's mIoU steps a ``PlateauController`` whose scale
+multiplies the LR (:141-146, 316-324).  A run that stops early (a preempt
+signal) saves without the swap.  Multi-GPU (ROADMAP §1 item 4) is not
+ported.
 """
 
 from __future__ import annotations
@@ -46,8 +54,16 @@ from contrastiveseg_tpu_torch.data.datasets import check_loader
 from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
 from contrastiveseg_tpu_torch.engine.checkpoint import CheckpointManager
 from contrastiveseg_tpu_torch.engine.evaluator import build_evaluator
+from contrastiveseg_tpu_torch.engine.optim import PlateauController, set_plateau_scale
 from contrastiveseg_tpu_torch.engine.prefetch import device_batches
 from contrastiveseg_tpu_torch.engine.state import create_train_state
+from contrastiveseg_tpu_torch.engine.swa import (
+    init_swa,
+    reestimate_bn,
+    swa_due,
+    swap_to_swa,
+    update_swa,
+)
 from contrastiveseg_tpu_torch.engine.train_step import make_train_step
 from contrastiveseg_tpu_torch.losses.manager import build_loss
 from contrastiveseg_tpu_torch.models.nets import build_model
@@ -57,13 +73,6 @@ log = logging.getLogger(__name__)
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for what the port cannot run yet."""
-    for key in ("network.freeze_bn", "contrast.momentum_encoder"):
-        if cfg.get(key, default=None):
-            raise NotImplementedError(
-                f"{key} is not ported yet: ROADMAP 5 (training extras)")
-    if cfg.get("solver.grad_accum_steps", default=1) > 1:
-        raise NotImplementedError(
-            "solver.grad_accum_steps > 1 is not ported yet: ROADMAP 5 (training extras)")
     if not cfg.get("data.synthetic", default=False):
         check_loader(cfg)
 
@@ -103,7 +112,14 @@ class Trainer:
             network_stride=cfg.get("network.stride", default=4),
             pixel_update_freq=cfg.get("contrast.pixel_update_freq", default=10),
             queue_include_class0=cfg.get("contrast.include_class0", default=True),
+            freeze_bn=cfg.get("network.freeze_bn", default=False),
+            momentum_encoder=cfg.get("contrast.momentum_encoder", default=False),
+            encoder_momentum=cfg.get("contrast.encoder_momentum", default=0.999),
+            grad_accum_steps=cfg.get("solver.grad_accum_steps", default=1),
         )
+        policy = cfg.get("lr.lr_policy", default="lambda_poly")
+        self.plateau = PlateauController.from_config(cfg) if policy == "plateau" else None
+        self.swa_on = "swa" in policy
         self.evaluator = build_evaluator(cfg, self.state.model)
         self._val_pipe = None  # built at the first validation, then reused
         self.last_scores: dict = {}
@@ -173,6 +189,7 @@ class Trainer:
 
         step0 = self.state.step
         self._stop_signal = None
+        swa = init_swa(self.state.model) if self.swa_on else None
         prev_handlers = self._install_preempt_handlers()
         try:
             for it in range(step0, max_iters):
@@ -184,10 +201,16 @@ class Trainer:
                 if (it + 1) % display_iter == 0 or it + 1 == max_iters or self._stop_signal:
                     flush()
                 tp = time.perf_counter()
+                if swa is not None and swa_due(it + 1, max_iters):
+                    update_swa(swa, self.state.model)
+                    log.info("SWA update %d at iter %d", swa.n_averaged, it + 1)
                 if save_iters and (it + 1) % save_iters == 0:
                     self.ckpt.save(self.state, "latest")
                 if test_interval and (it + 1) % test_interval == 0:
-                    self.validate()
+                    scores = self.validate()
+                    if self.plateau is not None:
+                        set_plateau_scale(self.state.scheduler,
+                                          self.plateau.step(scores["miou"]))
                 t0 += time.perf_counter() - tp  # the window times steps only
                 if self._stop_signal:
                     self.ckpt.save(self.state, "latest")
@@ -195,6 +218,11 @@ class Trainer:
                              "network.resume_continue=true to resume",
                              self._stop_signal, it + 1)
                     return history
+            if swa is not None and swa.n_averaged:
+                # swap_swa_sgd + bn_update (trainer_contrastive.py:422-425).
+                swap_to_swa(self.state.model, swa)
+                reestimate_bn(self.state.model, batches)
+                self.validate()
         finally:
             batches.close()
             for sig, handler in prev_handlers.items():

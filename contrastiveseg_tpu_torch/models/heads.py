@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from contrastiveseg_tpu_torch.models.layers import TorchBatchNorm, conv
+from contrastiveseg_tpu_torch.models.layers import TorchBatchNorm, conv, full_precision
 
 
 class ClsHead(nn.Sequential):
@@ -20,7 +20,8 @@ class ClsHead(nn.Sequential):
     conv has no bias, like the JAX ConvBN (the upstream bias folds into BN).
     The dropout is element-wise, as in the JAX ``ClsHead``
     (``contrastiveseg_tpu/models/heads.py:29``), not the upstream's
-    channel-wise ``Dropout2d``."""
+    channel-wise ``Dropout2d``.  The 1x1 computes in fp32 in a bf16 net, as
+    the JAX one does."""
 
     def __init__(self, in_channels: int, num_classes: int, mid_channels: int,
                  dropout: float = 0.10):
@@ -28,13 +29,13 @@ class ClsHead(nn.Sequential):
             conv(in_channels, mid_channels, 3),
             nn.Sequential(TorchBatchNorm(mid_channels), nn.ReLU()),
             nn.Dropout(dropout),
-            conv(mid_channels, num_classes, 1),
+            conv(mid_channels, num_classes, 1, fp32=True),
         )
 
 
 class ProjectionHead(nn.Module):
     """convmlp projection (1x1 -> BNReLU -> 1x1) + L2 normalize over channels
-    (lib/models/modules/projection.py:8-24)."""
+    (lib/models/modules/projection.py:8-24); the normalisation in fp32."""
 
     def __init__(self, dim_in: int, proj_dim: int = 256):
         super().__init__()
@@ -46,7 +47,8 @@ class ProjectionHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.proj(x).float()
-        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp(min=1e-12)
+        with full_precision(x):
+            return x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp(min=1e-12)
 
 
 def bn_relu(channels: int) -> nn.Sequential:

@@ -12,9 +12,17 @@ as flax does (torch's own BatchNorm uses the unbiased one).
 ``pallas=True`` routes the eligible 3x3 convs (``ops/conv.supported``)
 through K2, the CUDA counterpart of the JAX package's Pallas conv, under
 the same parameter names, so weights carry over unchanged.
+
+``network.bf16`` (the JAX nets' ``dtype=jnp.bfloat16``: parameters fp32,
+the convolutions, matmuls and activations in bf16) is ``bf16_compute``, a
+``torch.autocast`` around a net's forward; the sites that the JAX package
+pins to ``jnp.float32`` (the class logits: ``conv(..., fp32=True)``, the
+embedding's normalisation, the OCR products) run under ``full_precision``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -49,6 +57,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out
 
 
+def bf16_compute(enabled: bool, x: torch.Tensor):
+    """The block of a net built with ``network.bf16`` that computes in bf16:
+    ``torch.autocast`` to bf16 on ``x``'s device; a no-op when not
+    ``enabled``."""
+    if not enabled:
+        return contextlib.nullcontext()
+    return torch.autocast(x.device.type, dtype=torch.bfloat16)
+
+
+def full_precision(x: torch.Tensor):
+    """A block computed in fp32 inside ``bf16_compute`` (a JAX
+    ``jnp.float32`` site); a no-op outside one, so fp32 nets trace as
+    before."""
+    if not torch.is_autocast_enabled(x.device.type):
+        return contextlib.nullcontext()
+    return torch.autocast(x.device.type, enabled=False)
+
+
+class Float32Conv2d(nn.Conv2d):
+    """A conv that the JAX package keeps in fp32 in its bf16 nets
+    (``nn.Conv(..., dtype=jnp.float32)(x.astype(jnp.float32))``: the class
+    logits); an ``nn.Conv2d`` otherwise."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with full_precision(x):
+            return super().forward(x.float())
+
+
 def TorchBatchNorm(channels: int) -> BatchNorm2d:  # noqa: N802 (mirrors the JAX class)
     return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
@@ -68,13 +104,15 @@ class PallasConv3x3(nn.Conv2d):
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
          bias: bool = False, pallas: bool = False, dilation: int = 1,
-         zero_init: bool = False) -> nn.Conv2d:
+         zero_init: bool = False, fp32: bool = False) -> nn.Conv2d:
     """Padding ``dilation * (k - 1) // 2`` on both sides, as the JAX
     ``ConvBN`` pads (``models/layers.py:104-112``): not XLA's "SAME", which
     pads a strided even-sized input asymmetrically.  ``zero_init``: the
     weight starts at 0 (a flax ``kernel_init=zeros``), and
-    ``engine/state.init_weights`` keeps it there."""
-    cls = PallasConv3x3 if pallas and not bias else nn.Conv2d
+    ``engine/state.init_weights`` keeps it there.  ``fp32``: a
+    ``Float32Conv2d``."""
+    cls = (Float32Conv2d if fp32 else
+           PallasConv3x3 if pallas and not bias else nn.Conv2d)
     out = cls(in_ch, out_ch, kernel_size, stride=stride,
               padding=dilation * (kernel_size - 1) // 2, dilation=dilation, bias=bias)
     if zero_init:

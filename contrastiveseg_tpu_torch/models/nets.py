@@ -71,6 +71,12 @@ the JAX package; inside, the models run NCHW and permute once, here.
   ``FPNSemanticDecoder`` is ``FPNNeck`` and ``FPNSemanticDecoder`` here,
   under the reference's keys.
 
+``network.bf16`` (JAX ``nets.py:277,303,332``) builds ``HRNetSeg``,
+``HRNetOCRSeg`` and ``DeepLabV3`` to compute in bf16 (``models/layers.
+bf16_compute``) with fp32 parameters and the JAX package's fp32 sites: the
+``cls``/``aux_cls``/``dsn_cls`` convs, the embedding's normalisation, the
+OCR products and the logits' upsampling.  The other nets refuse it.
+
 With a projection head, ``seg`` and ``seg_aux`` stay at the network's
 stride (4 for HRNet, 8 for DeepLab) and the loss upsamples them; without,
 both are upsampled to the input here.  Module names follow the reference's
@@ -101,7 +107,14 @@ from contrastiveseg_tpu_torch.models.heads import (
     conv_bn_relu,
 )
 from contrastiveseg_tpu_torch.models.hrnet import HRNET_SPECS, HRNEXT_SPECS, HRNet, HRNetNext
-from contrastiveseg_tpu_torch.models.layers import ConvBN, TorchBatchNorm, Upsample, conv
+from contrastiveseg_tpu_torch.models.layers import (
+    ConvBN,
+    TorchBatchNorm,
+    Upsample,
+    bf16_compute,
+    conv,
+    full_precision,
+)
 from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR, SpatialOCRASP
 from contrastiveseg_tpu_torch.models.backbone_selector import build_backbone
 from contrastiveseg_tpu_torch.models.resnet import ResNet, backbone_spec
@@ -118,11 +131,12 @@ def _outputs(out: dict[str, torch.Tensor], proj_head: nn.Module | None,
              feats: torch.Tensor, size: tuple[int, int]) -> dict[str, torch.Tensor]:
     """NHWC outputs: with a projection head, the logits stay at the
     network's stride and ``embed`` projects ``feats``; without one, the
-    logits are upsampled to the input ``size``."""
+    logits are upsampled to the input ``size``, in fp32 in a bf16 net."""
     if proj_head is not None:
         out = {**out, "embed": proj_head(feats)}
     else:
-        out = {k: resize_bilinear_align_corners_nchw(v, size) for k, v in out.items()}
+        with full_precision(next(iter(out.values()))):
+            out = {k: resize_bilinear_align_corners_nchw(v, size) for k, v in out.items()}
     return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
 
 
@@ -140,18 +154,20 @@ class HRNetSeg(nn.Module):
 
     def __init__(self, num_classes: int, arch: str = "hrnet48",
                  proj_dim: int = 256, head_dropout: float = 0.10,
-                 pallas_conv: bool = False, with_proj: bool = True):
+                 pallas_conv: bool = False, with_proj: bool = True, bf16: bool = False):
         super().__init__()
         self.backbone = _hrnet_backbone(arch, pallas_conv)
         width = sum(self.backbone.out_channels)  # 720 for hrnet48
         self.cls_head = ClsHead(width, num_classes, width, head_dropout)
         self.proj_head = ProjectionHead(width, proj_dim) if with_proj else None
+        self.bf16 = bf16
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """``x``: NHWC images -> NHWC ``seg`` (and ``embed``) at stride 4, or
         ``seg`` at the input size without the projection head."""
-        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
-        return _outputs({"seg": self.cls_head(cat)}, self.proj_head, cat, x.shape[1:3])
+        with bf16_compute(self.bf16, x):
+            cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+            return _outputs({"seg": self.cls_head(cat)}, self.proj_head, cat, x.shape[1:3])
 
 
 def _hrnet_backbone(arch: str, pallas_conv: bool = False) -> nn.Module:
@@ -190,27 +206,29 @@ class HRNetOCRSeg(nn.Module):
 
     def __init__(self, num_classes: int, arch: str = "hrnet48", with_proj: bool = False,
                  proj_dim: int = 256, mid_channels: int = 512, key_channels: int = 256,
-                 aux_channels: int | None = None):
+                 aux_channels: int | None = None, bf16: bool = False):
         super().__init__()
         spec = HRNET_SPECS[arch]
         width = sum(spec.out_channels)
         aux_channels = aux_channels or width
         self.backbone = HRNet(spec)
         self.aux_head = nn.Sequential(*conv_bn_relu(width, aux_channels, 3),
-                                      conv(aux_channels, num_classes, 1, bias=True))
+                                      conv(aux_channels, num_classes, 1, bias=True, fp32=True))
         self.conv3x3 = conv_bn_relu(width, mid_channels, 3)
         self.ocr_gather_head = SpatialGather()
         self.ocr_distri_head = SpatialOCR(mid_channels, key_channels, mid_channels, 0.05)
-        self.cls_head = conv(mid_channels, num_classes, 1, bias=True)
+        self.cls_head = conv(mid_channels, num_classes, 1, bias=True, fp32=True)
         self.proj_head = ProjectionHead(width, proj_dim) if with_proj else None
+        self.bf16 = bf16
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
-        aux = self.aux_head(cat)
-        feats = self.conv3x3(cat)
-        feats = self.ocr_distri_head(feats, self.ocr_gather_head(feats, aux))
-        return _outputs({"seg": self.cls_head(feats), "seg_aux": aux}, self.proj_head, cat,
-                        x.shape[1:3])
+        with bf16_compute(self.bf16, x):
+            cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+            aux = self.aux_head(cat)
+            feats = self.conv3x3(cat)
+            feats = self.ocr_distri_head(feats, self.ocr_gather_head(feats, aux))
+            return _outputs({"seg": self.cls_head(feats), "seg_aux": aux}, self.proj_head, cat,
+                            x.shape[1:3])
 
 
 class DeepLabHead(nn.Module):
@@ -221,10 +239,10 @@ class DeepLabHead(nn.Module):
     def __init__(self, c3: int, c4: int, num_classes: int):
         super().__init__()
         self.layer_dsn = nn.Sequential(*conv_bn_relu(c3, 256, 3),
-                                       conv(256, num_classes, 1, bias=True))
+                                       conv(256, num_classes, 1, bias=True, fp32=True))
         self.layer_aspp = ASPP(c4, 512)
         self.refine = nn.Sequential(conv(512, 512, 3), TorchBatchNorm(512),
-                                    conv(512, num_classes, 1, bias=True))
+                                    conv(512, num_classes, 1, bias=True, fp32=True))
 
     def forward(self, c3: torch.Tensor, c4: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return self.refine(self.layer_aspp(c4)), self.layer_dsn(c3)
@@ -235,17 +253,19 @@ class DeepLabV3(nn.Module):
     ``with_proj``, the projection head on c4."""
 
     def __init__(self, num_classes: int, arch: str = "resnet101_dilated8",
-                 with_proj: bool = False, proj_dim: int = 256):
+                 with_proj: bool = False, proj_dim: int = 256, bf16: bool = False):
         super().__init__()
         self.backbone = ResNet(backbone_spec(arch))
         c3, c4 = self.backbone.channels[2:]
         self.decoder = DeepLabHead(c3, c4, num_classes)
         self.proj_head = ProjectionHead(c4, proj_dim) if with_proj else None
+        self.bf16 = bf16
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
-        seg, aux = self.decoder(c3, c4)
-        return _outputs({"seg": seg, "seg_aux": aux}, self.proj_head, c4, x.shape[1:3])
+        with bf16_compute(self.bf16, x):
+            c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
+            seg, aux = self.decoder(c3, c4)
+            return _outputs({"seg": seg, "seg_aux": aux}, self.proj_head, c4, x.shape[1:3])
 
 
 def _dsn_head(c3: int, num_classes: int, dropout: float | None, bias: bool = True
@@ -507,6 +527,7 @@ def _hrnet(arch: str, with_proj: bool):
             head_dropout=cfg.get("network.head_dropout", default=0.10),
             pallas_conv=cfg.get("network.pallas_conv", default=False),
             with_proj=with_proj,
+            bf16=cfg.get("network.bf16", default=False),
         )
 
     return build
@@ -515,7 +536,8 @@ def _hrnet(arch: str, with_proj: bool):
 def _hrnet_ocr(arch: str, with_proj: bool = False, **heads):
     def build(cfg) -> HRNetOCRSeg:
         return HRNetOCRSeg(cfg.get("data.num_classes"), arch, with_proj=with_proj,
-                           proj_dim=cfg.get("contrast.proj_dim", default=256), **heads)
+                           proj_dim=cfg.get("contrast.proj_dim", default=256),
+                           bf16=cfg.get("network.bf16", default=False), **heads)
 
     return build
 
@@ -526,7 +548,8 @@ def _deeplab(with_proj: bool):
         return DeepLabV3(cfg.get("data.num_classes"),
                          cfg.get("network.backbone", default="resnet101_dilated8"),
                          with_proj=with_proj,
-                         proj_dim=cfg.get("contrast.proj_dim", default=256))
+                         proj_dim=cfg.get("contrast.proj_dim", default=256),
+                         bf16=cfg.get("network.bf16", default=False))
 
     return build
 
@@ -545,6 +568,8 @@ for _w in (18, 32, 48, 64):
 MODELS["hrnet2x20"] = _hrnet("hrnet2x20", with_proj=False)
 MODELS["deeplab_v3"] = _deeplab(with_proj=False)
 MODELS["deeplab_v3_contrast"] = _deeplab(with_proj=True)
+# The nets that take network.bf16: HRNetSeg, HRNet + OCR and DeepLab-V3.
+_BF16 = frozenset(MODELS)
 
 
 def _resnet_net(cls, **kw):
@@ -782,7 +807,6 @@ _LATER_MODELS = {
 # Config switches of the JAX models that the port does not have yet; a
 # config that turns one on is refused rather than silently ignored.
 _NOT_PORTED = {
-    "network.bf16": "ROADMAP 5 (training extras: bf16 compute)",
     "network.lane_pad": "a TPU layout variant",
     "network.full_res_stem": "ROADMAP 7 (other models)",
     "network.drop_stage4": "ROADMAP 7 (other models)",
@@ -800,8 +824,18 @@ def build_model(cfg) -> nn.Module:
     for key, what in _NOT_PORTED.items():
         if cfg.get(key, default=False):
             raise NotImplementedError(f"{key}=true is not ported yet: {what}")
-    if cfg.get("network.pallas_conv", default=False) and name not in _HRNET_SEG:
+    pallas_conv = cfg.get("network.pallas_conv", default=False)
+    if pallas_conv and name not in _HRNET_SEG:
         raise NotImplementedError(
             f"network.pallas_conv=true on {name!r}: K2 runs in the HRNetSeg nets only; the "
             "JAX package's other nets take no pallas_conv")
+    if cfg.get("network.bf16", default=False):
+        if name not in _BF16:
+            raise NotImplementedError(
+                f"network.bf16=true on {name!r} is not ported yet: ROADMAP 5 (bf16 compute "
+                "runs in the HRNetSeg, HRNet + OCR and DeepLab-V3 nets)")
+        if pallas_conv:
+            raise NotImplementedError(
+                "network.bf16=true with network.pallas_conv=true: K2 has no bf16 variant in "
+                "the port yet (ROADMAP §2)")
     return MODELS[name](cfg)

@@ -25,7 +25,10 @@ reference's spatial_ocr_block.py):
     branches; the five concatenated, 1x1 ConvBNReLU, dropout.
 
 The two products are batched matmuls (``torch.bmm``), as they are XLA
-einsums in the JAX package.  As there, the query and key convs run on the
+einsums in the JAX package, and like them exact products accumulated in
+fp32 in a bf16 net (``preferred_element_type=jnp.float32``), with the
+softmax in fp32; ``SpatialGather`` and the distributed context come out in
+the features' dtype.  As there, the query and key convs run on the
 ground-truth path too (their BN statistics move), though the similarity
 does not read them.
 
@@ -44,6 +47,7 @@ import torch
 from torch import nn
 
 from contrastiveseg_tpu_torch.models.heads import conv_bn_relu
+from contrastiveseg_tpu_torch.models.layers import full_precision
 
 
 class SpatialGather(nn.Module):
@@ -55,8 +59,9 @@ class SpatialGather(nn.Module):
 
     def forward(self, feats: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
         """``feats`` [B, C, H, W], ``probs`` [B, K, H, W] -> [B, K, C]."""
-        p = torch.softmax(self.scale * probs.flatten(2), dim=2)
-        return torch.bmm(p, feats.flatten(2).transpose(1, 2))
+        with full_precision(feats):
+            p = torch.softmax(self.scale * probs.flatten(2).float(), dim=2)
+            return torch.bmm(p, feats.flatten(2).transpose(1, 2).float()).to(feats.dtype)
 
 
 class ObjectAttention(nn.Module):
@@ -88,13 +93,16 @@ class ObjectAttention(nn.Module):
         value = self.f_down(objects).flatten(2).transpose(1, 2)  # [B, K, key]
 
         def distribute(sim):
-            ctx = torch.bmm(sim, value).transpose(1, 2).reshape(B, self.key_channels, H, W)
-            return self.f_up(ctx)
+            with full_precision(x):
+                ctx = torch.bmm(sim.to(value.dtype).float(), value.float()).to(x.dtype)
+            return self.f_up(ctx.transpose(1, 2).reshape(B, self.key_channels, H, W))
 
         if gt_sim is not None:
             sim = gt_sim / gt_sim.sum(-1, keepdim=True).clamp(min=1e-12)
         else:
-            sim = torch.softmax(torch.bmm(query, key) * self.key_channels ** -0.5, dim=-1)
+            with full_precision(x):
+                sim = torch.softmax(torch.bmm(query.float(), key.float())
+                                    * self.key_channels ** -0.5, dim=-1)
         ctx = distribute(sim)
         if not self.use_bg:
             return ctx

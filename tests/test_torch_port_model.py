@@ -200,8 +200,13 @@ def test_build_model_knows_only_the_ported_names():
         build_model(cfg.updated("network.model_name", "hrnet_w48_ocr_b_ha"))
     with pytest.raises(KeyError, match="hrnet_w48_mem"):
         build_model(cfg.updated("network.model_name", "no_such_net"))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_model(cfg.updated("network.bf16", True))
+    # network.bf16 is ported on the HRNetSeg, HRNet + OCR and DeepLab-V3 nets;
+    # the others, and bf16 with K2 (no bf16 variant in the port), refuse it.
+    assert build_model(cfg.updated("network.bf16", True)).bf16
+    with pytest.raises(NotImplementedError, match="ROADMAP 5"):
+        build_model(cfg.updated("network.bf16", True).updated("network.model_name", "fcnet"))
+    with pytest.raises(NotImplementedError, match="ROADMAP §2"):
+        build_model(cfg.updated("network.bf16", True).updated("network.pallas_conv", True))
     # network.pallas_conv is ported: the branch BasicBlocks' 3x3 convs become
     # PallasConv3x3 (2 per block: 16 + 96 + 96 over the three stages), under
     # the same state_dict names, so weights carry over unchanged.

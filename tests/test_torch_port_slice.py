@@ -235,6 +235,7 @@ def test_build_loss_refuses_a_contrast_kernel_choice():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """The training extras are ported: the trainer accepts them."""
     from contrastiveseg_tpu_torch.engine.trainer import check_supported
 
     cfg = _config()
@@ -242,9 +243,6 @@ def test_trainer_refuses_what_is_not_ported():
     check_supported(cfg.updated("solver.test_interval", 2))  # the evaluator is ported
     check_supported(cfg.updated("data.synthetic", False))  # the data pipeline is ported
     check_supported(cfg.updated("data.synthetic", False).updated("data.loader", "dt_offset"))
-    with pytest.raises(NotImplementedError, match="ROADMAP 5"):
-        check_supported(cfg.updated("contrast.momentum_encoder", True))
-    with pytest.raises(NotImplementedError, match="ROADMAP 5"):
-        check_supported(cfg.updated("network.freeze_bn", True))
-    with pytest.raises(NotImplementedError, match="ROADMAP 5"):
-        check_supported(cfg.updated("solver.grad_accum_steps", 2))
+    check_supported(cfg.updated("contrast.momentum_encoder", True))
+    check_supported(cfg.updated("network.freeze_bn", True))
+    check_supported(cfg.updated("solver.grad_accum_steps", 2))
