@@ -176,9 +176,9 @@ Phases (any failure raises, so the run exits non-zero):
      ``pascal_context_hrnet_w48_contrast``, ``pascal_context_hrnet_w48`` and
      ``camvid_hrnet_w48_contrast`` at full width (HRNet-W48) and the
      preset's batch 16 (8 where 16 does not fit, after the allocator's
-     message), crop, classes and transforms: 3 steps for a contrast preset
+     message), crop, classes and transforms: 2 steps for a contrast preset
      (``contrast.warmup_iters=0``; a positive contrast term and each step's
-     anchor count M), 2 for a plain one; finite losses, step times, data
+     anchor count M), 1 for a plain one (3 and 2 before phase 21); finite losses, step times, data
      wait, peak memory, 0 launches of K1-K3; ``--phase val`` of the ADE20K
      and Pascal-Context contrast presets in ``diverse_size`` over the 4 JPEG
      val frames (images/s, a finite mIoU); the pipeline's host seconds for
@@ -231,9 +231,32 @@ Phases (any failure raises, so the run exits non-zero):
      after each validation, held to a ``PlateauController`` fed the same
      mIoUs, and whether and why the LR dropped; checkpoints are not
      written; its lines carry ``[extras phase +N s]``;
- 21. a JSON line of the six kernels, the card line, and the result line.
+ 21. the bf16 phase: (a), with the kernel checks of phases 3-4, K2's bf16
+     kernels (``conv3x3_fwd_bf16``: the forward and dX; ``conv3x3_dw_bf16``)
+     against their plain versions at [2, 48, 128, 256], a ragged width of 40
+     and [8, 48, 128, 256]: the forward and dX within 1 bf16 ulp, dW (fp32)
+     within rtol 1e-5; each timed at batch 2 and 8 beside cuDNN's bf16
+     ``conv2d`` and ``conv2d_weight``; (b) ``cityscapes_hrnet_w48_mem`` with
+     ``network.bf16=true network.pallas_conv=true`` at batch 8 from phase 9's
+     tree, 2 steps: >= 2*64*2 forward/dX and >= 64*2 dW launches of K2-bf16,
+     no fp32 K2 launch, K1 once a step, parameters and bank fp32, step 1's
+     losses within ``BF16_LOSS_RTOL`` of phase 20 (b)'s bf16 step 1 without
+     K2; its ``latest`` restored bit for bit, ``--phase val`` over the 4 val
+     frames and ``ss_test`` at batch 1, both through K2-bf16; the ``--scope
+     ss`` export of it loaded and run in a fresh process on a val frame of
+     1024x2048, its logits and labels against the ``Tester``'s
+     (``ARTIFACT_REL_L2``, ``ARTIFACT_LABELS``); (c) one bf16 step at
+     batch 2 of a preset of each family (``BF16_NETS``: ``isanet``, the
+     oracle ``ideal_spatial_ocrnet``, ``pascal_context_hrnet_w48_isa``,
+     ``lip_ce2p_ocrnet``, ``setr_pup`` on ViT-L at 768x768, Semantic-FPN on
+     PVT-Small, ``ms_ocr``) from the trees of phases 9, 15, 16 and 18, each
+     with finite losses, fp32 parameters and its peak below the preset's
+     fp32 peak of phases 15-19, and ``cityscapes_segfix_hrnet``'s
+     ``--phase val`` in bf16 at batch 2; its lines carry ``[bf16 phase +N
+     s]``;
+ 22. a JSON line of the eight kernels, the card line, and the result line.
 
-Phases 10-20 print their step times (or seconds an image), peak memory and
+Phases 10-21 print their step times (or seconds an image), peak memory and
 wall time.  Phases 14-17 train each preset 2 steps (``CUT_STEPS``; 3 before
 phase 18 was added), which makes room for phase 18 in the time limit; every check they
 make stays (the raw headline's K1 launches are held to 2, one a step).  Phase
@@ -241,7 +264,13 @@ make stays (the raw headline's K1 launches are held to 2, one a step).  Phase
 for phase 20, ``spatial_asp_ocrnet`` (phase 15), the oracle gather and
 distribute OCR nets (phase 16) and ``setr_mla`` and ``setr_naive`` (phase
 19) train one step (``ONE_STEP``), and phase 20 reuses the trees of phases
-9 and 15; every check stays.
+9 and 15; every check stays.  To make room for phase 21, phase 14's four
+presets, phase 15's batch-16 nets other than the OCNets, phase 16's oracle,
+RMI and LIP nets, phase 17's ResNeSt FCN and phase 19's MS-OCR, SETR-PUP
+and Semantic-FPN train one step too (``ONE_STEP``, ``steps_of``), phase
+18's presets one step fewer (``JPEG_PRESETS``), and phase
+21 reuses the trees of phases 9, 15, 16 (LIP) and 18 and runs its one-step
+nets at batch 2.
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
@@ -303,10 +332,28 @@ CUT_STEPS = 2
 # One step only, to make room for phase 20: spatial_asp_ocrnet (phase 15; its
 # 9.4-9.6 s step-2 times are in PERF.md section 5), the oracle gather and
 # distribute OCR nets (phase 16: without labels they compute ideal_spatial's
-# forward, which trains 2 steps), and the second and third SETR decoders
-# (phase 19; setr_pup trains 2 steps).
+# forward), and the second and third SETR decoders (phase 19; setr_pup trains
+# 2 steps).
 ONE_STEP = ("cityscapes_spatial_asp_ocrnet", "cityscapes_ideal_gather_ocrnet",
-            "cityscapes_ideal_distribute_ocrnet", "setr_mla", "setr_naive")
+            "cityscapes_ideal_distribute_ocrnet", "setr_mla", "setr_naive",
+            # and to make room for phase 21 (10-26 s of steps after the first in PR
+            # 15's run): the batch-16 context nets of phase 15 (cityscapes_fcnet
+            # also runs pspnet and ccnet) and phase 16's oracle, RMI and LIP nets
+            "cityscapes_fcnet", "cityscapes_fcnet_wo_dsn", "cityscapes_spatial_ocrnet",
+            "cityscapes_asp_ocnet", "cityscapes_isanet", "cityscapes_ideal_spatial_ocrnet",
+            "pascal_context_hrnet_w48_ocr_rmi", "coco_stuff_hrnet_w48_ocr_rmi",
+            "lip_hrnet_w48", "lip_hrnet_w48_isa", "lip_hrnet_w48_ocr", "lip_hrnet_w48_ocr_b",
+            "lip_ce2p_ocrnet", "lip_ce2p_ideal_ocrnet",
+            # phase 14's four presets, phase 17's ResNeSt FCN and phase 19's MS-OCR,
+            # SETR-PUP and Semantic-FPN
+            "cityscapes_deeplab_v3", "cityscapes_deeplab_v3_contrast",
+            "cityscapes_hrnet_w48_ocr", "cityscapes_hrnet_w48_ocr_contrast",
+            "cityscapes_resnest_fcn", "ms_ocr", "setr_pup", "semantic_fpn")
+
+
+def steps_of(preset: str) -> int:
+    """Train steps of ``preset`` (or net) in phases 14-19."""
+    return 1 if preset in ONE_STEP else CUT_STEPS
 
 
 def card_line() -> str:
@@ -356,6 +403,23 @@ def close(name: str, got, want, rtol: float, atol: float) -> float:
             f"{name}: kernel disagrees with the plain version "
             f"(max abs err {float(err.max()):.3e}, rtol {rtol}, atol {atol})")
     return float(err.max())
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| of two bf16 tensors in bf16 ulps (2^(e - 7)
+    for a magnitude in [2^e, 2^(e + 1))) of max(|got|, |want|), taken at
+    2^-10 of ``want``'s RMS at least: below that, the fp32 sums' own rounding
+    (each ~2^-24 of the products' magnitudes, a hundredth of that floor's
+    ulp) may be an ulp, and two correct kernels can round apart."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        return math.inf
+    floor = 2.0 ** -10 * float(want.square().mean().sqrt())
+    mag = torch.maximum(torch.maximum(got.abs(), want.abs()), torch.tensor(floor))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - want).abs() / ulp).max())
 
 
 def k1_inputs(M: int, K: int, D: int, seed: int, device):
@@ -537,6 +601,69 @@ def check_k2(device) -> dict:
         print(f"K2 time {[B, C, H, W]} {name}: kernel {ms:.4f} ms, library {lib_ms:.4f} ms "
               f"({lib}), bound {b_ms:.4f} ms ({by}), share of the bound {b_ms / ms:.3f}")
     return {"errs": errs, "rows": rows, "b8": b8}
+
+
+def check_k2_bf16(device) -> dict:
+    """K2's bf16 kernels against their plain versions (``F.conv2d`` and
+    ``conv2d_weight`` on the fp32 upcasts, the forward rounded once to bf16)
+    at the main path's branch-0 shape [2, 48, 128, 256], a ragged width of 40
+    and the recipe's batch 8: the forward and dX within 1 bf16 ulp
+    (``bf16_ulps``), dW (fp32) within rtol 1e-5 and atol 1e-6 of its largest
+    entry (exact products summed in another order).  Timed at batch 2 and 8
+    beside cuDNN's bf16 ``conv2d`` and ``conv2d_weight``."""
+    import torch
+
+    from contrastiveseg_tpu_torch.ops import conv_cuda as k2
+    from contrastiveseg_tpu_torch.ops.conv import conv3x3_dw_plain, conv3x3_plain
+
+    errs = {"conv3x3_fwd_bf16": 0.0, "conv3x3_dw_bf16": 0.0}
+    ulps, rows = {"fwd": 0.0, "dx": 0.0}, {}
+    g = torch.Generator().manual_seed(3)
+    bf = torch.bfloat16
+    for case, (B, C, H, W) in (("b2", (2, 48, 128, 256)), ("ragged", (2, 48, 128, 40)),
+                               ("b8", (8, 48, 128, 256))):
+        x = torch.randn(B, C, H, W, generator=g).to(device, bf)
+        w = (torch.randn(C, C, 3, 3, generator=g) / (3 * C ** 0.5)).to(device, bf)
+        gy = torch.randn(B, C, H, W, generator=g).to(device, bf)
+        y, dx, dw = k2.conv3x3_fwd(x, w), k2.conv3x3_fwd(gy, w, True), k2.conv3x3_dw(x, gy)
+        torch.cuda.synchronize()
+        if (y.dtype, dx.dtype, dw.dtype) != (bf, bf, torch.float32):
+            raise AssertionError(f"K2-bf16 dtypes {y.dtype} {dx.dtype} {dw.dtype}")
+        for what, got, want in (("fwd", y, conv3x3_plain(x, w)),
+                                ("dx", dx, conv3x3_plain(gy, w, True))):
+            u = bf16_ulps(got, want)
+            if not u <= 1:
+                raise AssertionError(f"K2-bf16 {case} {what}: {u} bf16 ulps from the plain "
+                                     "version (bound 1)")
+            ulps[what] = max(ulps[what], u)
+            errs["conv3x3_fwd_bf16"] = max(errs["conv3x3_fwd_bf16"],
+                                           float((got.float() - want.float()).abs().max()))
+        want_dw = conv3x3_dw_plain(x, gy)
+        errs["conv3x3_dw_bf16"] = max(errs["conv3x3_dw_bf16"], close(
+            f"K2-bf16 {case} dW", dw, want_dw, 1e-5, 1e-6 * float(want_dw.abs().max())))
+        print(f"K2-bf16 {case} {[B, C, H, W]}: forward {ulps['fwd']:.0f} and dX "
+              f"{ulps['dx']:.0f} bf16 ulps at most (bound 1), dW within rtol 1e-5 of the plain "
+              f"versions (max abs err {float((dw - want_dw).abs().max()):.3e} of "
+              f"{float(want_dw.abs().max()):.3e})")
+        if case == "ragged":
+            continue
+        flops = 2 * 9 * C * C * B * H * W
+        rows[case] = {
+            "conv3x3_fwd_bf16": (
+                time_ms(lambda: k2.conv3x3_fwd(x, w)), time_ms(lambda: conv3x3_plain(x, w)),
+                time_ms(lambda: torch.nn.functional.conv2d(x, w, padding=1)),
+                bound(flops, nbytes(x, w, y), "bf16")),
+            "conv3x3_dw_bf16": (
+                time_ms(lambda: k2.conv3x3_dw(x, gy)),
+                time_ms(lambda: conv3x3_dw_plain(x, gy)),
+                time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1)),
+                bound(flops, nbytes(x, gy, dw), "bf16")),
+        }
+        for name, (ms, plain_ms, lib_ms, (b_ms, by)) in rows[case].items():
+            print(f"K2-bf16 time {[B, C, H, W]} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, cuDNN bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), share of the "
+                  f"bound {b_ms / ms:.3f}")
+    return {"errs": errs, "ulps": ulps, "rows": rows}
 
 
 def check_k3(device) -> dict:
@@ -817,6 +944,17 @@ def run_block_bench() -> dict:
     return out
 
 
+def each_frame(write, n: int) -> None:
+    """``write(i)`` for the frames 0 .. n - 1 of a tree on 8 threads (numpy's
+    filters and zlib release the GIL; the scenes are seeded by index, so the
+    files are those of one thread).  A frame writes its files in order, so
+    each sidecar is newer than its PNG."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+
+
 def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
                   seed: int = 0, sidecars: bool = True, filters=(0,),
                   instances: bool = False) -> None:
@@ -852,7 +990,8 @@ def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
     scenes = SyntheticSegDataset(19, hw, n_train + n_val, seed=seed)
     gt_dir = root / "gtFine" / "val" / "frankfurt"
     gt_dir.mkdir(parents=True, exist_ok=True)
-    for i in range(n_train + n_val):
+
+    def frame(i: int) -> None:
         split, name = (("train", f"f{i}") if i < n_train
                        else ("val", f"frankfurt_000000_{i - n_train:06d}_leftImg8bit"))
         scene = scenes[i]
@@ -878,6 +1017,8 @@ def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
             (gt_dir / f"{stem}_gtFine_labelIds.png").write_bytes(encode_png(label, level=1))
             (gt_dir / f"{stem}_gtFine_instanceIds.png").write_bytes(
                 encode_png(inst.astype(np.uint16), level=1))
+
+    each_frame(frame, n_train + n_val)
 
 
 def pipeline_seconds(cfg, workers: int, repeat: int = 4) -> float:
@@ -1239,7 +1380,8 @@ def run_models_phase(device, data_dir: Path) -> dict:
     for preset in MODEL_PRESETS:
         contrastive = preset.endswith("_contrast")
         cfg = directory_config(preset, data_dir, root / preset, [
-            f"solver.max_iters={CUT_STEPS}"] + (["contrast.warmup_iters=0"] if contrastive else []))
+            f"solver.max_iters={steps_of(preset)}"]
+            + (["contrast.warmup_iters=0"] if contrastive else []))
         want = (8, 19, "deepbase_resnet101_dilated8" if "deeplab" in preset else "hrnet48")
         got = (cfg.get("train.batch_size"), cfg.get("data.num_classes"),
                cfg.get("network.backbone"))
@@ -1429,7 +1571,8 @@ def write_pascal_context(root: Path, n_train: int = 16, n_val: int = 4, seed: in
     from contrastiveseg_tpu_torch.utils.png import encode_png
 
     scenes = [SyntheticSegDataset(classes, hw, n_train + n_val, seed=seed) for hw in sizes]
-    for i in range(n_train + n_val):
+
+    def frame(i: int) -> None:
         scene = scenes[i % len(sizes)][i]
         split = "train" if i < n_train else "val"
         for kind, array in (("image", scene["image"]), ("label", scene["label"].astype(np.uint8))):
@@ -1439,6 +1582,8 @@ def write_pascal_context(root: Path, n_train: int = 16, n_val: int = 4, seed: in
             if sidecars:
                 (d / ".npy_cache").mkdir(exist_ok=True)
                 np.save(d / ".npy_cache" / f"{i:04d}.png.npy", array)
+
+    each_frame(frame, n_train + n_val)
 
 
 def head_losses(model, batch: dict, cfg) -> dict:
@@ -1576,7 +1721,7 @@ def run_context_phase(device) -> dict:
 
     for preset, override in CONTEXT_NETS:
         pascal = preset.startswith("pascal_context")
-        steps = 1 if preset in ONE_STEP else CUT_STEPS
+        steps = steps_of(preset)
         cfg = directory_config(preset, pc_dir if pascal else cs_dir,
                                root / "ckpt" / (override or preset),
                                [f"solver.max_iters={steps}"] + (
@@ -1844,7 +1989,7 @@ def run_raw_phase(device) -> dict:
     for preset in IDEAL_NETS + IDEAL_BG_NETS + RMI_NETS + LIP_NETS:
         dataset = preset.split("_")[0] if not preset.startswith(("pascal", "coco")) else (
             "pascal_context" if preset.startswith("pascal") else "coco_stuff")
-        steps = 1 if preset in ONE_STEP else CUT_STEPS
+        steps = steps_of(preset)
         cfg = directory_config(preset, trees[dataset], root / "ckpt" / preset,
                                [f"solver.max_iters={steps}"])
         name = cfg.get("network.model_name")
@@ -1912,8 +2057,11 @@ def run_raw_phase(device) -> dict:
         del trainer, model, fit
         gc.collect()
         torch.cuda.empty_cache()
+    lip = ROOT / "build" / "chip_smoke_lip"  # phase 21 trains CE2P in bf16 from it
+    shutil.rmtree(lip, ignore_errors=True)
+    shutil.move(trees["lip"], lip)
     shutil.rmtree(root, ignore_errors=True)
-    return {"headline": headline, "nets": results, "launches": dict(total)}
+    return {"headline": headline, "nets": results, "launches": dict(total), "lip_tree": lip}
 
 
 SEGFIX_PRESETS = ("cityscapes_segfix_hrnet", "cityscapes_segfix_hrnet2x")
@@ -2203,7 +2351,7 @@ def run_segfix_phase(device) -> dict:
 
     # ResNeSt-101 FCN from the tree.
     cfg = directory_config("cityscapes_resnest_fcn", root, root / "ckpt" / "resnest",
-                           [f"solver.max_iters={CUT_STEPS}"])
+                           [f"solver.max_iters={steps_of('cityscapes_resnest_fcn')}"])
     if (cfg.get("network.backbone"), cfg.get("train.batch_size")) != (
             "deepbase_resnest101_dilated8", 16):
         raise AssertionError("cityscapes_resnest_fcn: not ResNeSt-101 at batch 16")
@@ -2245,12 +2393,12 @@ def run_segfix_phase(device) -> dict:
 
 JPEG_FIXTURES = ROOT / "tests" / "data_torch_jpeg"
 # The paper's four other datasets: (preset, tree, steps).
-JPEG_PRESETS = (
-    ("ade20k_hrnet_w48_contrast", "ade20k", 3), ("ade20k_hrnet_w48", "ade20k", 2),
-    ("coco_stuff_hrnet_w48_contrast", "coco_stuff", 3), ("coco_stuff_hrnet_w48", "coco_stuff", 2),
-    ("pascal_context_hrnet_w48_contrast", "pascal_context", 3),
-    ("pascal_context_hrnet_w48", "pascal_context", 2),
-    ("camvid_hrnet_w48_contrast", "camvid", 3))
+JPEG_PRESETS = (  # 3 and 2 steps before phase 21 (ONE_STEP's note)
+    ("ade20k_hrnet_w48_contrast", "ade20k", 2), ("ade20k_hrnet_w48", "ade20k", 1),
+    ("coco_stuff_hrnet_w48_contrast", "coco_stuff", 2), ("coco_stuff_hrnet_w48", "coco_stuff", 1),
+    ("pascal_context_hrnet_w48_contrast", "pascal_context", 2),
+    ("pascal_context_hrnet_w48", "pascal_context", 1),
+    ("camvid_hrnet_w48_contrast", "camvid", 2))
 # tree: label values 0..n-1 (0 the ignored class of reduce_zero_label), and
 # the preset's classes.
 JPEG_TREES = {"ade20k": (151, 150), "coco_stuff": (172, 171), "pascal_context": (60, 59),
@@ -2557,7 +2705,7 @@ def run_transformer_phase(device, data_dir: Path, jpeg_root: Path) -> dict:
     # (a) MscaleOCR on HRNet-W48: the trunk at 0.5x and 1.0x.
     cfg = directory_config("cityscapes_hrnet_w48_ocr", data_dir, root / "ckpt" / "ms_ocr", [
         "network.model_name=ms_ocr", "loss.loss_type=ms_fs_aux_rmi_loss",
-        f"solver.max_iters={CUT_STEPS}"])
+        f"solver.max_iters={steps_of('ms_ocr')}"])
     if (cfg.get("train.batch_size"), cfg.get("network.backbone"),
             cfg.get("train_trans.random_crop.crop_size")) != (8, "hrnet48", [1024, 512]):
         raise AssertionError("ms_ocr: not HRNet-W48 at batch 8 of 1024x512")
@@ -2616,7 +2764,7 @@ def run_transformer_phase(device, data_dir: Path, jpeg_root: Path) -> dict:
             f"network.model_name={name}", "network.backbone=vit_large",
             f"train.data_transformer.input_size={crop}",
             f"train_trans.random_crop.crop_size={crop}",
-            f"solver.max_iters={1 if name in ONE_STEP else CUT_STEPS}"])
+            f"solver.max_iters={steps_of(name)}"])
         # setr_pup from its reference .pth, which its test below starts from too
         fit, res = train(name, cfg, (2, 1), keep_latest=False, from_pth=name == "setr_pup")
         model, vit_l = fit["trainer"].state.model, VIT_SPECS["vit_large"]
@@ -2661,7 +2809,8 @@ def run_transformer_phase(device, data_dir: Path, jpeg_root: Path) -> dict:
         for backbone in FPN_BACKBONES:
             extra = ["network.model_name=semantic_fpn", f"network.backbone={backbone}",
                      "optim.optim_method=adamw", "lr.base_lr=0.0001",
-                     "optim.adamw.weight_decay=0.0001", f"solver.max_iters={CUT_STEPS}"]
+                     "optim.adamw.weight_decay=0.0001",
+                     f"solver.max_iters={steps_of('semantic_fpn')}"]
             if backbone.startswith("svt"):
                 extra.append("network.clip_grad_norm=1.0")
             cfg = directory_config("ade20k_hrnet_w48", jpeg_root / "ade20k",
@@ -2963,6 +3112,242 @@ def run_extras_phase(device, data_dir: Path, context_dir: Path, fp32: dict,
     return results
 
 
+# Phase 21 (c): one bf16 train step of a preset of each family, at batch 2:
+# (family, preset, overrides, tree) with the tree "cityscapes" (phase 15's),
+# "data" (phase 9's), "lip" (phase 16's), "pascal_context" or "ade20k" (phase
+# 18's JPEG trees).  SegFix gets a validation at batch 2 instead.
+BF16_NETS = (
+    ("dilated ResNet", "cityscapes_isanet", [], "cityscapes"),
+    ("oracle OCR", "cityscapes_ideal_spatial_ocrnet", [], "cityscapes"),
+    ("HRNet side", "pascal_context_hrnet_w48_isa", [], "pascal_context"),
+    ("CE2P", "lip_ce2p_ocrnet", [], "lip"),
+    ("SETR", "cityscapes_hrnet_w48", ["network.model_name=setr_pup", "network.backbone=vit_large",
+                                      f"train.data_transformer.input_size=[{SETR_CROP},{SETR_CROP}]",
+                                      f"train_trans.random_crop.crop_size=[{SETR_CROP},{SETR_CROP}]"],
+     "data"),
+    ("Semantic-FPN", "ade20k_hrnet_w48", ["network.model_name=semantic_fpn",
+                                          "network.backbone=pvt_small", "optim.optim_method=adamw",
+                                          "lr.base_lr=0.0001", "optim.adamw.weight_decay=0.0001"],
+     "ade20k"),
+    ("MS-OCR", "cityscapes_hrnet_w48_ocr", ["network.model_name=ms_ocr",
+                                            "loss.loss_type=ms_fs_aux_rmi_loss"], "data"),
+)
+# Phase 21 (b): step 1 of the headline in bf16 with K2 against step 1 in bf16
+# without it (phase 20 (b), the same seed, batch and draws), each loss within
+# this relative tolerance.  The two runs differ only in branch 0's 64 3x3
+# convs, both fp32 sums of exact bf16 products rounded once to bf16, which
+# differ by an ulp where the sums' order tips a rounding; a bf16 ulp is 2^-8
+# to 2^-7 of a value and the loss averages them over the batch (the CPU
+# tests hold bf16 losses to rtol 5e-3 of JAX's, a package apart).
+BF16_LOSS_RTOL = 5e-3
+# Phase 21 (b): the exported bf16 net against the live Tester on a val frame.
+# On the card the exported program is not bit for bit the eager one in
+# either dtype (on the CPU it is): the test phase's fp32 artifact serves the
+# ss_test labels on 0.999995-0.999999 of the pixels (an earlier run).  In bf16
+# its logits were 2.6e-4 from the Tester's (relative L2) and its labels
+# equal on 0.99985-0.99986 of the pixels (this phase on an H100): a
+# random-init net's top two logits are often that close.  So the logits are
+# held in relative L2 (2.5 bf16 roundings, 1e-2) and the labels to a
+# thousandth of the pixels.
+ARTIFACT_REL_L2 = 1e-2
+ARTIFACT_LABELS = 0.999
+
+
+def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
+                   fp32_peaks: dict) -> dict:
+    """Phase 21 (b) and (c): (b) ``cityscapes_hrnet_w48_mem`` with
+    ``network.bf16`` and ``network.pallas_conv`` at batch 8 from phase 9's
+    tree, 2 steps: K2's bf16 kernels launched (the forward and dX twice a
+    branch-0 conv a step, dW once), no fp32 K2, K1 once a step, parameters
+    and bank fp32, step 1's losses beside phase 20 (b)'s (``bf16_run``:
+    bf16 without K2) within ``BF16_LOSS_RTOL``; its ``latest`` restored,
+    ``--phase val`` and ``ss_test`` (K2-bf16 launched); ``--scope ss`` export
+    of it, loaded and run in a fresh process on a val frame, against the
+    ``Tester``'s logits and labels (``ARTIFACT_REL_L2``, ``ARTIFACT_LABELS``)
+    with as many K2-bf16 launches.  (c) one bf16 step at batch 2 of a preset of
+    each family (``BF16_NETS``), finite losses, fp32 parameters, the step
+    time and the peak below the preset's fp32 peak (``fp32_peaks``: name ->
+    (peak, batch)); SegFix's ``--phase val`` at batch 2 in bf16."""
+    import gc
+    import subprocess
+    import sys
+
+    import numpy as np
+    import torch
+
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.tester import Tester
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from tools.export_torch import export_artifact
+    from tools.train_torch import run
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[bf16 phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_bf16"
+    shutil.rmtree(root, ignore_errors=True)
+    total, results = collections.Counter(), {}
+
+    def fp32_state(model, bank=None) -> bool:
+        return (model.bf16 and all(p.dtype == torch.float32 for p in model.parameters())
+                and (bank is None or bank.dtype == torch.float32))
+
+    def release(trainer=None) -> None:
+        if trainer is not None:
+            trainer.state = trainer.evaluator = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) The headline in bf16 with K2.
+    cfg = directory_config("cityscapes_hrnet_w48_mem", data_dir, root / "headline", [
+        "contrast.warmup_iters=0", "solver.max_iters=2", "network.bf16=True",
+        "network.pallas_conv=True"])
+    trainer = Trainer(cfg, device)
+    history, launches, peak = train_phase(trainer, device, "(b) bf16 + pallas_conv")
+    total.update(launches)
+    want = {"conv3x3_fwd_bf16": 2 * 64 * 2, "conv3x3_dw_bf16": 64 * 2,
+            **{n: 2 for n in k1.KERNELS}}
+    short = {n: (launches[n], v) for n, v in want.items() if launches[n] < v}
+    if short or launches["conv3x3_fwd"] or launches["conv3x3_dw"] or any(
+            launches[n] != 2 for n in k1.KERNELS):
+        raise AssertionError(f"(b): launches {launches}; K2-bf16 at least {want}, fp32 K2 none, "
+                             "K1 once a step")
+    if not fp32_state(trainer.state.model, trainer.state.bank.storage):
+        raise AssertionError("(b): the parameters and the bank must stay fp32 under bf16")
+    ref = bf16_run["history"][0]
+    rel = {k: abs(history[0][k] - ref[k]) / abs(ref[k])
+           for k in ("loss", "loss_seg", "loss_contrast")}
+    if max(rel.values()) > BF16_LOSS_RTOL:
+        raise AssertionError(f"(b): step 1 with K2 {history[0]} against bf16 without it {ref}: "
+                             f"relative {rel} (bound {BF16_LOSS_RTOL})")
+    say(f"(b) cityscapes_hrnet_w48_mem in bf16 with network.pallas_conv at batch 8: steps "
+        f"{[round(r['seconds'] * 1e3, 1) for r in history]} ms, peak {peak / 2**30:.3f} GiB "
+        f"(bf16 without K2, phase 20 (b): steps "
+        f"{[round(r['seconds'] * 1e3, 1) for r in bf16_run['history']]} ms, peak "
+        f"{bf16_run['peak'] / 2**30:.3f} GiB); K2-bf16 launches forward/dX "
+        f"{launches['conv3x3_fwd_bf16']}, dW {launches['conv3x3_dw_bf16']}, fp32 K2 0, K1 "
+        f"{launches['infonce_pass1']} each; step 1 against bf16 without K2: "
+        + ", ".join(f"{k} {history[0][k]:.6f} vs {ref[k]:.6f} ({rel[k]:.2e})" for k in rel)
+        + f" (bound {BF16_LOSS_RTOL}); parameters and bank fp32")
+    res = {"history": history, "peak": peak, "launches": launches, "step1_rel": rel}
+    res.update(infer_from_latest(trainer, cfg, device, run, say))
+    for phase in ("val", "ss_test"):
+        if res[phase]["launches"]["conv3x3_fwd_bf16"] == 0 or res[phase]["launches"][
+                "conv3x3_fwd"]:
+            raise AssertionError(f"(b) {phase}: launches {res[phase]['launches']}")
+        total.update(res[phase]["launches"])
+    latest = trainer.ckpt._path("latest")
+    model = trainer.state.model.eval()
+    release(trainer)
+    tc = (cfg.updated("test.test_dir", str(data_dir / "val" / "image"))
+          .updated("test.batch_size", 1).updated("test.mode", "ss_test"))
+    frame = next(build_pipeline(tc, "test").epoch_iter(0))["image"]
+    hw = tuple(frame.shape[1:3])
+    art = root / "w48_bf16_k2"
+    t0 = time.perf_counter()
+    export_artifact(cfg, str(art), "ss", hw, 1, False, latest, str(device))
+    export_s = time.perf_counter() - t0
+    np.save(root / "frame.npy", frame)
+    reset_counts()
+    with torch.no_grad():
+        live = Tester(tc, model, device).ss_test(torch.from_numpy(frame).to(device)).cpu()
+    live_k2 = read_counts()["conv3x3_fwd_bf16"]
+    script = (
+        "import sys, numpy as np, torch; sys.path.insert(0, sys.argv[1]); "
+        "from tools.export_torch import load_artifact; "
+        "from contrastiveseg_tpu_torch.ops import conv_cuda; "
+        "m, meta = load_artifact(sys.argv[2]); "
+        "x = torch.from_numpy(np.load(sys.argv[3])).to(meta['device']); "
+        "conv_cuda.reset_launch_counts(); torch.set_grad_enabled(False); "
+        "np.save(sys.argv[4], m(x).cpu().numpy()); "
+        "print(conv_cuda.launch_counts()['conv3x3_fwd_bf16'])")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", script, str(ROOT), str(art),
+                          str(root / "frame.npy"), str(root / "logits.npy")],
+                         capture_output=True, text=True, timeout=600)
+    load_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"(b) the artifact did not load and run in a fresh process:\n"
+                             f"{out.stderr[-4000:]}")
+    artifact_k2 = int(out.stdout.strip().splitlines()[-1])
+    got = torch.from_numpy(np.load(root / "logits.npy"))
+    rel = float((got - live).norm() / live.norm()) if got.shape == live.shape else math.inf
+    same = float((got.argmax(-1) == live.argmax(-1)).float().mean()) if rel < math.inf else 0.0
+    if not (rel <= ARTIFACT_REL_L2 and same >= ARTIFACT_LABELS and artifact_k2 == live_k2 > 0):
+        raise AssertionError(f"(b) the artifact's logits {tuple(got.shape)} are {rel:.3e} from "
+                             f"the Tester's (relative L2, bound {ARTIFACT_REL_L2}), its labels "
+                             f"equal on {same} of the pixels (bound {ARTIFACT_LABELS}); K2-bf16 "
+                             f"launched {artifact_k2} times in it, {live_k2} in the Tester")
+    size = (root / "w48_bf16_k2.pt2").stat().st_size
+    say(f"(b) export --scope ss of it, batch 1, {hw[0]}x{hw[1]}: {size / 2**20:.1f} MiB in "
+        f"{export_s:.1f} s; loaded and run in a fresh process in {load_s:.1f} s, K2-bf16 "
+        f"launched {artifact_k2} times there as in the Tester; on a val frame its logits are "
+        f"{rel:.3e} from the Tester's ss_test (relative L2, bound {ARTIFACT_REL_L2}) and its "
+        f"labels equal on {same:.6f} of the pixels (bound {ARTIFACT_LABELS})")
+    res.update({"export_s": export_s, "load_s": load_s, "artifact_bytes": size,
+                "artifact_rel_l2": rel, "artifact_labels": same})
+    results["headline"] = res
+    del model, live
+    release()
+    shutil.rmtree(root / "headline", ignore_errors=True)
+
+    # (c) One bf16 step of a preset of each family, at batch 2.
+    for family, preset, extra, tree in BF16_NETS:
+        cfg = directory_config(preset, trees[tree], root / "ckpt", extra + [
+            "solver.max_iters=1", "train.batch_size=2", "network.bf16=True"])
+        name = cfg.get("network.model_name")
+        key = f"semantic_fpn/{cfg.get('network.backbone')}" if name == "semantic_fpn" else name
+        trainer = Trainer(cfg, device)
+        trainer.ckpt.save = lambda *args, **kwargs: None  # the phase reads no checkpoint
+        history, launches, peak = train_phase(trainer, device, f"(c) {key} in bf16")
+        no_launch(launches, key, total)
+        if not fp32_state(trainer.state.model):
+            raise AssertionError(f"(c) {key}: not bf16 with fp32 parameters")
+        fp32_peak, fp32_batch = fp32_peaks[key]
+        if not peak < fp32_peak:
+            raise AssertionError(f"(c) {key}: bf16 peak {peak / 2**30:.3f} GiB at batch 2, fp32 "
+                                 f"{fp32_peak / 2**30:.3f} GiB at batch {fp32_batch}")
+        results[key] = {"family": family, "history": history, "peak": peak,
+                        "fp32_peak": fp32_peak, "fp32_batch": fp32_batch}
+        say(f"(c) {family}: {preset} ({key}) in bf16, one step at batch 2: "
+            f"{history[0]['seconds'] * 1e3:.1f} ms (data wait "
+            f"{history[0]['data_seconds'] * 1e3:.1f} ms), loss {history[0]['loss']:.6f}, peak "
+            f"{peak / 2**30:.3f} GiB (fp32 at batch {fp32_batch}: {fp32_peak / 2**30:.3f} GiB); "
+            "parameters fp32, 0 launches of K1-K3")
+        release(trainer)
+    vc = directory_config("cityscapes_segfix_hrnet", trees["cityscapes"], root / "ckpt", [
+        "network.bf16=True", f"val.batch_size={SEGFIX_VAL_BATCH}"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run(vc, "val", device)
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(device)
+    no_launch(read_counts(), "segfix_hrnet --phase val in bf16", total)
+    scores = out["scores"]
+    keys = ("mask_acc", "dir_acc_mask", "dir_acc_gt")
+    fp32_peak, _ = fp32_peaks["segfix_hrnet"]
+    if not (fp32_state(out["trainer"].state.model)
+            and all(0.0 <= scores[k] <= 1.0 for k in keys) and peak < fp32_peak):
+        raise AssertionError(f"(c) segfix_hrnet --phase val in bf16: {scores}, peak "
+                             f"{peak / 2**30:.3f} GiB (fp32 {fp32_peak / 2**30:.3f} GiB)")
+    results["segfix_hrnet"] = {"scores": {k: scores[k] for k in keys}, "peak": peak,
+                               "fp32_peak": fp32_peak, "wall": wall}
+    say(f"(c) SegFix: cityscapes_segfix_hrnet --phase val in bf16 at batch "
+        f"{SEGFIX_VAL_BATCH} over the 4 val frames: "
+        + ", ".join(f"{k} {scores[k]:.6f}" for k in keys)
+        + f", {scores['images_per_sec']:.3f} images/s, peak {peak / 2**30:.3f} GiB (fp32 at "
+        f"batch {SEGFIX_VAL_BATCH}, phase 17: {fp32_peak / 2**30:.3f} GiB), wall {wall:.1f} s")
+    release(out.pop("trainer"))
+    shutil.rmtree(root, ignore_errors=True)
+    results["launches"] = dict(total)
+    return results
+
+
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
     """Seconds an image of one ``ss_test`` call for each (scale, batch), on
     the host clock around a device sync.  Where cuDNN's heuristics pick FFT
@@ -3229,6 +3614,7 @@ def main() -> None:
     t0 = time.perf_counter()
     k1 = check_k1(device)
     k2 = check_k2(device)
+    k2b = check_k2_bf16(device)
     k3 = check_k3(device)
     print(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
     sl = run_slice(device)
@@ -3271,7 +3657,22 @@ def main() -> None:
                           {n: (cp[n]["peak"], cp[n]["base"]) for n in ("base_ocnet",
                                                                       "pyramid_ocnet")})
     print(f"extras phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fp32_peaks = {n: (cp[n]["peak"], cp[n]["batch"]) for n in ("isanet", "hrnet_w48_isa")}
+    for preset, name in (("cityscapes_ideal_spatial_ocrnet", "ideal_spatial_ocrnet"),
+                         ("lip_ce2p_ocrnet", "ce2p_ocrnet")):
+        fp32_peaks[name] = (rp["nets"][preset]["peak"], rp["nets"][preset]["batch"])
+    for name in ("setr_pup", "semantic_fpn/pvt_small", "ms_ocr"):
+        fp32_peaks[name] = (tf["nets"][name]["peak"], tf["nets"][name]["batch"])
+    fp32_peaks["segfix_hrnet"] = (sp["nets"]["cityscapes_segfix_hrnet"]["peak_val"],
+                                  SEGFIX_VAL_BATCH)
+    bp = run_bf16_phase(device, dr["data_dir"], {
+        "cityscapes": cp["tree"], "data": dr["data_dir"], "lip": rp["lip_tree"],
+        "pascal_context": jp["root"] / "pascal_context", "ade20k": jp["root"] / "ade20k"},
+        ex["bf16"], fp32_peaks)
+    print(f"bf16 phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(cp["tree"].parent, ignore_errors=True)
+    shutil.rmtree(rp["lip_tree"], ignore_errors=True)
     shutil.rmtree(jp["root"], ignore_errors=True)
     shutil.rmtree(dr["data_dir"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_ckpt", ignore_errors=True)
@@ -3349,6 +3750,18 @@ def main() -> None:
               f"{[round(x['seconds'] * 1e3, 1) for x in ex[n]['history']]} ms, peak "
               f"{ex[n]['peak'] / 2**30:.3f} GiB (batch 8: {ex[n]['batch8_peak'] / 2**30:.3f} GiB)"
               for n in ("base_ocnet", "pyramid_ocnet")) + " (same call)")
+    hb = bp["headline"]
+    print(f"bf16 phase: the headline at batch 8 in bf16 with K2: steps "
+          f"{[round(r['seconds'] * 1e3, 1) for r in hb['history']]} ms, peak "
+          f"{hb['peak'] / 2**30:.3f} GiB, val {hb['val']['images_per_sec']:.3f} images/s, "
+          f"ss_test {hb['ss_test']['seconds_an_image']:.3f} s an image, export "
+          f"{hb['export_s']:.1f} s; " + "; ".join(
+              f"{n} one bf16 step at batch 2 {r['history'][0]['seconds'] * 1e3:.1f} ms, peak "
+              f"{r['peak'] / 2**30:.3f} GiB (fp32 at batch {r['fp32_batch']}: "
+              f"{r['fp32_peak'] / 2**30:.3f} GiB)" for n, r in bp.items()
+              if isinstance(r, dict) and "history" in r and n != "headline")
+          + f"; segfix_hrnet val in bf16 peak {bp['segfix_hrnet']['peak'] / 2**30:.3f} GiB "
+          f"(fp32 {bp['segfix_hrnet']['fp32_peak'] / 2**30:.3f} GiB) (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -3363,7 +3776,8 @@ def main() -> None:
             row.update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": b_ms,
                         f"bound_by{sfx}": by, f"bound_ms_fp32_simt{sfx}": bs})
         rows.append(row)
-    for name, (_, _, replaces) in conv_cuda.KERNELS.items():
+    for name in ("conv3x3_fwd", "conv3x3_dw"):
+        replaces = conv_cuda.KERNELS[name][2]
         ms, plain_ms, lib_ms, (b_ms, by), (bs, _) = k2["rows"][name]
         rows.append({
             "name": name, "route": "cuda",
@@ -3379,6 +3793,23 @@ def main() -> None:
         ms, lib_ms, (b_ms, by), _ = k2["b8"][row["name"]]
         row.update({"ms_b8": ms, "library_ms_b8": lib_ms, "bound_ms_b8": b_ms,
                     "bound_by_b8": by})
+    for name in ("conv3x3_fwd_bf16", "conv3x3_dw_bf16"):
+        ms, plain_ms, lib_ms, (b_ms, by) = k2b["rows"]["b8"][name]
+        ms2, plain2, lib2, (b2, by2) = k2b["rows"]["b2"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "contrastiveseg_tpu_torch/csrc/conv3x3.cu",
+            "replaces": conv_cuda.KERNELS[name][2],
+            "launches": bp["headline"]["launches"][name],
+            "max_abs_err": k2b["errs"][name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "shape": "x [8,48,128,256] bf16, w [48,48,3,3] bf16 (phase 21 (b)'s branch 0)",
+            "max_bf16_ulps": max(k2b["ulps"].values()) if "fwd" in name else None,
+            "ms_b2": ms2, "plain_ms_b2": plain2, "library_ms_b2": lib2, "bound_ms_b2": b2,
+            "bound_by_b2": by2,
+            "launches_val": bp["headline"]["val"]["launches"][name],
+            "launches_ss_test": bp["headline"]["ss_test"]["launches"][name],
+        })
     _, _, replaces = block_cuda.KERNELS["fused_block"]
     b16, f32 = blk["bf16"], blk["fp32"]
     B, H, W, C = b16["shape"]
@@ -3407,6 +3838,7 @@ def main() -> None:
         row["launches_jpeg_phase"] = jp["launches"].get(row["name"], 0)
         row["launches_transformer_phase"] = tf["launches"].get(row["name"], 0)
         row["launches_extras_phase"] = ex["launches"].get(row["name"], 0)
+        row["launches_bf16_phase"] = bp["launches"].get(row["name"], 0)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

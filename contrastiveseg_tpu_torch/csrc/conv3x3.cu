@@ -1,4 +1,5 @@
-// K2: small-channel 3x3 convolution (stride 1, SAME) for Hopper (sm_90a), fp32, NCHW.
+// K2: small-channel 3x3 convolution (stride 1, SAME) for Hopper (sm_90a), fp32 and bf16,
+// NCHW.
 //
 // Replaces the Pallas TPU kernels of contrastiveseg_tpu/ops/conv_pallas.py:
 //   K2a _conv3x3_kernel    (:55, via conv3x3_small_c :91) -> conv3x3_fwd: y = conv(x, w)
@@ -53,6 +54,35 @@
 //     blocks) fills the SMs about once; each block writes a partial [its Co, C, 9], and
 //     dw_sum_splits adds the partials in split order: dW is deterministic, with no float
 //     atomics.
+//
+// bf16 (conv3x3_fwd_bf16, conv3x3_dw_bf16): the JAX package's arithmetic when a net
+// computes in bf16 (conv_pallas.py:91-134, :179-208: bf16 operands and patch scratch,
+// fp32 accumulation, the forward and dX written in bf16; dW in fp32, which the VJP rounds
+// to the weights' bf16, :253).  Products of bf16 values are exact, so mma.sync m16n8k16
+// bf16 (fp32 accumulation) takes them with no split.  Bound at [8, 48, 128, 256]: 10.87
+// GFLOP (11.0 us at 989 TFLOP/s) against 50.3 MB of bf16 x and y (15.0 us at 3.35 TB/s):
+// the bytes.
+//   * the forward and dX are K2a's tile on conv_tile.cuh's Bf16 route, as K3 runs it: an
+//     A word holds channels 2t and 2t + 1 of one pixel, which NCHW does not give, so x
+//     sits in shared memory as [channel pair][row][column] bf16x2 words, and a chunk is
+//     16 channels (8 pair rows).  The loader fetches each chunk's x pairs (4-byte loads of
+//     pixel pairs where W is even) and its weights into registers, packs them, and stores
+//     them into the other of two stages after the current chunk's products (the
+//     register-staged ring of K3).  The weights are packed into the default layout
+//     (column n, pair k, tap t at n BS + 9 k + t), so flip (dX) is only the index of the
+//     load, and one Op serves both.  Halos and ragged tiles are masked as in fp32;
+//   * dW contracts over pixels, and m16n8k16 wants pixel pairs as bf16x2 on both sides: g
+//     (A: output channel x pixel pair) and x at each tap's offset (B: pixel pair x input
+//     channel).  Both are rows of NCHW, so their tiles are plain bf16 rows, copied by
+//     cp.async as they lie in memory (16 bytes = 8 pixels where W % 8 == 0): an A word
+//     and a B word at tap dx = 0 are one aligned 32-bit read.  At dx = +-1 the pair
+//     straddles a word boundary; it is built from the two aligned words around it with
+//     one byte_perm, rather than from two 16-bit reads (twice the shared-memory
+//     instructions, and a shift and an or) or from a second copy of each row staged at
+//     the other parity (twice the x tile and a second load for every row; cp.async cannot
+//     write a 2-byte shift).  The rest is the fp32 kernel's: split-K over row segments
+//     through the same x-row ring, the per-segment flush of the MMA accumulator into
+//     fp32 totals, fp32 partials and dw_sum_splits in split order (deterministic).
 //
 // Plain C interface (loaded with ctypes).  conv3x3_init() raises the kernels' dynamic
 // shared-memory limits once per device, before the first launch.  Each entry point
@@ -439,6 +469,355 @@ conv3x3_dw_tc(const float* __restrict__ x, const float* __restrict__ g, float* _
   }
 }
 
+// ---- bf16 ----
+
+// K2a-bf16: a chunk is 16 input channels, 8 k rows of channel pairs; its x tile holds
+// pixel pairs of FW_XR rows x 18 pairs (columns w0 - 2 .. w0 + 33), so FW_B_XP pairs a
+// thread.  Two stages, each fw_stage_words(nj) words as in fp32.
+constexpr int FW_B_NS = 2;
+constexpr int FW_B_PAIRS = KR * FW_XR * 18;
+constexpr int FW_B_XP = (FW_B_PAIRS + FW_NT - 1) / FW_NT;
+__host__ __device__ constexpr int fw_b_smem_bytes(int nj) {
+  return FW_B_NS * fw_stage_words(nj) * (int)sizeof(float);
+}
+
+// Fetches chunk c0 (input channels [c0, c0 + 16)) of K2a-bf16's operands into registers
+// and commits them, packed as bf16x2, to a stage: x pair row k (channels c0 + 2k, + 1) at
+// st + k FW_KS + row FW_LDX + FW_X0 + column (columns -2 .. 33 of the tile), and the
+// weights of output channel co0 + n at ws[n BS + 9 k + tap] (with flip, w[ci][co][8 - tap]:
+// dX).  Zero outside the image, past C and past Co.  wide (W even, x 4-byte aligned):
+// one 4-byte load a pixel pair and channel, a pair wholly inside or outside the image.
+// wide and flip are uniform over the grid: run-time branches, not template cases.
+template <int NJ>
+struct Bf16ChunkLoader {
+  static constexpr int WW = 16 * NJ * 72, WP = (WW + FW_NT - 1) / FW_NT;
+  const unsigned short* x;  // image b
+  const unsigned short* w;
+  int C, Co, H, W, h0, w0, co0;
+  bool wide, flip;
+  unsigned rx[2 * FW_B_XP], rw[WP];
+
+  __device__ void fetch(int c0) {
+#ifdef K2_NO_LOADS
+    return;
+#endif
+    const int tid = conv_tile::opaque_tid();
+    const size_t plane = (size_t)H * W;
+#pragma unroll
+    for (int s = 0; s < FW_B_XP; ++s) {
+      const int i = tid + s * FW_NT;
+      if (i >= FW_B_PAIRS) break;
+      const int k = i / (FW_XR * 18), r = i / 18 % FW_XR, c = i % 18 * 2 - 2;
+      const int gh = h0 - 1 + r, gw = w0 + c, ci = c0 + 2 * k;
+      const bool row = gh >= 0 && gh < H, c0ok = ci < C, c1ok = ci + 1 < C;
+      const size_t at = ci * plane + (size_t)gh * W + gw;
+      unsigned lo, hi;  // channels ci and ci + 1 at pixels gw (low half) and gw + 1
+      if (wide) {
+        const bool in = row && gw >= 0 && gw < W;
+        lo = in && c0ok ? *reinterpret_cast<const unsigned*>(x + at) : 0u;
+        hi = in && c1ok ? *reinterpret_cast<const unsigned*>(x + at + plane) : 0u;
+      } else {
+        const bool in0 = row && gw >= 0 && gw < W, in1 = row && gw + 1 >= 0 && gw + 1 < W;
+        lo = (in0 && c0ok ? x[at] : 0u) | (in1 && c0ok ? (unsigned)x[at + 1] << 16 : 0u);
+        hi = (in0 && c1ok ? x[at + plane] : 0u) |
+             (in1 && c1ok ? (unsigned)x[at + plane + 1] << 16 : 0u);
+      }
+      rx[2 * s] = __byte_perm(lo, hi, 0x5410);
+      rx[2 * s + 1] = __byte_perm(lo, hi, 0x7632);
+    }
+#pragma unroll
+    for (int s = 0; s < WP; ++s) {
+      const int i = tid + s * FW_NT;
+      if (i >= WW) break;
+      const int n = i / 72, r = i % 72, kp = r / 9, t = r % 9;
+      const int co = co0 + n, ci = c0 + 2 * kp;
+      unsigned lo = 0u, hi = 0u;
+      if (co < Co) {
+        if (flip) {
+          if (ci < C) lo = w[((size_t)ci * Co + co) * 9 + 8 - t];
+          if (ci + 1 < C) hi = w[((size_t)(ci + 1) * Co + co) * 9 + 8 - t];
+        } else {
+          if (ci < C) lo = w[((size_t)co * C + ci) * 9 + t];
+          if (ci + 1 < C) hi = w[((size_t)co * C + ci + 1) * 9 + t];
+        }
+      }
+      rw[s] = lo | hi << 16;
+    }
+  }
+
+  __device__ void commit(unsigned* st) const {
+#ifdef K2_NO_LOADS
+    return;
+#endif
+    const int tid = conv_tile::opaque_tid();
+#pragma unroll
+    for (int s = 0; s < FW_B_XP; ++s) {
+      const int i = tid + s * FW_NT;
+      if (i >= FW_B_PAIRS) break;
+      unsigned* dst = st + i / (FW_XR * 18) * FW_KS + i / 18 % FW_XR * FW_LDX + FW_X0 +
+                      i % 18 * 2 - 2;
+      dst[0] = rx[2 * s];
+      dst[1] = rx[2 * s + 1];
+    }
+    unsigned* ws = st + KR * FW_KS;
+#pragma unroll
+    for (int s = 0; s < WP; ++s) {
+      const int i = tid + s * FW_NT;
+      if (i >= WW) break;
+      ws[i / 72 * conv_tile::BS + i % 72] = rw[s];
+    }
+  }
+};
+
+// K2a-bf16: K2a's tile and grid (FW_TH x FW_TW pixels x 16 NJ output channels a block,
+// warp r on output row r) on the Bf16 route, input channels 16 at a time through two
+// register-staged stages: chunk c + 1 is fetched into registers before chunk c's products
+// and stored after them.  fp32 sums, rounded once to bf16 at the store.
+template <int NJ>
+__global__ void __launch_bounds__(FW_NT, 1)
+conv3x3_fwd_bf16_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                    __nv_bfloat16* __restrict__ y, int C, int Co, int H, int W,
+                    int n_co_blocks, int wide, int flip) {
+  using Op = conv_tile::Bf16<K2_PRODUCTS, conv_tile::BS>;
+  constexpr int STAGE = fw_stage_words(NJ), NJW = 2 * NJ;
+  extern __shared__ __align__(16) float smem[];
+  unsigned* stages = reinterpret_cast<unsigned*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = blockIdx.x * FW_TW, h0 = blockIdx.y * FW_TH;
+  const int b = blockIdx.z / n_co_blocks, co0 = blockIdx.z % n_co_blocks * 16 * NJ;
+
+  int pix[2][2];  // pixel (warp, 16 m + 8 h + g) at tap (0, 0): x tile row warp, column - 1
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) pix[m][h] = warp * FW_LDX + FW_X0 - 1 + 16 * m + 8 * h + g;
+  typename Op::Acc acc[2][NJW];
+  conv_tile::zero<Op, 2, NJW>(acc);
+
+  Bf16ChunkLoader<NJ> ld{
+      reinterpret_cast<const unsigned short*>(x) + (size_t)b * C * H * W,
+      reinterpret_cast<const unsigned short*>(w), C, Co, H, W, h0, w0, co0, wide != 0,
+      flip != 0};
+  const int nc = (C + 2 * KR - 1) / (2 * KR);
+  ld.fetch(0);
+  ld.commit(stages);
+  for (int c = 0; c < nc; ++c) {
+    __syncthreads();  // chunk c is stored; chunk c - 1 is consumed
+    if (c + 1 < nc) ld.fetch((c + 1) * 2 * KR);
+    const unsigned* st = stages + c % FW_B_NS * STAGE;
+    conv_tile::conv_taps<Op, 2, NJW, FW_LDX>(acc, st, FW_KS, pix,
+                                              reinterpret_cast<const float*>(st) + KR * FW_KS,
+                                              0);
+    if (c + 1 < nc) ld.commit(stages + (c + 1) % FW_B_NS * STAGE);
+  }
+
+  const int gh = h0 + warp;
+  if (gh >= H) return;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NJW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int gw = w0 + 16 * m + 8 * (q >> 1) + g, co = co0 + 8 * j + 2 * t + (q & 1);
+        if (gw < W && co < Co)
+          y[(((size_t)b * Co + co) * H + gh) * W + gw] = __float2bfloat16(Op::value(acc[m][j], q));
+      }
+}
+
+// K2b-bf16's tiles, as bf16 rows: an x channel row holds pixel w0 + q at element
+// DWB_X0 + q (elements 0 .. 143: pixels w0 - 8 .. w0 + 135, 18 16-byte groups); a g row
+// holds pixel w0 + q at element q.  Row strides in 32-bit words, DWB_LDX = 12 and DWB_LDG
+// = 4 mod 32, so the B loads (8 channel rows x 4 words) and the A loads (8 output channel
+// rows x 4 words) hit 32 distinct banks; each row starts 16-byte aligned.
+constexpr int DWB_X0 = 8;
+constexpr int DWB_LDX = 76;
+constexpr int DWB_LDG = 68;
+__host__ __device__ constexpr int dw_b_smem_bytes(int ncb) {
+  return (DW_SLOTS * 8 * ncb * DWB_LDX + DW_STAGES * DW_CO * DWB_LDG) * (int)sizeof(float);
+}
+
+// SegmentLoader's ring and segment order, on bf16 rows.  vec (W % 8 == 0, x and g
+// 16-byte aligned): 16-byte cp.async copies of 8 pixels, a group wholly inside or
+// outside the image; else 2-byte loads and stores of the pixels the products read
+// (cp.async copies 4 bytes at least).
+template <int NCB>
+struct Bf16SegmentLoader {
+  static constexpr int CH = 8 * NCB, SLOT = CH * DWB_LDX;  // words
+  const unsigned short* x;
+  const unsigned short* g;
+  unsigned* xring;
+  unsigned* gring;
+  int C, Co, H, W, nwc, co0, u0;
+  bool vec;
+
+  __device__ int vbase(int u) const { return u - u0 + 2 * (u / H - u0 / H); }
+
+  __device__ void load(int u) const {
+#ifdef K2_NO_LOADS
+    return;
+#endif
+    const int col = u / H, h = u - col * H, b = col / nwc, w0 = (col - b * nwc) * DW_SW;
+    const int first = (u == u0 || h == 0) ? 0 : 2, vb = vbase(u);
+    const int xrows = (3 - first) * CH;
+    unsigned* gs = gring + (u - u0) % DW_STAGES * DW_CO * DWB_LDG;
+    auto xrow = [&](int r, int& ci, int& gh) {  // x row r of this load: its slot row
+      const int k = r / CH, ky = first + k;
+      ci = r - k * CH;
+      gh = h + ky - 1;
+      return xring + (vb + ky) % DW_SLOTS * SLOT + ci * DWB_LDX;
+    };
+    if (vec) {
+      for (int i = threadIdx.x; i < xrows * 18 + DW_CO * 16; i += blockDim.x) {
+        const unsigned short* src = x;
+        unsigned* dst;
+        bool ok;
+        if (i < xrows * 18) {
+          const int r = i / 18, q = i - r * 18, pw = w0 - 8 + 8 * q;
+          int ci, gh;
+          dst = xrow(r, ci, gh) + 4 * q;
+          ok = ci < C && gh >= 0 && gh < H && pw >= 0 && pw < W;
+          if (ok) src = x + (((size_t)b * C + ci) * H + gh) * W + pw;
+        } else {
+          const int j = i - xrows * 18, r = j >> 4, q = j & 15, co = co0 + r, pw = w0 + 8 * q;
+          dst = gs + r * DWB_LDG + 4 * q;
+          ok = co < Co && pw < W;
+          if (ok) src = g + (((size_t)b * Co + co) * H + h) * W + pw;
+        }
+        cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src),
+                   ok ? 16 : 0);
+      }
+      return;
+    }
+    constexpr int XW = DW_SW + 2;  // x pixels w0 - 1 .. w0 + DW_SW
+    for (int i = threadIdx.x; i < xrows * XW + DW_CO * DW_SW; i += blockDim.x) {
+      unsigned short v = 0;
+      unsigned short* dst;
+      if (i < xrows * XW) {
+        const int r = i / XW, q = i - r * XW - 1, pw = w0 + q;
+        int ci, gh;
+        dst = reinterpret_cast<unsigned short*>(xrow(r, ci, gh)) + DWB_X0 + q;
+        if (ci < C && gh >= 0 && gh < H && pw >= 0 && pw < W)
+          v = x[(((size_t)b * C + ci) * H + gh) * W + pw];
+      } else {
+        const int j = i - xrows * XW, r = j / DW_SW, q = j - r * DW_SW, co = co0 + r;
+        dst = reinterpret_cast<unsigned short*>(gs + r * DWB_LDG) + q;
+        if (co < Co && w0 + q < W) v = g[(((size_t)b * Co + co) * H + h) * W + w0 + q];
+      }
+      *dst = v;
+    }
+  }
+};
+
+// K2b-bf16: K2b's blocks, splits and tiles (16 output channels x 8 input channels at one
+// tap an MMA tile, 9 NCB of them over 16 warps) on m16n8k16 bf16, a k-step 16 pixels.
+// A word (output channel, pixels 2t, 2t + 1) is one aligned read of the g row; B word
+// (pixels 2t + dx, + 1; input channel) is one aligned read of the x row at dx = 0 and the
+// byte_perm of its two aligned neighbours at dx = -1 and +1.  The MMA accumulator runs
+// over one segment and is then added to fp32 totals, as in fp32.
+template <int NCB>
+__global__ void __launch_bounds__(DW_WARPS * 32, 1)
+conv3x3_dw_bf16_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                   float* __restrict__ part, int B, int C, int Co, int H, int W,
+                   int units_per_split, int vec) {
+  using Loader = Bf16SegmentLoader<NCB>;
+  constexpr int NTILE = 9 * NCB, NJ = (NTILE + DW_WARPS - 1) / DW_WARPS, NS = DW_STAGES;
+  extern __shared__ __align__(16) float smem[];
+  unsigned* xring = reinterpret_cast<unsigned*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int s = blockIdx.x, co0 = blockIdx.y * DW_CO;
+  const int n_units = B * H * ((W + DW_SW - 1) / DW_SW);
+  const int u0 = s * units_per_split, u1 = min(n_units, u0 + units_per_split);
+  unsigned* gring = xring + DW_SLOTS * Loader::SLOT;
+  const Loader loader{reinterpret_cast<const unsigned short*>(x),
+                      reinterpret_cast<const unsigned short*>(g), xring, gring, C, Co, H, W,
+                      (W + DW_SW - 1) / DW_SW, co0, u0, vec != 0};
+
+  // Tile j of this warp: tap (ky, kx) and input-channel block cb; lane (gq, t) reads the
+  // word of pixels 2t, 2t + 1 of channel 8 cb + gq at xoff[j] in the slot of x row ky.
+  int xoff[NJ], kyj[NJ], kxj[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int i = min(j * DW_WARPS + warp, NTILE - 1), tap = i / NCB, cb = i - tap * NCB;
+    kyj[j] = tap / 3;
+    kxj[j] = tap - 3 * kyj[j];
+    xoff[j] = (8 * cb + gq) * DWB_LDX + DWB_X0 / 2 + t;
+  }
+  const int nj = (NTILE - warp + DW_WARPS - 1) / DW_WARPS;
+  float tot[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tot[j][q] = 0.f;
+
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) {
+    if (u0 + k < u1) loader.load(u0 + k);
+    cp_async_commit();
+  }
+  for (int u = u0; u < u1; ++u) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // segment u has landed; segment u - 1 is consumed
+    if (u + NS - 1 < u1) loader.load(u + NS - 1);
+    cp_async_commit();
+    const int vb = loader.vbase(u) % DW_SLOTS;
+    int xb[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int slot = vb + kyj[j];
+      xb[j] = (slot < DW_SLOTS ? slot : slot - DW_SLOTS) * Loader::SLOT + xoff[j];
+    }
+    const unsigned* gr = gring + (u - u0) % NS * DW_CO * DWB_LDG + gq * DWB_LDG + t;
+    float acc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll
+    for (int kw = 0; kw < DW_SW / 2; kw += 8) {  // 16 pixels, 8 words, a k-step
+      const unsigned a[4] = {gr[kw], gr[kw + 8 * DWB_LDG], gr[kw + 4],
+                             gr[kw + 8 * DWB_LDG + 4]};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (j < nj) {
+          const unsigned* p = xring + xb[j] + kw;
+          unsigned b0, b1;
+          if (kxj[j] == 1) {
+            b0 = p[0];
+            b1 = p[4];
+          } else {  // dx = -1: words -1 and 0; dx = +1: words 0 and 1
+            const int o = kxj[j] >> 1;
+            b0 = __byte_perm(p[o - 1], p[o], 0x5432);
+            b1 = __byte_perm(p[o + 3], p[o + 4], 0x5432);
+          }
+          if (K2_PRODUCTS >= 1) mma_bf16(K2_FLUSH ? acc[j] : tot[j], a, b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tot[j][q] += acc[j][q];
+  }
+
+  float* dst = part + (size_t)s * Co * C * 9;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (j >= nj) continue;
+    const int i = j * DW_WARPS + warp, tap = i / NCB, cb = i - tap * NCB;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + gq + 8 * h;
+      if (co >= Co) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ci = 8 * cb + 2 * t + e;
+        if (ci < C) dst[((size_t)co * C + ci) * 9 + tap] = tot[j][2 * h + e];
+      }
+    }
+  }
+}
+
 // out[i] = sum over splits k of part[k][i], in split order.
 __global__ void dw_sum_splits(const float* __restrict__ part, float* __restrict__ out, int S,
                            int N) {
@@ -459,6 +838,8 @@ int bad_shape(int B, int C, int Co, int H, int W) {
 #define FW_TILES(X)                                                                      \
   X(1, 0, 0) X(1, 0, 1) X(1, 1, 0) X(1, 1, 1) X(2, 0, 0) X(2, 0, 1) X(2, 1, 0) X(2, 1, 1) \
   X(3, 0, 0) X(3, 0, 1) X(3, 1, 0) X(3, 1, 1) X(4, 0, 0) X(4, 0, 1) X(4, 1, 0) X(4, 1, 1)
+// One case per count of 16-channel column blocks of K2a-bf16.
+#define FW_B_TILES(X) X(1) X(2) X(3) X(4)
 
 }  // namespace
 
@@ -511,7 +892,78 @@ int conv3x3_init() {
                                     fw_smem_bytes(nj));
   FW_TILES(K2_FWD_INIT)
 #undef K2_FWD_INIT
+#define K2_DW_BF16_INIT(ncb)                                                             \
+  if (!err)                                                                              \
+    err = (int)cudaFuncSetAttribute((const void*)conv3x3_dw_bf16_tc<ncb>,                \
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+                                    dw_b_smem_bytes(ncb));
+  DW_CHANNEL_BLOCKS(K2_DW_BF16_INIT)
+#undef K2_DW_BF16_INIT
+#define K2_FWD_BF16_INIT(nj)                                                             \
+  if (!err)                                                                              \
+    err = (int)cudaFuncSetAttribute((const void*)conv3x3_fwd_bf16_tc<nj>,                \
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+                                    fw_b_smem_bytes(nj));
+  FW_B_TILES(K2_FWD_BF16_INIT)
+#undef K2_FWD_BF16_INIT
   return err;
+}
+
+// K2a-bf16.  x [B, C, H, W] and y [B, Co, H, W] bf16; w bf16 [Co, C, 3, 3], or [C, Co, 3,
+// 3] with flip.  Any C and Co, output channels in blocks as conv3x3_fwd.
+int conv3x3_fwd_bf16(const void* x, const void* w, void* y, int B, int C, int Co, int H,
+                     int W, int flip, void* stream) {
+  if (bad_shape(B, C, Co, H, W)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_co_blocks = (Co + 16 * FW_MAX_NJ - 1) / (16 * FW_MAX_NJ);
+  const int nj = ((Co + n_co_blocks - 1) / n_co_blocks + 15) / 16;
+  const bool wide = W % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  const dim3 grid((W + FW_TW - 1) / FW_TW, (H + FW_TH - 1) / FW_TH, B * n_co_blocks);
+  const size_t bytes = fw_b_smem_bytes(nj);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  switch (nj) {
+#define K2_FWD_BF16(nj)                                                                  \
+  case nj:                                                                               \
+    conv3x3_fwd_bf16_tc<nj><<<grid, FW_NT, bytes, st>>>(xb, wb, yb, C, Co, H, W,          \
+                                                        n_co_blocks, wide, flip);        \
+    break;
+    FW_B_TILES(K2_FWD_BF16)
+#undef K2_FWD_BF16
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2b-bf16.  x [B, C, H, W] and g [B, Co, H, W] bf16; part [S, Co, C, 9] fp32 scratch; dw
+// [Co, C, 3, 3] fp32.  C <= 64; splits as conv3x3_dw.
+int conv3x3_dw_bf16(const void* x, const void* g, float* part, float* dw, int B, int C,
+                    int Co, int H, int W, int S, void* stream) {
+  if (bad_shape(B, C, Co, H, W) || C > DW_MAX_C || S <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_units = B * H * ((W + DW_SW - 1) / DW_SW);
+  const int ups = (n_units + S - 1) / S;
+  const int vec = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const dim3 grid(S, (Co + DW_CO - 1) / DW_CO);
+  const int ncb = (C + 7) / 8;
+  const size_t bytes = dw_b_smem_bytes(ncb);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  switch (ncb) {
+#define K2_DW_BF16(ncb)                                                                  \
+  case ncb:                                                                              \
+    conv3x3_dw_bf16_tc<ncb><<<grid, DW_WARPS * 32, bytes, st>>>(xb, gb, part, B, C, Co,   \
+                                                                H, W, ups, vec);         \
+    break;
+    DW_CHANNEL_BLOCKS(K2_DW_BF16)
+#undef K2_DW_BF16
+  }
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int N = Co * C * 9;
+  dw_sum_splits<<<(N + 255) / 256, 256, 0, st>>>(part, dw, S, N);
+  return (int)cudaGetLastError();
 }
 
 // K2b.  x [B, C, H, W], g [B, Co, H, W]; part [S, Co, C, 9] scratch; dw [Co, C, 3, 3].

@@ -52,7 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from contrastiveseg_tpu_torch.models.heads import bn_relu, conv_bn_relu
-from contrastiveseg_tpu_torch.models.layers import ConvBN, conv
+from contrastiveseg_tpu_torch.models.layers import ConvBN, conv, fp32, full_precision
 from contrastiveseg_tpu_torch.ops.cc_attention import criss_cross_attention
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
 
@@ -84,8 +84,10 @@ class SelfAttention2D(nn.Module):
         q = self.f_query(x).flatten(2).transpose(1, 2)  # [B, N, key]
         k = self.f_key(x).flatten(2)  # [B, key, N]
         v = self.f_value(x).flatten(2).transpose(1, 2)  # [B, N, value]
-        sim = torch.softmax(torch.bmm(q.float(), k.float()) * self.key_channels ** -0.5, dim=-1)
-        ctx = torch.bmm(sim.to(v.dtype), v).transpose(1, 2).reshape(B, self.value_channels, H, W)
+        with full_precision(x):  # JAX attention.py:69,74
+            sim = torch.softmax(torch.bmm(fp32(q), fp32(k)) * self.key_channels ** -0.5, dim=-1)
+            ctx = torch.bmm(fp32(sim.to(v.dtype)), fp32(v)).to(x.dtype)
+        ctx = ctx.transpose(1, 2).reshape(B, self.value_channels, H, W)
         ctx = self.W(ctx)
         if self.scale > 1:
             ctx = resize_bilinear_align_corners_nchw(ctx, tuple(size))

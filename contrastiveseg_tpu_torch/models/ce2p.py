@@ -39,10 +39,16 @@ from torch import nn
 
 from contrastiveseg_tpu_torch.models.attention import PSPModule
 from contrastiveseg_tpu_torch.models.heads import bn_relu, conv_bn_relu
-from contrastiveseg_tpu_torch.models.layers import ConvBN, conv
+from contrastiveseg_tpu_torch.models.layers import ConvBN, bf16_compute, conv, full_precision
 from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR, SpatialOCRASP
 from contrastiveseg_tpu_torch.models.resnet import ResNet, backbone_spec
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw as _resize
+
+
+def _resize_fp32(x: torch.Tensor, size) -> torch.Tensor:
+    """The resize of an fp32 map (logits), in fp32 in a bf16 net."""
+    with full_precision(x):
+        return _resize(x, size)
 
 
 class EdgeModule(nn.Module):
@@ -53,15 +59,15 @@ class EdgeModule(nn.Module):
         super().__init__()
         for i, cin in enumerate(in_channels, 1):
             self.add_module(f"conv{i}", conv_bn_relu(cin, mid_fea, 1))
-        self.conv4 = conv(mid_fea, out_fea, 3, bias=True)
-        self.conv5 = conv(3 * out_fea, out_fea, 1, bias=True)
+        self.conv4 = conv(mid_fea, out_fea, 3, bias=True, fp32=True)
+        self.conv5 = conv(3 * out_fea, out_fea, 1, bias=True, fp32=True)
 
     def forward(self, x1, x2, x3) -> tuple[torch.Tensor, torch.Tensor]:
         size = tuple(x1.shape[2:])
         feas, edges = [], []
         for i, x in enumerate((x1, x2, x3), 1):
             fea = getattr(self, f"conv{i}")(x)
-            edges.append(_resize(self.conv4(fea), size))
+            edges.append(_resize_fp32(self.conv4(fea), size))
             feas.append(_resize(fea, size))
         return self.conv5(torch.cat(edges, dim=1)), torch.cat(feas, dim=1)
 
@@ -78,7 +84,7 @@ class CE2PDecoder(nn.Module):
         self.conv2 = conv_bn_relu(low_channels, 48, 1)
         self.conv3 = nn.Sequential(conv(304, 256, 1), bn_relu(256), conv(256, 256, 1),
                                    bn_relu(256), nn.Dropout(dropout))
-        self.conv4 = conv(256, num_classes, 1, bias=True)
+        self.conv4 = conv(256, num_classes, 1, bias=True, fp32=True)
 
     def forward(self, xt, xl) -> tuple[torch.Tensor, torch.Tensor]:
         xt = _resize(self.conv1(xt), tuple(xl.shape[2:]))
@@ -92,7 +98,7 @@ class CE2PNet(nn.Module):
     CONTEXTS = ("asp_ocr", "ocr", "psp")
 
     def __init__(self, num_classes: int, context: str = "asp_ocr",
-                 arch: str = "resnet101_dilated8"):
+                 arch: str = "resnet101_dilated8", bf16: bool = False):
         super().__init__()
         if context not in self.CONTEXTS:
             raise ValueError(f"unknown CE2P context {context!r}; one of {self.CONTEXTS}")
@@ -101,7 +107,7 @@ class CE2PNet(nn.Module):
         self.backbone = ResNet(backbone_spec(arch))
         c1, c2, c3, c4 = self.backbone.channels
         self.dsn = nn.Sequential(*conv_bn_relu(c3, 512, 3), nn.Dropout(0.1),
-                                 conv(512, num_classes, 1, bias=True))
+                                 conv(512, num_classes, 1, bias=True, fp32=True))
         self.edgelayer = EdgeModule((c1, c2, c3))
         if context == "asp_ocr":
             self.asp_ocr_head = SpatialOCRASP(c4, 256, 512, (6, 12, 18), 0.1)
@@ -113,9 +119,14 @@ class CE2PNet(nn.Module):
             self.context = PSPModule(c4, 512)
         self.decoder = CE2PDecoder(512, c1, num_classes)
         self.cls = nn.Sequential(*conv_bn_relu(256 + 3 * 256, 256, 1),
-                                 conv(256, num_classes, 1, bias=True))
+                                 conv(256, num_classes, 1, bias=True, fp32=True))
+        self.bf16 = bf16
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        with bf16_compute(self.bf16, x):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         c1, c2, c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-4:]
         dsn = self.dsn(c3)
         edge, edge_fea = self.edgelayer(c1, c2, c3)
@@ -123,7 +134,7 @@ class CE2PNet(nn.Module):
             f = self.asp_ocr_head(c4, dsn)
         elif self.context_kind == "ocr":
             f = self.conv3x3(c4)
-            f = self.ocr_distri(f, self.ocr_gather(f, _resize(dsn, tuple(f.shape[2:]))))
+            f = self.ocr_distri(f, self.ocr_gather(f, _resize_fp32(dsn, tuple(f.shape[2:]))))
         else:
             f = self.context(c4)
         seg, dec_fea = self.decoder(f, c1)
@@ -131,4 +142,4 @@ class CE2PNet(nn.Module):
                                        dim=1))
         size = tuple(x.shape[1:3])
         out = {"seg": seg, "edge": edge, "seg_aux": dsn, "seg_final": seg_final}
-        return {k: _resize(v, size).permute(0, 2, 3, 1) for k, v in out.items()}
+        return {k: _resize_fp32(v, size).permute(0, 2, 3, 1) for k, v in out.items()}

@@ -17,7 +17,9 @@ the same parameter names, so weights carry over unchanged.
 the convolutions, matmuls and activations in bf16) is ``bf16_compute``, a
 ``torch.autocast`` around a net's forward; the sites that the JAX package
 pins to ``jnp.float32`` (the class logits: ``conv(..., fp32=True)``, the
-embedding's normalisation, the OCR products) run under ``full_precision``.
+embedding's normalisation, the products of ``preferred_element_type=
+jnp.float32`` and their softmax) run under ``full_precision``.  K2 runs in
+bf16 there (``PallasConv3x3``).
 """
 
 from __future__ import annotations
@@ -75,14 +77,21 @@ def full_precision(x: torch.Tensor):
     return torch.autocast(x.device.type, enabled=False)
 
 
+def fp32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` upcast to fp32 from a 16-bit float type (an operand of a product
+    that the JAX package takes in fp32 in its bf16 nets); as it is in an
+    fp32 or float64 run."""
+    return t.float() if t.is_floating_point() and t.element_size() < 4 else t
+
+
 class Float32Conv2d(nn.Conv2d):
     """A conv that the JAX package keeps in fp32 in its bf16 nets
     (``nn.Conv(..., dtype=jnp.float32)(x.astype(jnp.float32))``: the class
-    logits); an ``nn.Conv2d`` otherwise."""
+    logits), in its parameters' dtype; an ``nn.Conv2d`` otherwise."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with full_precision(x):
-            return super().forward(x.float())
+            return super().forward(x.to(self.weight.dtype))
 
 
 def TorchBatchNorm(channels: int) -> BatchNorm2d:  # noqa: N802 (mirrors the JAX class)
@@ -94,12 +103,20 @@ class PallasConv3x3(nn.Conv2d):
     forward goes through K2 (``ops/conv_cuda.conv3x3``) when
     ``supported()`` holds for its input, the JAX package's predicate (3x3,
     stride 1, undilated, C <= 64, H % 8 == 0), and through cuDNN otherwise.
-    The parameter is the usual ``weight``."""
+    The parameter is the usual ``weight``.  Inside ``bf16_compute`` the
+    input and the weight are cast to the autocast dtype before K2, as the
+    JAX layer casts both to its ``dtype`` (``layers.py:67-68``): autocast
+    does not reach a custom op.  K2's dW then comes back rounded to bf16,
+    and the cast's backward returns it in fp32 to the parameter."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if supported(x.shape, self.kernel_size[0], self.stride[0], self.dilation[0]):
-            return conv3x3(x.contiguous(), self.weight)
-        return super().forward(x)
+        if not supported(x.shape, self.kernel_size[0], self.stride[0], self.dilation[0]):
+            return super().forward(x)
+        w = self.weight
+        if torch.is_autocast_enabled(x.device.type):
+            dtype = torch.get_autocast_dtype(x.device.type)
+            x, w = x.to(dtype), w.to(dtype)
+        return conv3x3(x, w)
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,

@@ -71,11 +71,15 @@ the JAX package; inside, the models run NCHW and permute once, here.
   ``FPNSemanticDecoder`` is ``FPNNeck`` and ``FPNSemanticDecoder`` here,
   under the reference's keys.
 
-``network.bf16`` (JAX ``nets.py:277,303,332``) builds ``HRNetSeg``,
-``HRNetOCRSeg`` and ``DeepLabV3`` to compute in bf16 (``models/layers.
-bf16_compute``) with fp32 parameters and the JAX package's fp32 sites: the
-``cls``/``aux_cls``/``dsn_cls`` convs, the embedding's normalisation, the
-OCR products and the logits' upsampling.  The other nets refuse it.
+``network.bf16`` (the JAX build functions' ``dtype=jnp.bfloat16``) builds every
+net to compute in bf16 (``models/layers.bf16_compute``) with fp32 parameters
+and the JAX package's fp32 sites: the class-logit convs (``conv(...,
+fp32=True)``: ``cls``, ``aux_cls``, ``dsn_cls``, SegFix's and CE2P's heads,
+MS-OCR's attention logit, the SETR decoders whole), the embedding's
+normalisation, the products the JAX package takes with
+``preferred_element_type=jnp.float32`` and their softmax (OCR, the oracle
+gather, self-attention, criss-cross and PVT attention), and the logits'
+upsampling.  With ``network.pallas_conv`` K2 runs in bf16.
 
 With a projection head, ``seg`` and ``seg_aux`` stay at the network's
 stride (4 for HRNet, 8 for DeepLab) and the loss upsamples them; without,
@@ -113,6 +117,7 @@ from contrastiveseg_tpu_torch.models.layers import (
     Upsample,
     bf16_compute,
     conv,
+    fp32,
     full_precision,
 )
 from contrastiveseg_tpu_torch.models.ocr import SpatialGather, SpatialOCR, SpatialOCRASP
@@ -183,18 +188,20 @@ class SegFixHRNet(nn.Module):
     ``dir`` (``num_directions``) heads, each 1x1 conv -> BNReLU -> 1x1 conv,
     NHWC logits at the concat's stride."""
 
-    def __init__(self, num_directions: int = 8, arch: str = "hrnet48"):
+    def __init__(self, num_directions: int = 8, arch: str = "hrnet48", bf16: bool = False):
         super().__init__()
         self.backbone = _hrnet_backbone(arch)
         width = sum(self.backbone.out_channels)
         for name, out in (("mask", 2), ("dir", num_directions)):
             setattr(self, f"{name}_head", nn.Sequential(
-                conv(width, 256, 1), bn_relu(256), conv(256, out, 1)))
+                conv(width, 256, 1), bn_relu(256), conv(256, out, 1, fp32=True)))
+        self.bf16 = bf16
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
-        return {"mask": self.mask_head(cat).permute(0, 2, 3, 1),
-                "dir": self.dir_head(cat).permute(0, 2, 3, 1)}
+        with bf16_compute(self.bf16, x):
+            cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+            return {"mask": self.mask_head(cat).permute(0, 2, 3, 1),
+                    "dir": self.dir_head(cat).permute(0, 2, 3, 1)}
 
 
 class HRNetOCRSeg(nn.Module):
@@ -275,7 +282,8 @@ def _dsn_head(c3: int, num_classes: int, dropout: float | None, bias: bool = Tru
     ``dropout`` None leaves the dropout slot out (slots ``0``, ``1.0``,
     ``2``: the OCNets' ``dsn``, whose dropout is 0)."""
     drop = [] if dropout is None else [nn.Dropout(dropout)]
-    return nn.Sequential(*conv_bn_relu(c3, 512, 3), *drop, conv(512, num_classes, 1, bias=bias))
+    return nn.Sequential(*conv_bn_relu(c3, 512, 3), *drop,
+                         conv(512, num_classes, 1, bias=bias, fp32=True))
 
 
 class _DilatedResNetNet(nn.Module):
@@ -284,16 +292,18 @@ class _DilatedResNetNet(nn.Module):
 
     reference_layout = True  # a reference .pth of the net loads into it
 
-    def __init__(self, arch: str):
+    def __init__(self, arch: str, bf16: bool = False):
         super().__init__()
         self.backbone = ResNet(backbone_spec(arch))
+        self.bf16 = bf16
 
     def heads(self, c3: torch.Tensor, c4: torch.Tensor) -> dict[str, torch.Tensor]:
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
-        return _outputs(self.heads(c3, c4), None, None, x.shape[1:3])
+        with bf16_compute(self.bf16, x):
+            c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
+            return _outputs(self.heads(c3, c4), None, None, x.shape[1:3])
 
 
 class FcnNet(_DilatedResNetNet):
@@ -303,11 +313,11 @@ class FcnNet(_DilatedResNetNet):
     and its cls conv has a bias (fcnet.py:93)."""
 
     def __init__(self, num_classes: int, arch: str = "resnet101_dilated8",
-                 with_dsn: bool = True):
-        super().__init__(arch)
+                 with_dsn: bool = True, bf16: bool = False):
+        super().__init__(arch, bf16)
         c3, c4 = self.backbone.channels[2:]
         self.cls_head = nn.Sequential(*conv_bn_relu(c4, 512, 3), nn.Dropout(0.1),
-                                      conv(512, num_classes, 1, bias=not with_dsn))
+                                      conv(512, num_classes, 1, bias=not with_dsn, fp32=True))
         self.dsn_head = _dsn_head(c3, num_classes, 0.10, bias=False) if with_dsn else None
 
     def heads(self, c3, c4):
@@ -322,13 +332,13 @@ class SpatialOCRNet(_DilatedResNetNet):
     maps that ``spatial_context_head`` pools the ``conv_3x3`` features of
     c4 with; ``spatial_ocr_head`` distributes the contexts; 1x1 ``head``."""
 
-    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
-        super().__init__(arch)
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8", bf16: bool = False):
+        super().__init__(arch, bf16)
         c3, c4 = self.backbone.channels[2:]
         self.conv_3x3 = conv_bn_relu(c4, 512, 3)
         self.spatial_context_head = SpatialGather()
         self.spatial_ocr_head = SpatialOCR(512, 256, 512, 0.05)
-        self.head = conv(512, num_classes, 1, bias=True)
+        self.head = conv(512, num_classes, 1, bias=True, fp32=True)
         self.dsn_head = _dsn_head(c3, num_classes, 0.05)
 
     def heads(self, c3, c4):
@@ -360,10 +370,10 @@ class IdealSpatialOCRNet(SpatialOCRNet):
     VARIANTS = ("spatial", "spatial_b", "spatial_c", "gather", "distribute")
 
     def __init__(self, num_classes: int, variant: str = "spatial",
-                 arch: str = "resnet101_dilated8"):
+                 arch: str = "resnet101_dilated8", bf16: bool = False):
         if variant not in self.VARIANTS:
             raise ValueError(f"unknown oracle OCR variant {variant!r}; one of {self.VARIANTS}")
-        super().__init__(num_classes, arch)
+        super().__init__(num_classes, arch, bf16)
         self.variant = variant
         self.num_classes = num_classes
         self.gather_gt = variant != "distribute"
@@ -381,21 +391,24 @@ class IdealSpatialOCRNet(SpatialOCRNet):
                 f"ideal OCR variant {self.variant!r} (use_bg) needs gt_labels: its background "
                 "context is the ground truth's complement.  The JAX trainer never passes "
                 "labels to a model, and its init fails on this net the same way")
-        c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
-        aux = self.dsn_head(c3)
-        f = self.conv_3x3(c4)
-        lab = None if gt_labels is None else scale_target_nearest(gt_labels, f.shape[2:])
-        if self.gather_gt and lab is not None:
-            weights = _label_onehot(lab, self.num_classes + 1)  # [B, hw, K + 1]
-            weights = weights / weights.sum(1, keepdim=True).clamp(min=1e-12)
-            context = torch.bmm(weights.transpose(1, 2), f.flatten(2).transpose(1, 2))
-        else:
-            context = self.spatial_context_head(f, aux)
-        gt_sim = None
-        if self.distribute_gt and lab is not None:
-            gt_sim = _label_onehot(lab, context.shape[1])
-        f = self.spatial_ocr_head(f, context, gt_sim)
-        return _outputs({"seg": self.head(f), "seg_aux": aux}, None, None, x.shape[1:3])
+        with bf16_compute(self.bf16, x):
+            c3, c4 = self.backbone(x.permute(0, 3, 1, 2))[-2:]
+            aux = self.dsn_head(c3)
+            f = self.conv_3x3(c4)
+            lab = None if gt_labels is None else scale_target_nearest(gt_labels, f.shape[2:])
+            if self.gather_gt and lab is not None:
+                weights = _label_onehot(lab, self.num_classes + 1)  # [B, hw, K + 1]
+                weights = weights / weights.sum(1, keepdim=True).clamp(min=1e-12)
+                with full_precision(f):
+                    context = torch.bmm(weights.transpose(1, 2),
+                                        fp32(f.flatten(2).transpose(1, 2))).to(f.dtype)
+            else:
+                context = self.spatial_context_head(f, aux)
+            gt_sim = None
+            if self.distribute_gt and lab is not None:
+                gt_sim = _label_onehot(lab, context.shape[1])
+            f = self.spatial_ocr_head(f, context, gt_sim)
+            return _outputs({"seg": self.head(f), "seg_aux": aux}, None, None, x.shape[1:3])
 
 
 class ASPOCRNet(_DilatedResNetNet):
@@ -403,11 +416,11 @@ class ASPOCRNet(_DilatedResNetNet):
     dilations 12, 24, 36) on c4, gathering over the ``dsn_head`` logits
     (dropout 0.1); 1x1 ``head``."""
 
-    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
-        super().__init__(arch)
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8", bf16: bool = False):
+        super().__init__(arch, bf16)
         c3, c4 = self.backbone.channels[2:]
         self.asp_ocr_head = SpatialOCRASP(c4, 256, 256, (12, 24, 36), 0.1)
-        self.head = conv(256, num_classes, 1, bias=True)
+        self.head = conv(256, num_classes, 1, bias=True, fp32=True)
         self.dsn_head = _dsn_head(c3, num_classes, 0.1)
 
     def heads(self, c3, c4):
@@ -419,12 +432,12 @@ class BaseOCNet(_DilatedResNetNet):
     """BaseOCNet: ``oc_module_pre`` (3x3 ConvBNReLU 512), ``oc_module``
     (``BaseOCModule``), 1x1 ``cls``; the aux ``dsn`` has no dropout."""
 
-    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
-        super().__init__(arch)
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8", bf16: bool = False):
+        super().__init__(arch, bf16)
         c3, c4 = self.backbone.channels[2:]
         self.oc_module_pre = conv_bn_relu(c4, 512, 3)
         self.oc_module = BaseOCModule(512, 256, 256, 512, 0.05)
-        self.cls = conv(512, num_classes, 1, bias=True)
+        self.cls = conv(512, num_classes, 1, bias=True, fp32=True)
         self.dsn = _dsn_head(c3, num_classes, None)
 
     def heads(self, c3, c4):
@@ -436,11 +449,11 @@ class AspOCNet(_DilatedResNetNet):
     """AspOCNet: ``context`` (3x3 ConvBNReLU 512, ``ASPOCModule(512, 256)``),
     1x1 ``cls``; the aux ``dsn`` has no dropout."""
 
-    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8"):
-        super().__init__(arch)
+    def __init__(self, num_classes: int, arch: str = "resnet101_dilated8", bf16: bool = False):
+        super().__init__(arch, bf16)
         c3, c4 = self.backbone.channels[2:]
         self.context = nn.Sequential(*conv_bn_relu(c4, 512, 3), ASPOCModule(512, 256))
-        self.cls = conv(512, num_classes, 1, bias=True)
+        self.cls = conv(512, num_classes, 1, bias=True, fp32=True)
         self.dsn = _dsn_head(c3, num_classes, None)
 
     def heads(self, c3, c4):
@@ -452,12 +465,12 @@ class ISANet(_DilatedResNetNet):
     ``down_factors``), 1x1 ``cls_head``, ``dsn_head`` (dropout 0.05)."""
 
     def __init__(self, num_classes: int, arch: str = "resnet101_dilated8",
-                 down_factors=((8, 8),)):
-        super().__init__(arch)
+                 down_factors=((8, 8),), bf16: bool = False):
+        super().__init__(arch, bf16)
         c3, c4 = self.backbone.channels[2:]
         self.isa_head = nn.Sequential(*conv_bn_relu(c4, 512, 3),
                                       ISAModule(512, 256, 512, 512, down_factors, 0.05))
-        self.cls_head = conv(512, num_classes, 1, bias=True)
+        self.cls_head = conv(512, num_classes, 1, bias=True, fp32=True)
         self.dsn_head = _dsn_head(c3, num_classes, 0.05)
 
     def heads(self, c3, c4):
@@ -472,12 +485,13 @@ class ResNetContextNet(_DilatedResNetNet):
 
     reference_layout = False
 
-    def __init__(self, num_classes: int, context: str, arch: str = "resnet101_dilated8"):
-        super().__init__(arch)
+    def __init__(self, num_classes: int, context: str, arch: str = "resnet101_dilated8",
+                 bf16: bool = False):
+        super().__init__(arch, bf16)
         c3, c4 = self.backbone.channels[2:]
         self.dsn_conv = ConvBN(c3, 512, 3)
         self.dsn_drop = nn.Dropout(0.05)
-        self.dsn_cls = conv(512, num_classes, 1, bias=True)
+        self.dsn_cls = conv(512, num_classes, 1, bias=True, fp32=True)
         if context == "pyramid_oc":
             self.conv3x3 = ConvBN(c4, 512, 3)
             self.context = PyramidOCModule(512, out_channels=512)
@@ -486,7 +500,7 @@ class ResNetContextNet(_DilatedResNetNet):
             self.context = (PSPModule if context == "psp" else CCModule)(c4, 512)
         else:
             raise ValueError(f"unknown context head {context!r}")
-        self.cls = conv(512, num_classes, 1, bias=True)
+        self.cls = conv(512, num_classes, 1, bias=True, fp32=True)
 
     def heads(self, c3, c4):
         aux = self.dsn_cls(self.dsn_drop(self.dsn_conv(c3)))
@@ -501,21 +515,28 @@ class HRNetISASeg(nn.Module):
 
     reference_layout = False
 
-    def __init__(self, num_classes: int, arch: str = "hrnet48"):
+    def __init__(self, num_classes: int, arch: str = "hrnet48", bf16: bool = False):
         super().__init__()
         width = sum(HRNET_SPECS[arch].out_channels)
         self.backbone = HRNet(HRNET_SPECS[arch])
         self.aux_conv = ConvBN(width, 512, 3)
-        self.aux_cls = conv(512, num_classes, 1, bias=True)
+        self.aux_cls = conv(512, num_classes, 1, bias=True, fp32=True)
         self.conv3x3 = ConvBN(width, 512, 3)
         self.isa = ISAModule(512, 256, 512, 512, ((8, 8),), 0.05)
-        self.cls = conv(512, num_classes, 1, bias=True)
+        self.cls = conv(512, num_classes, 1, bias=True, fp32=True)
+        self.bf16 = bf16
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
-        out = {"seg": self.cls(self.isa(self.conv3x3(cat))),
-               "seg_aux": self.aux_cls(self.aux_conv(cat))}
-        return _outputs(out, None, None, x.shape[1:3])
+        with bf16_compute(self.bf16, x):
+            cat = _fuse(self.backbone(x.permute(0, 3, 1, 2)))
+            out = {"seg": self.cls(self.isa(self.conv3x3(cat))),
+                   "seg_aux": self.aux_cls(self.aux_conv(cat))}
+            return _outputs(out, None, None, x.shape[1:3])
+
+
+def _bf16(cfg) -> bool:
+    """``network.bf16``: the JAX build functions' ``dtype=jnp.bfloat16``."""
+    return bool(cfg.get("network.bf16", default=False))
 
 
 def _hrnet(arch: str, with_proj: bool):
@@ -527,7 +548,7 @@ def _hrnet(arch: str, with_proj: bool):
             head_dropout=cfg.get("network.head_dropout", default=0.10),
             pallas_conv=cfg.get("network.pallas_conv", default=False),
             with_proj=with_proj,
-            bf16=cfg.get("network.bf16", default=False),
+            bf16=_bf16(cfg),
         )
 
     return build
@@ -537,7 +558,7 @@ def _hrnet_ocr(arch: str, with_proj: bool = False, **heads):
     def build(cfg) -> HRNetOCRSeg:
         return HRNetOCRSeg(cfg.get("data.num_classes"), arch, with_proj=with_proj,
                            proj_dim=cfg.get("contrast.proj_dim", default=256),
-                           bf16=cfg.get("network.bf16", default=False), **heads)
+                           bf16=_bf16(cfg), **heads)
 
     return build
 
@@ -549,7 +570,7 @@ def _deeplab(with_proj: bool):
                          cfg.get("network.backbone", default="resnet101_dilated8"),
                          with_proj=with_proj,
                          proj_dim=cfg.get("contrast.proj_dim", default=256),
-                         bf16=cfg.get("network.bf16", default=False))
+                         bf16=_bf16(cfg))
 
     return build
 
@@ -568,14 +589,13 @@ for _w in (18, 32, 48, 64):
 MODELS["hrnet2x20"] = _hrnet("hrnet2x20", with_proj=False)
 MODELS["deeplab_v3"] = _deeplab(with_proj=False)
 MODELS["deeplab_v3_contrast"] = _deeplab(with_proj=True)
-# The nets that take network.bf16: HRNetSeg, HRNet + OCR and DeepLab-V3.
-_BF16 = frozenset(MODELS)
 
 
 def _resnet_net(cls, **kw):
     def build(cfg) -> nn.Module:
         return cls(cfg.get("data.num_classes"),
-                   arch=cfg.get("network.backbone", default="resnet101_dilated8"), **kw)
+                   arch=cfg.get("network.backbone", default="resnet101_dilated8"),
+                   bf16=_bf16(cfg), **kw)
 
     return build
 
@@ -585,13 +605,13 @@ def _isanet(cfg) -> ISANet:
     factors = cfg.get("network.factors", default=None) or [[8, 8]]
     return ISANet(cfg.get("data.num_classes"),
                   cfg.get("network.backbone", default="resnet101_dilated8"),
-                  tuple(tuple(f) for f in factors))
+                  tuple(tuple(f) for f in factors), bf16=_bf16(cfg))
 
 
 def _hrnet_isa(cfg) -> HRNetISASeg:
     backbone = cfg.get("network.backbone", default="hrnet48")
     return HRNetISASeg(cfg.get("data.num_classes"),
-                       backbone if backbone in HRNET_SPECS else "hrnet48")
+                       backbone if backbone in HRNET_SPECS else "hrnet48", bf16=_bf16(cfg))
 
 
 def _segfix_hrnet(cfg) -> SegFixHRNet:
@@ -599,7 +619,7 @@ def _segfix_hrnet(cfg) -> SegFixHRNet:
     backbone = cfg.get("network.backbone", default="hrnet48")
     if backbone not in HRNET_SPECS and backbone not in HRNEXT_SPECS:
         backbone = "hrnet48"
-    return SegFixHRNet(cfg.get("data.dt_num_classes", default=8), backbone)
+    return SegFixHRNet(cfg.get("data.dt_num_classes", default=8), backbone, bf16=_bf16(cfg))
 
 
 MODELS.update({
@@ -629,7 +649,8 @@ def _ce2p(context: str):
         from contrastiveseg_tpu_torch.models.ce2p import CE2PNet
 
         return CE2PNet(cfg.get("data.num_classes"), context,
-                       cfg.get("network.backbone", default="resnet101_dilated8"))
+                       cfg.get("network.backbone", default="resnet101_dilated8"),
+                       bf16=_bf16(cfg))
 
     return build
 
@@ -647,43 +668,48 @@ class _MsOCRTrunk(nn.Module):
     ``cls_head``) and ``scale_attn`` (two 3x3 ConvBNReLU of 256, a bias-free
     1x1 to one channel, sigmoid)."""
 
-    def __init__(self, num_classes: int, arch: str = "hrnet48"):
+    def __init__(self, num_classes: int, arch: str = "hrnet48", bf16: bool = False):
         super().__init__()
         self.backbone = HRNet(HRNET_SPECS[arch])
         width = sum(self.backbone.out_channels)
         self.ocr = nn.Module()
         self.ocr.conv3x3_ocr = conv_bn_relu(width, 256, 3)
         self.ocr.aux_head = nn.Sequential(*conv_bn_relu(width, 256, 3),
-                                          conv(256, num_classes, 1, bias=True))
+                                          conv(256, num_classes, 1, bias=True, fp32=True))
         self.ocr.ocr_gather_head = SpatialGather()
         self.ocr.ocr_distri_head = SpatialOCR(256, 128, 256, 0.05)
-        self.ocr.cls_head = conv(256, num_classes, 1, bias=True)
+        self.ocr.cls_head = conv(256, num_classes, 1, bias=True, fp32=True)
         self.scale_attn = nn.Sequential(OrderedDict([
             ("conv0", conv(256, 256, 3)), ("bn0", TorchBatchNorm(256)), ("re0", nn.ReLU()),
             ("conv1", conv(256, 256, 3)), ("bn1", TorchBatchNorm(256)), ("re1", nn.ReLU()),
-            ("conv2", conv(256, 1, 1)), ("sig", nn.Sigmoid())]))
+            ("conv2", conv(256, 1, 1, fp32=True)), ("sig", nn.Sigmoid())]))
+        self.bf16 = bf16
 
     def trunk(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """NCHW images -> the class logits, aux logits and attention, each
-        upsampled (half-pixel) to the images' size."""
+        upsampled (half-pixel) to the images' size (fp32 in a bf16 net)."""
         cat = _fuse(self.backbone(x))
         aux = self.ocr.aux_head(cat)
         f = self.ocr.conv3x3_ocr(cat)
         f = self.ocr.ocr_distri_head(f, self.ocr.ocr_gather_head(f, aux))
         size = x.shape[2:]
-        return {k: resize_bilinear_half_pixel_nchw(v, size) for k, v in (
-            ("cls_out", self.ocr.cls_head(f)), ("aux_out", aux),
-            ("logit_attn", self.scale_attn(f)))}
+        outs = (("cls_out", self.ocr.cls_head(f)), ("aux_out", aux),
+                ("logit_attn", self.scale_attn(f)))
+        with full_precision(aux):
+            return {k: resize_bilinear_half_pixel_nchw(v, size) for k, v in outs}
 
 
 class MscaleOCR(_MsOCRTrunk):
-    """Hierarchical multi-scale attention OCR (two scales, 0.5x and 1.0x)."""
+    """Hierarchical multi-scale attention OCR (two scales, 0.5x and 1.0x);
+    in a bf16 net the trunks compute in bf16 and the fusion in fp32."""
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         x = x.permute(0, 3, 1, 2)
         size = x.shape[2:]
-        lo = self.trunk(resize_bilinear_half_pixel_nchw(x, (size[0] // 2, size[1] // 2)))
-        hi = self.trunk(x)
+        x_lo = resize_bilinear_half_pixel_nchw(x, (size[0] // 2, size[1] // 2))
+        with bf16_compute(self.bf16, x):
+            lo = self.trunk(x_lo)
+            hi = self.trunk(x)
         attn = lo["logit_attn"]
         attn_up = resize_bilinear_half_pixel_nchw(attn, size)
         pred = (resize_bilinear_half_pixel_nchw(attn * lo["cls_out"], size)
@@ -734,7 +760,7 @@ class FPNSemanticDecoder(nn.Module):
                     layers.append(Upsample(2))
             heads.append(nn.Sequential(*layers))
         self.scale_heads = nn.ModuleList(heads)
-        self.cls_seg = conv(channels, num_classes, 1, bias=True)
+        self.cls_seg = conv(channels, num_classes, 1, bias=True, fp32=True)
 
     def forward(self, feats: list[torch.Tensor]) -> torch.Tensor:
         merged = None
@@ -750,9 +776,11 @@ class PyramidSegNet(nn.Module):
     ``decoder``; ``{"seg": NHWC logits upsampled to the input}``."""
 
     def __init__(self, num_classes: int, backbone: str = "pvt_small", fpn_dim: int = 256,
-                 img_size: int = 224, input_hw: tuple[int, int] | None = None):
+                 img_size: int = 224, input_hw: tuple[int, int] | None = None,
+                 bf16: bool = False):
         super().__init__()
         self.backbone = build_backbone(backbone, img_size, input_hw)
+        self.bf16 = bf16
         # The reference builds SemanticFPN on PVT-family (and HRNet) trunks;
         # the ViT adapter's names are the JAX package's.
         self.reference_layout = not isinstance(self.backbone, ViTFeatures)
@@ -760,7 +788,8 @@ class PyramidSegNet(nn.Module):
         self.decoder = FPNSemanticDecoder(num_classes, fpn_dim)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        seg = self.decoder(self.neck(self.backbone(x.permute(0, 3, 1, 2))))
+        with bf16_compute(self.bf16, x):
+            seg = self.decoder(self.neck(self.backbone(x.permute(0, 3, 1, 2))))
         seg = resize_bilinear_align_corners_nchw(seg, x.shape[1:3])
         return {"seg": seg.permute(0, 2, 3, 1)}
 
@@ -777,7 +806,8 @@ def _setr(decoder: str):
         arch = backbone if backbone.startswith("vit") else "vit_base"
         p = VIT_SPECS[arch].patch_size
         h, w = _train_hw(cfg)
-        return SETR(cfg.get("data.num_classes"), arch, decoder, grid=(h // p, w // p))
+        return SETR(cfg.get("data.num_classes"), arch, decoder, grid=(h // p, w // p),
+                    bf16=_bf16(cfg))
 
     return build
 
@@ -787,13 +817,13 @@ def _semantic_fpn(cfg) -> PyramidSegNet:
     h, w = _train_hw(cfg)
     return PyramidSegNet(cfg.get("data.num_classes"),
                          cfg.get("network.backbone", default="pvt_small"),
-                         img_size=w, input_hw=(h, w))
+                         img_size=w, input_hw=(h, w), bf16=_bf16(cfg))
 
 
 def _ms_ocr(cfg) -> MscaleOCR:
     backbone = cfg.get("network.backbone", default="hrnet48")
     return MscaleOCR(cfg.get("data.num_classes"),
-                     backbone if backbone in HRNET_SPECS else "hrnet48")
+                     backbone if backbone in HRNET_SPECS else "hrnet48", bf16=_bf16(cfg))
 
 
 MODELS.update({"setr_naive": _setr("naive"), "setr_pup": _setr("pup"),
@@ -829,13 +859,4 @@ def build_model(cfg) -> nn.Module:
         raise NotImplementedError(
             f"network.pallas_conv=true on {name!r}: K2 runs in the HRNetSeg nets only; the "
             "JAX package's other nets take no pallas_conv")
-    if cfg.get("network.bf16", default=False):
-        if name not in _BF16:
-            raise NotImplementedError(
-                f"network.bf16=true on {name!r} is not ported yet: ROADMAP 5 (bf16 compute "
-                "runs in the HRNetSeg, HRNet + OCR and DeepLab-V3 nets)")
-        if pallas_conv:
-            raise NotImplementedError(
-                "network.bf16=true with network.pallas_conv=true: K2 has no bf16 variant in "
-                "the port yet (ROADMAP §2)")
     return MODELS[name](cfg)

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from contrastiveseg_tpu_torch.models.layers import fp32, full_precision
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_half_pixel_nchw
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (JAX pvt.py:85,168,176,206)
@@ -99,12 +100,16 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: torch.Tensor | None = None) -> torch.Tensor:
     """[B, h, n, d] queries, [B, h, m, d] keys and values -> [B, h, n, d];
     ``bias`` [G, n, m] is added to each of G consecutive groups of the
-    batch (the windows of an image)."""
-    att = (q @ k.transpose(-2, -1)) * q.shape[-1] ** -0.5
-    if bias is not None:
-        G = bias.shape[0]
-        att = (att.unflatten(0, (-1, G)) + bias[None, :, None]).flatten(0, 1)
-    return torch.softmax(att, dim=-1) @ v
+    batch (the windows of an image).  The products and the softmax in fp32,
+    the weights rounded to v's dtype (JAX ``pvt.py:95-98``: bf16 in a bf16
+    net)."""
+    with full_precision(q):
+        att = (fp32(q) @ fp32(k).transpose(-2, -1)) * q.shape[-1] ** -0.5
+        if bias is not None:
+            G = bias.shape[0]
+            att = (att.unflatten(0, (-1, G)) + bias[None, :, None]).flatten(0, 1)
+        att = torch.softmax(att, dim=-1).to(v.dtype)
+        return (fp32(att) @ fp32(v)).to(v.dtype)
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -288,9 +293,10 @@ class PVT(nn.Module):
                 g = math.isqrt(pe.shape[1])
                 table = pe.reshape(1, g, g, C)
                 if (g, g) != (h, w):
-                    table = resize_bilinear_half_pixel_nchw(
-                        table.permute(0, 3, 1, 2), (h, w)).permute(0, 2, 3, 1)
-                x = x + table
+                    with full_precision(x):
+                        table = resize_bilinear_half_pixel_nchw(
+                            table.permute(0, 3, 1, 2), (h, w)).permute(0, 2, 3, 1)
+                x = x + table.to(x.dtype)
             for b, block in enumerate(blocks):
                 x = block(x)
                 if b == 0 and pos_cnn is not None:

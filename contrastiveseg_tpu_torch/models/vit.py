@@ -39,7 +39,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contrastiveseg_tpu_torch.models.layers import TorchBatchNorm, Upsample, conv
+from contrastiveseg_tpu_torch.models.layers import (
+    TorchBatchNorm,
+    Upsample,
+    bf16_compute,
+    conv,
+    fp32,
+)
 
 LN_EPS = 1e-5  # SETR's LayerNorms (JAX vit.py:90,107,157)
 
@@ -175,7 +181,8 @@ class ViT(nn.Module):
         gh, gw = self.grid
         w = self.linear_encoding.weight.view(d, p, p, 3).permute(0, 3, 1, 2)
         h = F.conv2d(x, w, self.linear_encoding.bias, stride=p)
-        h = self.pe_dropout(h.flatten(2).transpose(1, 2) + self.position_encoding.pe.weight)
+        pe = self.position_encoding.pe.weight.to(h.dtype)  # JAX pos.astype(x.dtype)
+        h = self.pe_dropout(h.flatten(2).transpose(1, 2) + pe)
         taps = []
         for i in range(s.depth):
             h = self.transformer.net[2 * i + 1](self.transformer.net[2 * i](h))
@@ -209,8 +216,10 @@ class SETR(ViT):
     reference_unused = ("net1_intmd.",)
 
     def __init__(self, num_classes: int, arch: str = "vit_base", decoder: str = "pup",
-                 spec: ViTSpec | None = None, grid: tuple[int, int] = (14, 14)):
+                 spec: ViTSpec | None = None, grid: tuple[int, int] = (14, 14),
+                 bf16: bool = False):
         super().__init__(spec if spec is not None else VIT_SPECS[arch], grid)
+        self.bf16 = bf16
         if decoder not in ("naive", "pup", "mla"):
             raise ValueError(f"unknown SETR decoder {decoder!r}; naive, pup or mla")
         self.decoder = decoder
@@ -244,7 +253,11 @@ class SETR(ViT):
             self.up = Upsample(4)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        f, taps = self.encode(x.permute(0, 3, 1, 2))
+        """In a bf16 net the encoder computes in bf16 and the decoder in fp32
+        on the upcast features (JAX ``vit.py:198,206,219``)."""
+        with bf16_compute(self.bf16, x):
+            f, taps = self.encode(x.permute(0, 3, 1, 2))
+        f, taps = fp32(f), [fp32(t) for t in taps]
         if self.decoder == "naive":
             seg = self.up(self.conv2(torch.relu(self.bn1(self.conv1(f)))))
         elif self.decoder == "pup":

@@ -2,25 +2,28 @@
 
 Counterpart of ``contrastiveseg_tpu/ops/conv_pallas.py`` on the port's own
 layout: x is NCHW, w is OIHW ``[Co, C, 3, 3]``.  The convolution is 3x3,
-stride 1, SAME (zero padding 1), fp32 accumulation, output in x's dtype.
+stride 1, SAME (zero padding 1), fp32 accumulation, output in x's dtype,
+fp32 or bf16 (the JAX kernel's arithmetic in a bf16 net: bf16 operands, fp32
+sums, the output rounded once to bf16).
 
-  * ``conv3x3_plain(x, w, flip)``: the forward (``F.conv2d``).  With
-    ``flip`` it convolves with w spatially flipped and in/out swapped, which
-    is dX of the forward when x is the output gradient (the stride-1
-    transposed-conv identity, ``_conv3x3_bwd`` :241-246);
-  * ``conv3x3_dw_plain(x, g)``: dW ``[Co, C, 3, 3]`` in fp32;
+  * ``conv3x3_plain(x, w, flip)``: the forward, ``F.conv2d`` on the fp32
+    upcasts of bf16 operands, rounded once to x's dtype (fp32 and fp64 as
+    they are).  With ``flip`` it
+    convolves with w spatially flipped and in/out swapped, which is dX of
+    the forward when x is the output gradient (the stride-1 transposed-conv
+    identity, ``_conv3x3_bwd`` :241-246);
+  * ``conv3x3_dw_plain(x, g)``: dW ``[Co, C, 3, 3]`` in fp32 from the fp32
+    upcasts (products of bf16 values are exact in fp32);
   * ``supported``/``pick_block_h``: the routing predicate of the JAX package
-    (:215, :259), on NCHW shapes;
-  * ``Conv3x3``: the differentiable conv over a pair of (forward, dW)
-    functions; ``ops/conv_cuda.py`` hands it the CUDA wrappers.
+    (:215, :259), on NCHW shapes.
 
-The CPU tests run the plain versions; ``chip_smoke.py`` holds the CUDA
-kernels against them on the card.
+Both run in fp32 whatever ``torch.autocast`` is active, so the backend
+never picks the accumulation precision.  The CPU tests run the plain
+versions; ``chip_smoke.py`` holds the CUDA kernels of ``ops/conv_cuda.py``
+against them on the card.
 """
 
 from __future__ import annotations
-
-from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,14 +34,17 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch
     transposed (``w`` is then ``[C_out_of_the_forward, C, 3, 3]``)."""
     if flip:
         w = w.flip((2, 3)).transpose(0, 1)
-    return F.conv2d(x, w.to(x.dtype), padding=1)
+    wide = x.float() if x.element_size() < 4 else x  # a 16-bit x: fp32 sums
+    with torch.autocast(x.device.type, enabled=False):
+        return F.conv2d(wide, w.to(wide.dtype), padding=1).to(x.dtype)
 
 
 def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dW ``[Co, C, 3, 3]`` fp32 of the 3x3 SAME conv, from x ``[B, C, H, W]``
     and the output gradient g ``[B, Co, H, W]``."""
     shape = (g.shape[1], x.shape[1], 3, 3)
-    return torch.nn.grad.conv2d_weight(x.float(), shape, g.float(), padding=1)
+    with torch.autocast(x.device.type, enabled=False):
+        return torch.nn.grad.conv2d_weight(x.float(), shape, g.float(), padding=1)
 
 
 def pick_block_h(h: int) -> int:
@@ -56,28 +62,3 @@ def supported(x_shape, kernel_size: int, strides: int, dilation: int,
     _, c, h, _ = x_shape
     return (kernel_size == 3 and strides == 1 and dilation == 1
             and c <= max_c and pick_block_h(h) > 0)
-
-
-class ConvOps(NamedTuple):
-    fwd: Callable  # (x, w, flip) -> y
-    dw: Callable  # (x, g) -> dW fp32
-
-
-class Conv3x3(torch.autograd.Function):
-    """``conv3x3`` with the JAX package's custom VJP: dX is the forward on
-    the output gradient with flipped, transposed weights; dW is its own
-    function."""
-
-    @staticmethod
-    def forward(ctx, x, w, ops: ConvOps):
-        ctx.save_for_backward(x, w)
-        ctx.ops = ops
-        return ops.fwd(x, w, False)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.contiguous()
-        dx = ctx.ops.fwd(g, w, True) if ctx.needs_input_grad[0] else None
-        dw = ctx.ops.dw(x, g).to(w.dtype) if ctx.needs_input_grad[1] else None
-        return dx, dw, None

@@ -14,7 +14,8 @@ size, and K2's dW is held against the plain formula evaluated in fp64:
 cuDNN's fp32 ``conv2d_weight`` itself rounds past that tolerance at some
 shapes); K3 in bf16 within 2 bf16 steps of the output (both round y1 and
 the output at the same places; a value near a rounding boundary may land
-one step apart).
+one step apart).  K2 in bf16: the forward and dX within 1 bf16 ulp of the
+plain version, dW (fp32 sums of exact products) within rtol 1e-5.
 """
 
 from __future__ import annotations
@@ -135,7 +136,76 @@ def test_k2_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
     dw = torch.nn.grad.conv2d_weight(x.double(), w.shape, gy.double(), padding=1)
     torch.testing.assert_close(conv_cuda.conv3x3_dw(x, gy).double(), dw, rtol=1e-4,
                                atol=1e-6 * float(dw.abs().max()) + 1e-4)
-    assert conv_cuda.launch_counts() == {"conv3x3_fwd": 2, "conv3x3_dw": 1}
+    assert conv_cuda.launch_counts() == {"conv3x3_fwd": 2, "conv3x3_dw": 1,
+                                         "conv3x3_fwd_bf16": 0, "conv3x3_dw_bf16": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Co,H,W", [(2, 48, 48, 32, 256), (2, 48, 48, 16, 40),
+                                        (1, 3, 18, 8, 16), (2, 12, 70, 16, 24),
+                                        # C = 64; W % 8 != 0: dW's 2-byte loads
+                                        (2, 64, 40, 24, 70),
+                                        # odd W: K2a-bf16's 2-byte pixel loads; ragged
+                                        # tiles; dX with 70 input channels; C = Co = 64
+                                        (1, 48, 48, 18, 33), (2, 16, 70, 10, 34),
+                                        (1, 64, 64, 13, 35), (1, 20, 36, 8, 300)])
+def test_k2_bf16_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
+    """K2's bf16 kernels: the forward and dX within 1 bf16 ulp of the plain
+    version (``chip_smoke.bf16_ulps``: the fp32 sums differ only in order, and
+    each output is rounded once); dW in fp32 within rtol 1e-5 and atol 1e-6
+    of its largest entry of the plain formula in fp64 (products of bf16
+    values are exact; the kernel and cuDNN's fp32 ``conv2d_weight``, the
+    plain version on the card, differ by up to 4.3e-6 of the largest entry
+    at [2, 48, 16, 40] on an H100, so the yardstick is fp64)."""
+    from chip_smoke import bf16_ulps
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(B + C + W)
+    x = torch.randn(B, C, H, W, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(Co, C, 3, 3, generator=g) * 0.1).to(cuda_device, torch.bfloat16)
+    gy = torch.randn(B, Co, H, W, generator=g).to(cuda_device, torch.bfloat16)
+    conv_cuda.reset_launch_counts()
+    y, dx = conv_cuda.conv3x3_fwd(x, w), conv_cuda.conv3x3_fwd(gy, w, True)
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert bf16_ulps(y, conv3x3_plain(x, w)) <= 1
+    assert bf16_ulps(dx, conv3x3_plain(gy, w, True)) <= 1
+    dw = conv_cuda.conv3x3_dw(x, gy)
+    want = torch.nn.grad.conv2d_weight(x.double(), w.shape, gy.double(), padding=1)
+    assert dw.dtype == torch.float32
+    torch.testing.assert_close(dw.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    assert conv_cuda.launch_counts() == {"conv3x3_fwd": 0, "conv3x3_dw": 0,
+                                         "conv3x3_fwd_bf16": 2, "conv3x3_dw_bf16": 1}
+
+
+@pytest.mark.cuda
+def test_k2_bf16_autograd_and_export_on_card(cuda_device, tmp_path):
+    """The custom op in bf16 on the card: dW comes back bf16 (the JAX VJP's
+    rounding) and equals the rounded K2b-bf16; an exported program that calls
+    it runs K2 and gives the eager output."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 16, 16, 40, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(16, 16, 3, 3, generator=g) * 0.1).to(cuda_device, torch.bfloat16)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = conv_cuda.conv3x3(x, w)
+    gy = torch.randn(y.shape, generator=g).to(cuda_device, torch.bfloat16)
+    y.backward(gy)
+    assert w.grad.dtype == torch.bfloat16
+    assert torch.equal(w.grad, conv_cuda.conv3x3_dw(x.detach(), gy).to(torch.bfloat16))
+    assert torch.equal(x.grad, conv_cuda.conv3x3_fwd(gy, w.detach(), True))
+
+    class Net(torch.nn.Module):
+        def forward(self, a):
+            return conv_cuda.conv3x3(a, w.detach())
+
+    with torch.no_grad():
+        program = torch.export.export(Net(), (x.detach(),))
+        torch.export.save(program, tmp_path / "k2.pt2")
+        conv_cuda.reset_launch_counts()
+        out = torch.export.load(tmp_path / "k2.pt2").module()(x.detach())
+    assert conv_cuda.launch_counts()["conv3x3_fwd_bf16"] == 1
+    assert torch.equal(out, y.detach())
 
 
 @pytest.mark.cuda
@@ -169,6 +239,8 @@ def test_k2_autograd_and_checks_on_card(cuda_device):
     torch.testing.assert_close(w.grad, wr.grad, rtol=1e-4, atol=1e-2)
     with pytest.raises(ValueError, match="dtype"):
         conv_cuda.conv3x3_fwd(x.detach().double(), w.detach())
+    with pytest.raises(ValueError, match="dtype"):
+        conv_cuda.conv3x3_fwd(x.detach().bfloat16(), w.detach())
     with pytest.raises(ValueError, match="contiguous"):
         conv_cuda.conv3x3_fwd(x.detach().transpose(2, 3), w.detach())
     with pytest.raises(ValueError, match="C <= 64"):

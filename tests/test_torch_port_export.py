@@ -14,8 +14,11 @@ seconds) with the preset's seeded init:
 * an HTTP round trip through ``serve_torch``: ``/healthz``, ``/segment`` at
   the artifact's size and at another (the port's bicubic resize first), a
   bad body (400) and an unknown path (404);
-* refusals: ``network.pallas_conv``, ``--weights sidecar``, and the default
-  device ``cuda`` without CUDA.
+* refusals: ``--weights sidecar`` and the default device ``cuda`` without
+  CUDA; a ``network.pallas_conv`` net, once refused, exports with K2's
+  custom op (``contrastiveseg::conv3x3``) in its graph (its round trip
+  against the Tester, in bf16 and in a fresh process, is in
+  ``tests/test_torch_port_bf16_k2.py``).
 """
 
 from __future__ import annotations
@@ -162,9 +165,12 @@ def test_http_round_trip(artifacts):
 
 def test_refusals(tmp_path, monkeypatch):
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP 6"):
-        export_torch.export_artifact(cfg.updated("network.pallas_conv", True),
-                                     str(tmp_path / "a"), device="cpu")
+    export_torch.export_artifact(cfg.updated("network.pallas_conv", True),
+                                 str(tmp_path / "k2"), device="cpu")
+    graph = str(torch.export.load(tmp_path / "k2.pt2").graph)
+    assert "contrastiveseg.conv3x3" in graph
+    for f in tmp_path.iterdir():
+        f.unlink()
     with pytest.raises(NotImplementedError, match="ROADMAP 6"):
         export_torch.export_artifact(cfg, str(tmp_path / "a"), device="cpu", weights="sidecar")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

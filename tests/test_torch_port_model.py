@@ -24,7 +24,7 @@ import torch
 
 from contrastiveseg_tpu.models.nets import HRNetSeg as JHRNetSeg
 from contrastiveseg_tpu.utils.torch_import import convert_state_dict
-from contrastiveseg_tpu_torch.models.nets import HRNetSeg, build_model
+from contrastiveseg_tpu_torch.models.nets import MODELS, HRNetSeg, build_model
 from contrastiveseg_tpu_torch.utils.jax_weights import (
     flatten,
     hrnet_seg_key,
@@ -188,7 +188,8 @@ def test_load_jax_variables_rejects_missing_and_unused(weights):
         _port({"params": params, "batch_stats": variables["batch_stats"]})
 
 
-def test_build_model_knows_only_the_ported_names():
+def test_build_model_knows_only_the_ported_names(monkeypatch):
+    from contrastiveseg_tpu_torch.models import hrnet, resnet, vit
     from contrastiveseg_tpu_torch.models.layers import PallasConv3x3
     from contrastiveseg_tpu_torch.presets import get_preset
 
@@ -200,13 +201,31 @@ def test_build_model_knows_only_the_ported_names():
         build_model(cfg.updated("network.model_name", "hrnet_w48_ocr_b_ha"))
     with pytest.raises(KeyError, match="hrnet_w48_mem"):
         build_model(cfg.updated("network.model_name", "no_such_net"))
-    # network.bf16 is ported on the HRNetSeg, HRNet + OCR and DeepLab-V3 nets;
-    # the others, and bf16 with K2 (no bf16 variant in the port), refuse it.
-    assert build_model(cfg.updated("network.bf16", True)).bf16
-    with pytest.raises(NotImplementedError, match="ROADMAP 5"):
-        build_model(cfg.updated("network.bf16", True).updated("network.model_name", "fcnet"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §2"):
-        build_model(cfg.updated("network.bf16", True).updated("network.pallas_conv", True))
+    # network.bf16 is ported on every net of the registry (built on the meta
+    # device, with one-block trunks: no weights, little time), and with K2
+    # (its bf16 kernels) on the HRNetSeg nets; the unported
+    # deeplab_v3_mobilenet still refuses any build.
+    bf16 = cfg.updated("network.bf16", True)
+    assert build_model(bf16).bf16
+    with monkeypatch.context() as mp, torch.device("meta"):
+        for w in (18, 32, 48, 64):
+            mp.setitem(hrnet.HRNET_SPECS, f"hrnet{w}", hrnet.HRNetSpec(
+                64, 1, 64, hrnet.StageSpec(1, 1, (w, 2 * w)),
+                hrnet.StageSpec(1, 1, (w, 2 * w, 4 * w)),
+                hrnet.StageSpec(1, 1, (w, 2 * w, 4 * w, 8 * w))))
+        mp.setitem(resnet.RESNET_SPECS, "deepbase_resnet101_dilated8",
+                   resnet.ResNetSpec((1, 1, 1, 1), dilate_scale=8))
+        mp.setitem(vit.VIT_SPECS, "vit_base", vit.ViTSpec(depth=4))
+        for name in MODELS:
+            c = bf16.updated("network.model_name", name)
+            if not name.startswith(("hrnet", "segfix", "setr", "semantic", "ms_ocr")):
+                c = c.updated("network.backbone", "deepbase_resnet101_dilated8")
+            assert build_model(c).bf16, name
+    with torch.device("meta"):
+        both = build_model(bf16.updated("network.pallas_conv", True))
+    assert both.bf16 and sum(isinstance(m, PallasConv3x3) for m in both.modules()) == 208
+    with pytest.raises(NotImplementedError, match="ROADMAP 7"):
+        build_model(bf16.updated("network.model_name", "deeplab_v3_mobilenet"))
     # network.pallas_conv is ported: the branch BasicBlocks' 3x3 convs become
     # PallasConv3x3 (2 per block: 16 + 96 + 96 over the three stages), under
     # the same state_dict names, so weights carry over unchanged.

@@ -22,10 +22,14 @@ exports with a symbolic batch dimension, so one artifact serves any batch.
 The export runs on ``--device`` (``cuda`` by default; it fails without CUDA)
 and the artifact runs there.
 
+A net built with ``network.pallas_conv`` exports with K2 in its graph: K2 is
+the custom op ``contrastiveseg::conv3x3`` (``ops/conv_cuda.py``, with a fake
+implementation for tracing), in fp32 or, with ``network.bf16``, in bf16.
+Loading such an artifact needs the op registered: ``load_artifact`` imports
+``ops/conv_cuda.py`` (not the model code) before ``torch.export.load``.
+
 Refused (ROADMAP 6): ``--weights sidecar`` (a weight-free program; the
-artifact always carries its weights) and ``network.pallas_conv=true`` (K2 is
-called through ctypes, which ``torch.export`` cannot trace; registering it as
-a ``torch.library.custom_op`` with a fake implementation is the fix).
+artifact always carries its weights).
 """
 
 from __future__ import annotations
@@ -45,11 +49,6 @@ def check_exportable(cfg, weights: str = "baked") -> None:
         raise NotImplementedError(
             f"--weights {weights} is not ported: ROADMAP 6 (a torch.export artifact "
             "always carries its weights)")
-    if cfg.get("network.pallas_conv", default=False):
-        raise NotImplementedError(
-            "export with network.pallas_conv=true is not ported: ROADMAP 6 (K2 is called "
-            "through ctypes, which torch.export cannot trace; it needs a "
-            "torch.library.custom_op with a fake implementation)")
 
 
 def scope_module(cfg, model, scope: str):
@@ -149,9 +148,11 @@ def export_artifact(cfg, out: str, scope: str = "ss", input_hw=(512, 1024), batc
 
 def load_artifact(path: str):
     """(the artifact's module, its metadata), on the device it was exported
-    for; fails when that device is CUDA and there is none."""
+    for; fails when that device is CUDA and there is none.  K2's custom ops
+    are registered first, so an artifact of a ``pallas_conv`` net loads."""
     import torch
 
+    import contrastiveseg_tpu_torch.ops.conv_cuda  # noqa: F401 (registers contrastiveseg::*)
     from tools.train_torch import require_device
 
     with open(path + ".json") as f:

@@ -4,7 +4,8 @@ PyTorch port.
 
 Counterpart of ``tools/serve.py``: load the artifact that
 ``tools/export_torch.py`` wrote (``torch.export.load``; no model code is
-imported), preprocess with its metadata's normalize constants, run it on
+imported, only K2's custom ops, for an artifact of a ``network.pallas_conv``
+net), preprocess with its metadata's normalize constants, run it on
 the device it was exported for, and return argmax label maps.
 
     python tools/serve_torch.py --artifact model_artifacts/w48 --port 8901
