@@ -232,16 +232,26 @@ Phases (any failure raises, so the run exits non-zero):
      mIoUs, and whether and why the LR dropped; checkpoints are not
      written; its lines carry ``[extras phase +N s]``;
  21. the bf16 phase: (a), with the kernel checks of phases 3-4, K2's bf16
-     kernels (``conv3x3_fwd_bf16``: the forward and dX; ``conv3x3_dw_bf16``)
-     against their plain versions at [2, 48, 128, 256], a ragged width of 40
-     and [8, 48, 128, 256]: the forward and dX within 1 bf16 ulp, dW (fp32)
-     within rtol 1e-5; each timed at batch 2 and 8 beside cuDNN's bf16
-     ``conv2d`` and ``conv2d_weight``; (b) ``cityscapes_hrnet_w48_mem`` with
-     ``network.bf16=true network.pallas_conv=true`` at batch 8 from phase 9's
-     tree, 2 steps: >= 2*64*2 forward/dX and >= 64*2 dW launches of K2-bf16,
-     no fp32 K2 launch, K1 once a step, parameters and bank fp32, step 1's
-     losses within ``BF16_LOSS_RTOL`` of phase 20 (b)'s bf16 step 1 without
-     K2; its ``latest`` restored bit for bit, ``--phase val`` over the 4 val
+     kernels (``conv3x3_fwd_bf16``: the forward and dX; ``conv3x3_dw_bf16``;
+     the TMA and wgmma route, and PR 16's kernels for a width TMA cannot
+     take) against their plain versions at ``K2_BF16_CASES`` ([2, 48, 128,
+     256], widths of 40 and 36, [8, 48, 128, 256] and [1, 48, 256, 512]):
+     the forward and dX within 1 bf16 ulp, dW (fp32) within rtol 1e-5, each
+     case's route held by the launch counts; at batch 2, batch 8 and [1,
+     48, 256, 512] each timed as device time a call under ``torch.profiler``
+     (dW's split sum included) and with CUDA events, beside cuDNN's bf16
+     ``conv2d``, ``conv2d_input`` and ``conv2d_weight`` (every kernel of the
+     call, its layout transforms included); (b) ``cityscapes_hrnet_w48_mem``
+     with ``network.bf16=true network.pallas_conv=true`` at batch 8 from
+     phase 9's tree, 2 steps: >= 2*64*2 forward/dX and >= 64*2 dW launches
+     of K2-bf16, all on the TMA route, no fp32 K2 launch, K1 once a step,
+     parameters and bank fp32, step 1's losses within ``BF16_LOSS_RTOL`` of
+     phase 20 (b)'s bf16 step 1 without K2; ``HEADLINE_STEPS`` timed train
+     steps of its trainer with K2 and as many with its K2 convs run as cuDNN
+     convs, on fixed device batches (their launches held, their medians
+     printed), and the host time a branch-0
+     conv's forward and backward takes on K2's eager and custom-op routes
+     and on cuDNN (``k2_host_us``); its ``latest`` restored bit for bit, ``--phase val`` over the 4 val
      frames and ``ss_test`` at batch 1, both through K2-bf16; the ``--scope
      ss`` export of it loaded and run in a fresh process on a val frame of
      1024x2048, its logits and labels against the ``Tester``'s
@@ -603,14 +613,47 @@ def check_k2(device) -> dict:
     return {"errs": errs, "rows": rows, "b8": b8}
 
 
+def device_us(fn, calls: int = 20) -> dict[str, float]:
+    """Device time of each kernel that ``fn`` launches, per call, in us, under
+    ``torch.profiler`` (CUDA activity), after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_torch_step import device_intervals
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for name, s, t in device_intervals(prof):
+        out[name] += (t - s) / calls
+    return dict(out)
+
+
+# Phase 21 (a): K2-bf16's cases, (B, C, H, W): the main path's batch 2, a width the
+# TMA route takes in part of its 64-pixel strip, a width only PR 16's kernels take (W
+# % 8 != 0), the recipe's batch 8 and ss_test's branch 0 at 1024x2048.
+K2_BF16_CASES = (("b2", (2, 48, 128, 256)), ("tma_edge", (2, 48, 128, 40)),
+                 ("ragged", (2, 48, 128, 36)), ("b8", (8, 48, 128, 256)),
+                 ("ss", (1, 48, 256, 512)))
+K2_BF16_TIMED = ("b2", "b8", "ss")
+
+
 def check_k2_bf16(device) -> dict:
     """K2's bf16 kernels against their plain versions (``F.conv2d`` and
     ``conv2d_weight`` on the fp32 upcasts, the forward rounded once to bf16)
-    at the main path's branch-0 shape [2, 48, 128, 256], a ragged width of 40
-    and the recipe's batch 8: the forward and dX within 1 bf16 ulp
+    at ``K2_BF16_CASES``: the forward and dX within 1 bf16 ulp
     (``bf16_ulps``), dW (fp32) within rtol 1e-5 and atol 1e-6 of its largest
-    entry (exact products summed in another order).  Timed at batch 2 and 8
-    beside cuDNN's bf16 ``conv2d`` and ``conv2d_weight``."""
+    entry (exact products summed in another order); each case through the
+    route its shape takes (``conv_cuda.tma_route``), which the launch
+    counts show.  At ``K2_BF16_TIMED``: device time per call under
+    ``torch.profiler`` (every kernel of the call: dW's split sum, cuDNN's
+    layout transforms) beside CUDA-event times of back-to-back wrapper
+    calls, for the forward, dX and dW and cuDNN's bf16 ``conv2d`` and
+    ``conv2d_weight``."""
     import torch
 
     from contrastiveseg_tpu_torch.ops import conv_cuda as k2
@@ -620,13 +663,19 @@ def check_k2_bf16(device) -> dict:
     ulps, rows = {"fwd": 0.0, "dx": 0.0}, {}
     g = torch.Generator().manual_seed(3)
     bf = torch.bfloat16
-    for case, (B, C, H, W) in (("b2", (2, 48, 128, 256)), ("ragged", (2, 48, 128, 40)),
-                               ("b8", (8, 48, 128, 256))):
+    for case, (B, C, H, W) in K2_BF16_CASES:
         x = torch.randn(B, C, H, W, generator=g).to(device, bf)
         w = (torch.randn(C, C, 3, 3, generator=g) / (3 * C ** 0.5)).to(device, bf)
         gy = torch.randn(B, C, H, W, generator=g).to(device, bf)
+        k2.reset_launch_counts()
         y, dx, dw = k2.conv3x3_fwd(x, w), k2.conv3x3_fwd(gy, w, True), k2.conv3x3_dw(x, gy)
         torch.cuda.synchronize()
+        sfx = "" if k2.tma_route(x, C, C, gy) else "_ragged"
+        want_counts = {n: 0 for n in k2.KERNELS}
+        want_counts.update({f"conv3x3_fwd_bf16{sfx}": 2, f"conv3x3_dw_bf16{sfx}": 1})
+        if k2.launch_counts() != want_counts:
+            raise AssertionError(f"K2-bf16 {case}: launches {k2.launch_counts()}, expected "
+                                 f"{want_counts}")
         if (y.dtype, dx.dtype, dw.dtype) != (bf, bf, torch.float32):
             raise AssertionError(f"K2-bf16 dtypes {y.dtype} {dx.dtype} {dw.dtype}")
         for what, got, want in (("fwd", y, conv3x3_plain(x, w)),
@@ -641,28 +690,40 @@ def check_k2_bf16(device) -> dict:
         want_dw = conv3x3_dw_plain(x, gy)
         errs["conv3x3_dw_bf16"] = max(errs["conv3x3_dw_bf16"], close(
             f"K2-bf16 {case} dW", dw, want_dw, 1e-5, 1e-6 * float(want_dw.abs().max())))
-        print(f"K2-bf16 {case} {[B, C, H, W]}: forward {ulps['fwd']:.0f} and dX "
-              f"{ulps['dx']:.0f} bf16 ulps at most (bound 1), dW within rtol 1e-5 of the plain "
-              f"versions (max abs err {float((dw - want_dw).abs().max()):.3e} of "
-              f"{float(want_dw.abs().max()):.3e})")
-        if case == "ragged":
+        print(f"K2-bf16 {case} {[B, C, H, W]} ({'TMA' if not sfx else 'ragged'} route): "
+              f"forward {ulps['fwd']:.0f} and dX {ulps['dx']:.0f} bf16 ulps at most (bound 1), "
+              f"dW within rtol 1e-5 of the plain versions (max abs err "
+              f"{float((dw - want_dw).abs().max()):.3e} of {float(want_dw.abs().max()):.3e})")
+        if case not in K2_BF16_TIMED:
             continue
         flops = 2 * 9 * C * C * B * H * W
-        rows[case] = {
-            "conv3x3_fwd_bf16": (
-                time_ms(lambda: k2.conv3x3_fwd(x, w)), time_ms(lambda: conv3x3_plain(x, w)),
-                time_ms(lambda: torch.nn.functional.conv2d(x, w, padding=1)),
-                bound(flops, nbytes(x, w, y), "bf16")),
-            "conv3x3_dw_bf16": (
-                time_ms(lambda: k2.conv3x3_dw(x, gy)),
-                time_ms(lambda: conv3x3_dw_plain(x, gy)),
-                time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1)),
-                bound(flops, nbytes(x, gy, dw), "bf16")),
+        calls = {
+            "conv3x3_fwd_bf16": (lambda: k2.conv3x3_fwd(x, w), lambda: conv3x3_plain(x, w),
+                                 lambda: torch.nn.functional.conv2d(x, w, padding=1),
+                                 nbytes(x, w, y)),
+            "conv3x3_dx_bf16": (lambda: k2.conv3x3_fwd(gy, w, True),
+                                lambda: conv3x3_plain(gy, w, True),
+                                lambda: torch.nn.grad.conv2d_input(x.shape, w, gy, padding=1),
+                                nbytes(gy, w, dx)),
+            "conv3x3_dw_bf16": (lambda: k2.conv3x3_dw(x, gy), lambda: conv3x3_dw_plain(x, gy),
+                                lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1),
+                                nbytes(x, gy, dw)),
         }
-        for name, (ms, plain_ms, lib_ms, (b_ms, by)) in rows[case].items():
-            print(f"K2-bf16 time {[B, C, H, W]} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, cuDNN bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), share of the "
-                  f"bound {b_ms / ms:.3f}")
+        rows[case] = {}
+        for name, (kernel, plain, lib, n_bytes) in calls.items():
+            dev, lib_dev = device_us(kernel), device_us(lib)
+            row = {"ms": sum(dev.values()) / 1e3, "kernels_us": dev,
+                   "ms_events": time_ms(kernel), "plain_ms": time_ms(plain),
+                   "library_ms": sum(lib_dev.values()) / 1e3, "library_kernels_us": lib_dev,
+                   "library_ms_events": time_ms(lib)}
+            row["bound_ms"], row["bound_by"] = bound(flops, n_bytes, "bf16")
+            rows[case][name] = row
+            print(f"K2-bf16 time {[B, C, H, W]} {name}: device {row['ms']:.4f} ms a call "
+                  f"(torch.profiler: {', '.join(f'{k[:60]} {v:.2f} us' for k, v in dev.items())}),"
+                  f" events {row['ms_events']:.4f} ms; plain {row['plain_ms']:.4f} ms; cuDNN bf16 "
+                  f"device {row['library_ms']:.4f} ms ({len(lib_dev)} kernels), events "
+                  f"{row['library_ms_events']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), share of the bound {row['bound_ms'] / row['ms']:.3f}")
     return {"errs": errs, "ulps": ulps, "rows": rows}
 
 
@@ -3153,6 +3214,94 @@ ARTIFACT_REL_L2 = 1e-2
 ARTIFACT_LABELS = 0.999
 
 
+# Phase 21 (b): timed train steps of the bf16 headline with K2 and without it, on one
+# trainer, on fixed device batches (``fixed_batch_steps``).  Through the pipeline the
+# host's data bounds a bf16 step once the prefetched batches are used (earlier runs of
+# this phase: 0.75-1.6 s steps, 0.4-1.1 s of them data wait, with 1 worker or 4).
+HEADLINE_STEPS = 6
+# K2's launch rows that phase 21 (b)'s bf16 net must not reach.
+K2_OTHER_ROUTES = ("conv3x3_fwd", "conv3x3_dw", "conv3x3_fwd_bf16_ragged", "conv3x3_dw_bf16_ragged")
+
+
+def fixed_batch_steps(trainer, batches: list, steps: int) -> tuple[list[float], dict]:
+    """ms of ``steps`` train steps of ``trainer`` on device ``batches`` in
+    turn, each ending in a device sync, after a warm-up step (as
+    ``tools/profile_torch_step.py`` times them: no data wait); and the
+    launches of the timed steps.  Past ``max_iters`` the poly schedule's LR
+    is 0: the steps compute all the same."""
+    import torch
+
+    trainer.train_step(trainer.state, batches[-1])
+    torch.cuda.synchronize()
+    reset_counts()
+    ms = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, read_counts()
+
+
+def k2_host_us(device, calls: int = 10, depth: int = 4) -> dict[str, float]:
+    """Host time of a branch-0 conv's forward and backward at [8, 48, 128, 256]
+    under ``bf16_compute``, us a conv: a chain of ``depth`` convs, forward
+    and one backward, on K2's eager route (``PallasConv3x3``:
+    ``conv_cuda.Conv3x3`` on the fp32 weight), on its custom-op route
+    (``contrastiveseg::conv3x3`` on the cast weight, as an exported net and
+    PR 16's layer call it) and on cuDNN (``nn.Conv2d``); the backward call's
+    own cost is shared by the chain, as a step shares it among its convs.
+    The wall time of ``calls`` chains enqueued with no synchronisation, a few
+    hundred launches, so the device never holds the host back; each route
+    twice, in turns (eager, op, cuDNN, cuDNN, op, eager), averaged.  Both K2
+    routes must launch the same kernels."""
+    import torch
+
+    from contrastiveseg_tpu_torch.models.layers import PallasConv3x3, bf16_compute
+    from contrastiveseg_tpu_torch.ops import conv_cuda
+
+    g = torch.Generator().manual_seed(5)
+    k2 = [PallasConv3x3(48, 48, 3, padding=1, bias=False).to(device) for _ in range(depth)]
+    ref = [torch.nn.Conv2d(48, 48, 3, padding=1, bias=False).to(device) for _ in range(depth)]
+    x = torch.randn(8, 48, 128, 256, generator=g).to(device, torch.bfloat16).requires_grad_(True)
+    gy = torch.randn(8, 48, 128, 256, generator=g).to(device, torch.bfloat16)
+
+    def op(layer):
+        return lambda a: conv_cuda.conv3x3_op(a, layer.weight.to(a.dtype), False)
+
+    routes = {"k2_eager": k2, "k2_custom_op": [op(m) for m in k2], "cudnn": ref}
+
+    def step(chain):
+        x.grad = None
+        for m in k2 + ref:
+            m.weight.grad = None
+        with bf16_compute(True, x):
+            y = x
+            for conv in chain:
+                y = conv(y)
+        y.backward(gy)
+
+    launched = {}
+    for name in ("k2_eager", "k2_custom_op"):
+        reset_counts()
+        step(routes[name])
+        torch.cuda.synchronize()
+        launched[name] = read_counts()
+    if launched["k2_eager"] != launched["k2_custom_op"]:
+        raise AssertionError(f"K2's eager and custom-op routes launched {launched}")
+    out = collections.defaultdict(float)
+    for name in ("k2_eager", "k2_custom_op", "cudnn", "cudnn", "k2_custom_op", "k2_eager"):
+        for _ in range(2):
+            step(routes[name])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step(routes[name])
+        out[name] += (time.perf_counter() - t0) / (calls * depth) * 1e6 / 2
+        torch.cuda.synchronize()
+    return dict(out)
+
+
 def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
                    fp32_peaks: dict) -> dict:
     """Phase 21 (b) and (c): (b) ``cityscapes_hrnet_w48_mem`` with
@@ -3160,7 +3309,11 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
     tree, 2 steps: K2's bf16 kernels launched (the forward and dX twice a
     branch-0 conv a step, dW once), no fp32 K2, K1 once a step, parameters
     and bank fp32, step 1's losses beside phase 20 (b)'s (``bf16_run``:
-    bf16 without K2) within ``BF16_LOSS_RTOL``; its ``latest`` restored,
+    bf16 without K2) within ``BF16_LOSS_RTOL``; then ``HEADLINE_STEPS``
+    timed steps of its trainer with K2 and as many with the K2 convs run as
+    cuDNN convs, on fixed device batches (``fixed_batch_steps``), their
+    medians, and the host time a conv takes on each route
+    (``k2_host_us``); its ``latest`` restored,
     ``--phase val`` and ``ss_test`` (K2-bf16 launched); ``--scope ss`` export
     of it, loaded and run in a fresh process on a val frame, against the
     ``Tester``'s logits and labels (``ARTIFACT_REL_L2``, ``ARTIFACT_LABELS``)
@@ -3176,13 +3329,17 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
     import torch
 
     from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.prefetch import device_batches
     from contrastiveseg_tpu_torch.engine.tester import Tester
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.models import layers
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from contrastiveseg_tpu_torch.ops import conv_cuda
     from tools.export_torch import export_artifact
     from tools.train_torch import run
 
     t_phase = time.perf_counter()
+    pallas_forward = layers.PallasConv3x3.forward
 
     def say(msg: str) -> None:
         print(f"[bf16 phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
@@ -3211,10 +3368,10 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
     want = {"conv3x3_fwd_bf16": 2 * 64 * 2, "conv3x3_dw_bf16": 64 * 2,
             **{n: 2 for n in k1.KERNELS}}
     short = {n: (launches[n], v) for n, v in want.items() if launches[n] < v}
-    if short or launches["conv3x3_fwd"] or launches["conv3x3_dw"] or any(
+    if short or any(launches[n] for n in K2_OTHER_ROUTES) or any(
             launches[n] != 2 for n in k1.KERNELS):
-        raise AssertionError(f"(b): launches {launches}; K2-bf16 at least {want}, fp32 K2 none, "
-                             "K1 once a step")
+        raise AssertionError(f"(b): launches {launches}; K2-bf16 on the TMA route at least "
+                             f"{want}, fp32 K2 and the ragged route none, K1 once a step")
     if not fp32_state(trainer.state.model, trainer.state.bank.storage):
         raise AssertionError("(b): the parameters and the bank must stay fp32 under bf16")
     ref = bf16_run["history"][0]
@@ -3228,8 +3385,8 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
         f"(bf16 without K2, phase 20 (b): steps "
         f"{[round(r['seconds'] * 1e3, 1) for r in bf16_run['history']]} ms, peak "
         f"{bf16_run['peak'] / 2**30:.3f} GiB); K2-bf16 launches forward/dX "
-        f"{launches['conv3x3_fwd_bf16']}, dW {launches['conv3x3_dw_bf16']}, fp32 K2 0, K1 "
-        f"{launches['infonce_pass1']} each; step 1 against bf16 without K2: "
+        f"{launches['conv3x3_fwd_bf16']}, dW {launches['conv3x3_dw_bf16']}, fp32 K2 and the "
+        f"ragged route 0, K1 {launches['infonce_pass1']} each; step 1 against bf16 without K2: "
         + ", ".join(f"{k} {history[0][k]:.6f} vs {ref[k]:.6f} ({rel[k]:.2e})" for k in rel)
         + f" (bound {BF16_LOSS_RTOL}); parameters and bank fp32")
     res = {"history": history, "peak": peak, "launches": launches, "step1_rel": rel}
@@ -3241,7 +3398,6 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
         total.update(res[phase]["launches"])
     latest = trainer.ckpt._path("latest")
     model = trainer.state.model.eval()
-    release(trainer)
     tc = (cfg.updated("test.test_dir", str(data_dir / "val" / "image"))
           .updated("test.batch_size", 1).updated("test.mode", "ss_test"))
     frame = next(build_pipeline(tc, "test").epoch_iter(0))["image"]
@@ -3289,10 +3445,42 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
         f"labels equal on {same:.6f} of the pixels (bound {ARTIFACT_LABELS})")
     res.update({"export_s": export_s, "load_s": load_s, "artifact_bytes": size,
                 "artifact_rel_l2": rel, "artifact_labels": same})
+    del live
+
+    # (b) Its train steps with K2 and without (its 64 K2 convs run as the nn.Conv2d they
+    # subclass: cuDNN under autocast, what a net without network.pallas_conv runs), on
+    # fixed device batches (no data wait), and the host time a conv takes on each route.
+    model.train()
+    pipe = device_batches(build_pipeline(cfg, "train").iter_from(0), device)
+    batches = [next(pipe) for _ in range(2)]
+    pipe.close()
+    timed = {}
+    for name in ("plain", "k2"):
+        if name == "plain":
+            layers.PallasConv3x3.forward = torch.nn.Conv2d.forward
+        try:
+            ms, counts = fixed_batch_steps(trainer, batches, HEADLINE_STEPS)
+        finally:
+            layers.PallasConv3x3.forward = pallas_forward
+        total.update(counts)
+        per_step = {"conv3x3_fwd_bf16": 2 * 64, "conv3x3_dw_bf16": 64} if name == "k2" else {}
+        if (any(counts[n] != per_step.get(n, 0) * HEADLINE_STEPS for n in conv_cuda.KERNELS)
+                or any(counts[n] != HEADLINE_STEPS for n in k1.KERNELS)):
+            raise AssertionError(f"(b) timed steps {name}: launches {counts}")
+        timed[name] = ms
     results["headline"] = res
-    del model, live
-    release()
+    del model, batches
+    release(trainer)
     shutil.rmtree(root / "headline", ignore_errors=True)
+    medians = {k: statistics.median(v) for k, v in timed.items()}
+    host = k2_host_us(device)
+    say(f"(b) the headline's train step in bf16 at batch 8 on two fixed device batches, "
+        f"{HEADLINE_STEPS} steps after a warm-up: with K2 {[round(t, 1) for t in timed['k2']]} "
+        f"ms (median {medians['k2']:.1f}; 128 forward/dX and 64 dW launches of K2-bf16 a step, "
+        f"K1 once), without K2 (cuDNN) {[round(t, 1) for t in timed['plain']]} ms (median "
+        f"{medians['plain']:.1f}): {medians['k2'] / medians['plain']:.3f}x; host us a branch-0 "
+        "conv's forward and backward: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    res.update({"timed_ms": timed, "medians_ms": medians, "host_us": host})
 
     # (c) One bf16 step of a preset of each family, at batch 2.
     for family, preset, extra, tree in BF16_NETS:
@@ -3752,7 +3940,10 @@ def main() -> None:
               for n in ("base_ocnet", "pyramid_ocnet")) + " (same call)")
     hb = bp["headline"]
     print(f"bf16 phase: the headline at batch 8 in bf16 with K2: steps "
-          f"{[round(r['seconds'] * 1e3, 1) for r in hb['history']]} ms, peak "
+          f"{[round(r['seconds'] * 1e3, 1) for r in hb['history']]} ms (on fixed device "
+          f"batches: median {hb['medians_ms']['k2']:.1f} ms with K2, "
+          f"{hb['medians_ms']['plain']:.1f} without; host us a conv's forward and backward "
+          f"{json.dumps({k: round(v, 1) for k, v in hb['host_us'].items()})}), peak "
           f"{hb['peak'] / 2**30:.3f} GiB, val {hb['val']['images_per_sec']:.3f} images/s, "
           f"ss_test {hb['ss_test']['seconds_an_image']:.3f} s an image, export "
           f"{hb['export_s']:.1f} s; " + "; ".join(
@@ -3794,22 +3985,32 @@ def main() -> None:
         row.update({"ms_b8": ms, "library_ms_b8": lib_ms, "bound_ms_b8": b_ms,
                     "bound_by_b8": by})
     for name in ("conv3x3_fwd_bf16", "conv3x3_dw_bf16"):
-        ms, plain_ms, lib_ms, (b_ms, by) = k2b["rows"]["b8"][name]
-        ms2, plain2, lib2, (b2, by2) = k2b["rows"]["b2"][name]
-        rows.append({
+        b8 = k2b["rows"]["b8"][name]
+        row = {
             "name": name, "route": "cuda",
             "source": "contrastiveseg_tpu_torch/csrc/conv3x3.cu",
             "replaces": conv_cuda.KERNELS[name][2],
             "launches": bp["headline"]["launches"][name],
-            "max_abs_err": k2b["errs"][name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
-            "shape": "x [8,48,128,256] bf16, w [48,48,3,3] bf16 (phase 21 (b)'s branch 0)",
+            "max_abs_err": k2b["errs"][name], "ms": b8["ms"], "plain_ms": b8["plain_ms"],
+            "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
+            "library_ms": b8["library_ms"], "ms_events": b8["ms_events"],
+            "library_ms_events": b8["library_ms_events"],
+            "shape": "x [8,48,128,256] bf16, w [48,48,3,3] bf16 (phase 21 (b)'s branch 0); ms and "
+                     "library_ms: device time a call (torch.profiler), every kernel of the call",
             "max_bf16_ulps": max(k2b["ulps"].values()) if "fwd" in name else None,
-            "ms_b2": ms2, "plain_ms_b2": plain2, "library_ms_b2": lib2, "bound_ms_b2": b2,
-            "bound_by_b2": by2,
             "launches_val": bp["headline"]["val"]["launches"][name],
             "launches_ss_test": bp["headline"]["ss_test"]["launches"][name],
-        })
+            "launches_ragged_route": bp["headline"]["launches"][name + "_ragged"],
+        }
+        extra = [("b2", name), ("ss", name)]
+        if "fwd" in name:  # dX: the same kernel with flip
+            extra += [(c, "conv3x3_dx_bf16") for c in ("b8", "b2", "ss")]
+        for case, n in extra:
+            r = k2b["rows"][case][n]
+            tag = case + ("_dx" if "dx" in n else "")
+            row.update({f"{k}_{tag}": r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "ms_events")})
+        rows.append(row)
     _, _, replaces = block_cuda.KERNELS["fused_block"]
     b16, f32 = blk["bf16"], blk["fp32"]
     B, H, W, C = b16["shape"]

@@ -55,34 +55,33 @@
 //     dw_sum_splits adds the partials in split order: dW is deterministic, with no float
 //     atomics.
 //
-// bf16 (conv3x3_fwd_bf16, conv3x3_dw_bf16): the JAX package's arithmetic when a net
-// computes in bf16 (conv_pallas.py:91-134, :179-208: bf16 operands and patch scratch,
-// fp32 accumulation, the forward and dX written in bf16; dW in fp32, which the VJP rounds
-// to the weights' bf16, :253).  Products of bf16 values are exact, so mma.sync m16n8k16
-// bf16 (fp32 accumulation) takes them with no split.  Bound at [8, 48, 128, 256]: 10.87
-// GFLOP (11.0 us at 989 TFLOP/s) against 50.3 MB of bf16 x and y (15.0 us at 3.35 TB/s):
-// the bytes.
-//   * the forward and dX are K2a's tile on conv_tile.cuh's Bf16 route, as K3 runs it: an
+// bf16: the JAX package's arithmetic when a net computes in bf16 (conv_pallas.py:91-134,
+// :179-208: bf16 operands and patch scratch, fp32 accumulation, the forward and dX written
+// in bf16; dW in fp32, which the VJP rounds to the weights' bf16, :253).  Products of bf16
+// values are exact, so the tensor cores take them with no split.  Bound at [8, 48, 128,
+// 256]: 10.87 GFLOP (11.0 us at 989 TFLOP/s) against 50.3 MB of bf16 x and y (15.0 us at
+// 3.35 TB/s): the bytes.  Two routes:
+//   * conv3x3_fwd_bf16_tma / conv3x3_dw_bf16_tma, every shape with W % 8 == 0, C and Co
+//     <= 64 and 16-byte aligned tensors (HRNet's branch 0): persistent blocks fed by TMA
+//     through an mbarrier ring of x rows, the products on wgmma (m64nNk16, fp32
+//     accumulators in registers), warp-specialised (a producer warp, shifter warps,
+//     consumer warpgroups).  Design notes at "bf16 on TMA and wgmma" below: how the
+//     three tap offsets of a row are built (TMA copies start only on 16-byte
+//     boundaries), the forward's weights loaded once a block, dW's taps split over three
+//     warpgroups with the tensor cores' sums flushed into fp32 every 64 pixels;
+//   * conv3x3_fwd_bf16 / conv3x3_dw_bf16 (PR 16), the other shapes (the ragged widths):
+//     the forward and dX are K2a's tile on conv_tile.cuh's Bf16 route, as K3 runs it: an
 //     A word holds channels 2t and 2t + 1 of one pixel, which NCHW does not give, so x
-//     sits in shared memory as [channel pair][row][column] bf16x2 words, and a chunk is
-//     16 channels (8 pair rows).  The loader fetches each chunk's x pairs (4-byte loads of
-//     pixel pairs where W is even) and its weights into registers, packs them, and stores
-//     them into the other of two stages after the current chunk's products (the
-//     register-staged ring of K3).  The weights are packed into the default layout
-//     (column n, pair k, tap t at n BS + 9 k + t), so flip (dX) is only the index of the
-//     load, and one Op serves both.  Halos and ragged tiles are masked as in fp32;
-//   * dW contracts over pixels, and m16n8k16 wants pixel pairs as bf16x2 on both sides: g
-//     (A: output channel x pixel pair) and x at each tap's offset (B: pixel pair x input
-//     channel).  Both are rows of NCHW, so their tiles are plain bf16 rows, copied by
-//     cp.async as they lie in memory (16 bytes = 8 pixels where W % 8 == 0): an A word
-//     and a B word at tap dx = 0 are one aligned 32-bit read.  At dx = +-1 the pair
-//     straddles a word boundary; it is built from the two aligned words around it with
-//     one byte_perm, rather than from two 16-bit reads (twice the shared-memory
-//     instructions, and a shift and an or) or from a second copy of each row staged at
-//     the other parity (twice the x tile and a second load for every row; cp.async cannot
-//     write a 2-byte shift).  The rest is the fp32 kernel's: split-K over row segments
-//     through the same x-row ring, the per-segment flush of the MMA accumulator into
-//     fp32 totals, fp32 partials and dw_sum_splits in split order (deterministic).
+//     sits in shared memory as [channel pair][row][column] bf16x2 words, a chunk 16
+//     channels (8 pair rows), loaded through registers into two stages; the weights are
+//     packed into the default layout (column n, pair k, tap t at n BS + 9 k + t), so
+//     flip (dX) is only the index of the load.  dW contracts over pixels with m16n8k16
+//     on pixel pairs of g (A) and of x at each tap's offset (B), plain bf16 rows copied
+//     by cp.async as they lie in memory; at dx = +-1 a pair straddles a word and is one
+//     byte_perm of the two aligned words around it.  The rest is the fp32 kernel's:
+//     split-K over row segments through the same x-row ring, the per-segment flush of
+//     the MMA accumulator into fp32 totals, fp32 partials and dw_sum_splits in split
+//     order (deterministic).
 //
 // Plain C interface (loaded with ctypes).  conv3x3_init() raises the kernels' dynamic
 // shared-memory limits once per device, before the first launch.  Each entry point
@@ -96,6 +95,7 @@
 #include <type_traits>
 
 #include "conv_tile.cuh"
+#include "hopper.cuh"
 #include "tc_common.cuh"
 
 namespace {
@@ -818,6 +818,440 @@ conv3x3_dw_bf16_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   }
 }
 
+// ---- bf16 on TMA and wgmma: the route of every shape with W % 8 == 0, C <= 64, Co <= 64
+// and 16-byte aligned tensors (HRNet's branch 0 among them) ----
+//
+// A "tile" is one row segment of TB_W = 64 pixels of up to 64 channels (of x, g or y) in
+// the layout of a TMA copy with the 128-byte swizzle: a 128-byte row per channel
+// (hopper.cuh, SW128).  Both kernels are persistent (at most one block an SM) and walk
+// down image columns: the row segments u = (b * nwc + wc) * H + h in order, block s
+// taking [s ups, (s + 1) ups).  x rows arrive in a ring of row slots.  A slot holds one x
+// row at the three column offsets of the taps, w0 - 1, w0 and w0 + 1, as three tiles, so
+// that every tap's operand starts on a 16-byte boundary, as wgmma's descriptors need.
+// TMA cannot write them: a copy's innermost coordinate must be a multiple of 16 bytes (8
+// pixels; the card refuses an odd one as an illegal instruction).  So the producer warp
+// copies the row at w0 (the middle tile) and 8 pixels on each side (halo boxes at w0 - 8
+// and w0 + 64, unswizzled), and shifter warps build the two outer tiles from them in
+// shared memory, a 2-byte funnel shift of each 128-byte channel row.  The image's halo
+// (left, right, above, below) and the channel tail past C are TMA's zero fill (a 4-D map,
+// so the tail does not read the next image).  A segment loads one new x row (three at a
+// column's start): x is read once from device memory, and once more for each column a
+// block starts.
+constexpr int TB_W = 64;             // pixels of a row segment: wgmma's M, one 128-byte row
+constexpr int TB_ROW = 2 * TB_W;     // bytes of a tile's channel row
+constexpr int TB_HALO = 8;           // pixels of a halo box (16 bytes, TMA's least)
+constexpr int TB_SMEM = 232448;      // dynamic shared memory a block may take
+constexpr int TB_MAX_SLOTS = 8;      // x row slots, at most
+constexpr int TF_SHIFTERS = 3;       // forward: shifter warps
+constexpr int TF_THREADS = 288 + 32 * TF_SHIFTERS;  // two consumer warpgroups, producer, shifters
+constexpr int TD_SHIFTERS = 2;       // dW: shifter warps
+constexpr int TD_THREADS = 416 + 32 * TD_SHIFTERS;  // three consumer warpgroups, producer, shifters
+constexpr int TD_G_STAGES = 4;       // dW: g tiles in flight
+constexpr int TD_G_TILE = 64 * TB_ROW;  // dW: a g tile, 64 output channels (wgmma's M)
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A row slot of cp channels: the tiles at kx = 0, 1, 2, then the left and right halo
+// boxes ([cp][8 pixels] each); 1024-byte aligned, as the swizzle needs.
+__host__ __device__ constexpr int slot_bytes(int cp) {
+  return cdiv(3 * cp * TB_ROW + 2 * cp * 2 * TB_HALO, 1024) * 1024;
+}
+
+// The ring of x rows shared by both kernels: load event v (the v-th x row a block loads,
+// in segment order) goes to slot v % nslot; segment u reads the events vbase(u) ..
+// vbase(u) + 2 (its rows h - 1, h, h + 1).  Each slot has three barriers: full (the TMA
+// copies have landed), ready (the shifter has built the outer tiles) and empty (every
+// consumer warp is done with the row).
+struct RowRing {
+  int u0, u1, H, nslot;
+  uint64_t *full, *ready, *empty;
+  __device__ int vbase(int u) const { return u - u0 + 2 * (u / H - u0 / H); }
+  __device__ int events() const { return u1 > u0 ? vbase(u1 - 1) + 3 : 0; }
+  __device__ int slot(int v) const { return v % nslot; }
+  __device__ unsigned round(int v) const { return (unsigned)(v / nslot) & 1u; }
+};
+
+// The producer's copies of the x rows segment u adds (rows h - 1 .. h + 1 at a column's
+// first segment, else h + 1): the middle tile and the two halo boxes of each, into a slot
+// that every consumer warp has released.  K2_NO_LOADS arrives without copying.
+__device__ __forceinline__ void load_x_rows(const RowRing& ring, int u, int& v,
+                                            const CUtensorMap* xmap, const CUtensorMap* hmap,
+                                            uint8_t* xs, int cp, int nwc) {
+  const int col = u / ring.H, h = u - col * ring.H, b = col / nwc, w0 = (col - b * nwc) * TB_W;
+  const int tile = cp * TB_ROW, box = cp * 2 * TB_HALO;
+  for (int r = (u == ring.u0 || h == 0) ? h - 1 : h + 1; r <= h + 1; ++r, ++v) {
+    const int s = ring.slot(v);
+    if (v >= ring.nslot) hopper::mbar_wait(&ring.empty[s], ring.round(v) ^ 1u);
+#ifdef K2_NO_LOADS
+    hopper::mbar_arrive(&ring.full[s]);
+#else
+    uint8_t* dst = xs + s * slot_bytes(cp);
+    hopper::mbar_arrive_expect_tx(&ring.full[s], tile + 2 * box);
+    hopper::tma_load_4d(dst + tile, xmap, &ring.full[s], w0, r, 0, b);
+    hopper::tma_load_4d(dst + 3 * tile, hmap, &ring.full[s], w0 - TB_HALO, r, 0, b);
+    hopper::tma_load_4d(dst + 3 * tile + box, hmap, &ring.full[s], w0 + TB_W, r, 0, b);
+#endif
+  }
+}
+
+// The shifter warps (SHIFTERS of them, lane sid of 32 SHIFTERS): for each load event, once
+// it has landed, the tiles at kx = 0 (pixel p of the row is x at w0 - 1 + p) and kx = 2
+// (w0 + 1 + p) from the middle tile (w0 + p) and the halos, a 16-byte chunk (8 pixels) of
+// a channel row a job: with the row's 32 words w (pixels 2i, 2i + 1 in word i, the lower in
+// the low half), out[i] = w[i] << 16 | w[i - 1] >> 16 and w[i] >> 16 | w[i + 1] << 16, the
+// halos giving w[-1] and w[32].  Then a fence for wgmma's reads and an arrival on ready
+// (one a lane).  K2_NO_SHIFT skips the copies (a diagnostic build).
+template <int SHIFTERS>
+__device__ __forceinline__ void shift_rows(const RowRing& ring, uint8_t* xs, int cp, int sid) {
+  const int tile = cp * TB_ROW, box = cp * 2 * TB_HALO, nv = ring.events();
+  for (int v = 0; v < nv; ++v) {
+    const int s = ring.slot(v);
+    hopper::mbar_wait(&ring.full[s], ring.round(v));
+    uint8_t* base = xs + s * slot_bytes(cp);
+#ifndef K2_NO_SHIFT
+    for (int t = sid; t < 8 * cp; t += 32 * SHIFTERS) {
+      const int k = t >> 3, j = t & 7, sw = k & 7;
+      const uint8_t* row = base + tile + k * TB_ROW;
+      const uint4 c = *reinterpret_cast<const uint4*>(row + ((j ^ sw) << 4));
+      const unsigned prev =
+          j == 0 ? *reinterpret_cast<const unsigned*>(base + 3 * tile + k * 16 + 12)
+                 : *reinterpret_cast<const unsigned*>(row + (((j - 1) ^ sw) << 4) + 12);
+      const unsigned next =
+          j == 7 ? *reinterpret_cast<const unsigned short*>(base + 3 * tile + box + k * 16)
+                 : *reinterpret_cast<const unsigned*>(row + (((j + 1) ^ sw) << 4));
+      *reinterpret_cast<uint4*>(base + k * TB_ROW + ((j ^ sw) << 4)) =
+          make_uint4(c.x << 16 | prev >> 16, c.y << 16 | c.x >> 16, c.z << 16 | c.y >> 16,
+                     c.w << 16 | c.z >> 16);
+      *reinterpret_cast<uint4*>(base + 2 * tile + k * TB_ROW + ((j ^ sw) << 4)) =
+          make_uint4(c.x >> 16 | c.y << 16, c.y >> 16 | c.z << 16, c.z >> 16 | c.w << 16,
+                     c.w >> 16 | next << 16);
+    }
+#endif
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(&ring.ready[s]);
+  }
+}
+
+// Releases, for one consumer warp, every load event before `until` that it has not
+// released yet.  An event is released only once it is ready: its slot's empty barrier
+// then counts the arrivals of that event's round, never the next one's.
+__device__ __forceinline__ void release_rows(const RowRing& ring, int& rel, int until) {
+  for (; rel < until; ++rel) {
+    hopper::mbar_wait(&ring.ready[ring.slot(rel)], ring.round(rel));
+    hopper::mbar_arrive(&ring.empty[ring.slot(rel)]);
+  }
+}
+
+// Initialises the ring's barriers (one thread): `consumer_warps` arrivals empty a slot,
+// `shifter_warps` warps' lanes make it ready.
+__device__ __forceinline__ void init_ring(const RowRing& ring, int consumer_warps,
+                                          int shifter_warps) {
+  for (int s = 0; s < ring.nslot; ++s) {
+    hopper::mbar_init(&ring.full[s], 1);
+    hopper::mbar_init(&ring.ready[s], 32 * shifter_warps);
+    hopper::mbar_init(&ring.empty[s], consumer_warps);
+  }
+}
+
+// K2a-bf16's shared memory, in bytes from a 1024-aligned base: nslot x row slots, two
+// output tiles of n channel rows (one a consumer warpgroup), the weights (9 taps x cp x n
+// bf16), the barriers of the slots.
+struct FwdSmem {
+  int stage, w, bars, total;
+};
+__host__ __device__ constexpr FwdSmem fwd_smem(int cp, int n, int nslot) {
+  return {nslot * slot_bytes(cp), nslot * slot_bytes(cp) + 2 * n * TB_ROW,
+          nslot * slot_bytes(cp) + 2 * n * TB_ROW + 9 * cp * n * 2,
+          nslot * slot_bytes(cp) + 2 * n * TB_ROW + 9 * cp * n * 2 + 24 * nslot + 1024};
+}
+
+// The weight of tap t, input channel ci, output channel co of the forward (w [Co][C][9]),
+// or with flip of dX (w [C][Co][9] read at tap 8 - t), at source index i: the loop runs in
+// source order, so the reads are coalesced either way.
+__device__ __forceinline__ void weight_at(int i, int C, int Co, int flip, int& t, int& ci,
+                                          int& co) {
+  if (flip) {
+    ci = i / (9 * Co);
+    co = i / 9 % Co;
+    t = 8 - i % 9;
+  } else {
+    co = i / (9 * C);
+    ci = i / 9 % C;
+    t = i % 9;
+  }
+}
+
+// K2a-bf16 on wgmma: y[p, co] = sum over taps and input channels of x[p + tap][ci]
+// w[tap][ci][co] for a row segment of 64 pixels (wgmma's M) by N output channels (Co
+// rounded up to 24, 48 or 64).  A is the x tile of the tap's column offset, read
+// MN-major (pixels contiguous); B the block's weights, loaded once (fp32 weights are
+// rounded to bf16 here, as w.to(bf16) rounds them) into K-major core matrices
+// (INTERLEAVE: 8 output channels x 8 input channels a core matrix, 16 input channels a
+// wgmma).  9 cp / 16 wgmma m64nNk16 accumulate a segment in fp32, rounded once to bf16
+// into an output tile that one TMA store writes (its rows past Co and its columns past W
+// are not written).  Two consumer warpgroups take alternate segments, so that one's
+// epilogue overlaps the other's products; the producer and shifter warps keep the ring
+// full.  Each output is one warpgroup's sum in one order: deterministic.
+template <int N>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+conv3x3_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap hmap,
+                       const __grid_constant__ CUtensorMap ymap, const void* __restrict__ w,
+                       int w_fp32, int flip, int C, int Co, int H, int nwc, int n_units, int ups,
+                       int nslot) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const int cp = cdiv(C, 16) * 16, nk = cp / 16, tile = cp * TB_ROW, slot = slot_bytes(cp);
+  const FwdSmem L = fwd_smem(cp, N, nslot);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const int tid = threadIdx.x, blk = blockIdx.x;
+  const RowRing ring{blk * ups, min(n_units, (blk + 1) * ups), H, nslot,
+                     bars, bars + nslot, bars + 2 * nslot};
+  if (ring.u0 >= ring.u1) return;
+  if (tid == 0) {
+    init_ring(ring, 8, TF_SHIFTERS);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= 256) {  // warp 8 copies, the warps after it shift
+    if (tid == 256) {
+      int v = 0;
+      for (int u = ring.u0; u < ring.u1; ++u) load_x_rows(ring, u, v, &xmap, &hmap, smem, cp, nwc);
+    } else if (tid >= 288) {
+      shift_rows<TF_SHIFTERS>(ring, smem, cp, tid - 288);
+    }
+    return;
+  }
+  // The consumers load the weights while the first rows arrive: zeros past C and Co, then
+  // each weight at (co / 8) 256 + (ci % 16 / 8) 128 + (co % 8) 16 + (ci % 8) 2 bytes of the
+  // N x 16 block of its tap and 16 input channels.
+  uint8_t* ws = smem + L.w;
+  for (int i = tid; i < 9 * cp * N / 8; i += 256) reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
+  hopper::named_bar_sync(3, 256);
+  constexpr int WB = 16;  // weights a thread has in flight: the loads do not wait on each other
+  for (int i0 = tid; i0 < 9 * C * Co; i0 += WB * 256) {
+    __nv_bfloat16 v[WB];
+#pragma unroll
+    for (int e = 0; e < WB; ++e) {
+      const int i = min(i0 + e * 256, 9 * C * Co - 1);
+      v[e] = w_fp32 ? __float2bfloat16_rn(static_cast<const float*>(w)[i])
+                    : static_cast<const __nv_bfloat16*>(w)[i];
+    }
+#pragma unroll
+    for (int e = 0; e < WB; ++e) {
+      const int i = i0 + e * 256;
+      if (i >= 9 * C * Co) break;
+      int t, ci, co;
+      weight_at(i, C, Co, flip, t, ci, co);
+      *reinterpret_cast<__nv_bfloat16*>(ws + (t * nk + ci / 16) * N * 32 + (co >> 3) * 256 +
+                                        (ci >> 3 & 1) * 128 + (co & 7) * 16 + (ci & 7) * 2) = v[e];
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_bar_sync(3, 256);
+
+  // The warpgroup, warp-uniform for the compiler (a lane's shuffle): its loop over segments
+  // then holds no divergent wgmma.
+  const int k = __shfl_sync(0xffffffffu, tid >> 7, 0), ltid = tid & 127, warp = ltid >> 5,
+            lane = tid & 31;
+  uint8_t* out = smem + L.stage + k * N * TB_ROW;
+  float acc[N / 2];
+  int rel = 0;
+  for (int u = ring.u0 + k; u < ring.u1; u += 2) {
+    const int vb = ring.vbase(u);
+    for (int ky = 0; ky < 3; ++ky)
+      hopper::mbar_wait(&ring.ready[ring.slot(vb + ky)], ring.round(vb + ky));
+    hopper::fence_operand(acc);
+    hopper::wgmma_fence();
+    for (int ky = 0; ky < 3; ++ky) {
+      const uint8_t* xr = smem + ring.slot(vb + ky) * slot;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+        for (int kc = 0; kc < nk; ++kc) {
+          const uint64_t a = hopper::gmma_desc(xr + kx * tile + kc * 16 * TB_ROW, 16, 1024,
+                                               hopper::LAYOUT_SW128);
+          const uint64_t b = hopper::gmma_desc(ws + ((ky * 3 + kx) * nk + kc) * N * 32, 128,
+                                               256, hopper::LAYOUT_INTERLEAVE);
+          if (K2_PRODUCTS) hopper::Wgmma<N, 1>::mma(acc, a, b, ky | kx | kc);
+        }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(acc);
+    if (lane == 0) release_rows(ring, rel, u + 2 < ring.u1 ? ring.vbase(u + 2) : ring.events());
+    __syncwarp();
+    // The epilogue: fp32 sums rounded once to bf16 into the output tile (row co, the
+    // 16-byte chunk of pixel p at (p / 8) ^ (co % 8): the 128-byte swizzle of the TMA
+    // store), then one TMA store of the tile.
+    const int col = u / H, h = u - col * H, b = col / nwc, w0 = (col - b * nwc) * TB_W;
+    if (ltid == 0) hopper::bulk_wait_read();  // the previous store has read the tile
+    hopper::named_bar_sync(1 + k, 128);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = 16 * warp + (lane >> 2) + 8 * (q >> 1), co = 8 * j + 2 * (lane & 3) + (q & 1);
+        *reinterpret_cast<__nv_bfloat16*>(out + co * TB_ROW + (((p >> 3) ^ (co & 7)) << 4) +
+                                          (p & 7) * 2) = __float2bfloat16_rn(acc[4 * j + q]);
+      }
+    hopper::fence_proxy_async();
+    hopper::named_bar_sync(1 + k, 128);
+    if (ltid == 0) {
+      hopper::tma_store_4d(&ymap, out, w0, h, 0, b);
+      hopper::bulk_commit();
+    }
+  }
+  if (lane == 0) release_rows(ring, rel, ring.events());
+  if (ltid == 0) hopper::bulk_wait();
+}
+
+// K2b-bf16's shared memory, in bytes from a 1024-aligned base: nslot x row slots, the g
+// tiles, the barriers (the slots', then g full and empty).
+struct DwSmem {
+  int g, bars, total;
+};
+__host__ __device__ constexpr DwSmem dw_smem(int cp, int nslot) {
+  return {nslot * slot_bytes(cp), nslot * slot_bytes(cp) + TD_G_STAGES * TD_G_TILE,
+          nslot * slot_bytes(cp) + TD_G_STAGES * TD_G_TILE + 24 * nslot + 16 * TD_G_STAGES +
+              1024};
+}
+
+// K2b-bf16 on wgmma: dW[co][ci][ky][kx] = sum over pixels p of g[co][p] x[ci][p + (ky - 1,
+// kx - 1)].  A is the g tile (64 output channels, wgmma's M; rows past Co are TMA's zero
+// fill), B the x tile of column offset kx (N = CP input channels: C rounded up to 32, 48
+// or 64, the rows past C TMA's zero fill), both K-major (pixels contiguous), 16 pixels a
+// wgmma.  Consumer warpgroup ky takes the x row h + ky - 1 of segment h: every warpgroup
+// reads the same g tile, and each x row serves three segments, one a warpgroup, so x and
+// g are each read once per block column.  A segment is 3 x 4 wgmma m64nCPk16 in three
+// groups (kx), each summed from zero in the tensor core and then added to fp32 totals in
+// registers: the tensor core's accumulation runs over 64 pixels only (run over a whole
+// split it drifts from fp32 sums; conv3x3_dw_tc's note).  While a warpgroup adds a group,
+// the other two keep the tensor cores busy.  The block writes its partial [9][Co][C] of
+// split s; dw_sum_taps adds the partials in a fixed order (deterministic, no float
+// atomics).
+template <int CP>
+__global__ void __launch_bounds__(TD_THREADS, 1)
+conv3x3_dw_bf16_wgmma(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap hmap,
+                      const __grid_constant__ CUtensorMap gmap, float* __restrict__ part, int C,
+                      int Co, int H, int nwc, int n_units, int ups, int nslot) {
+  constexpr int R = CP / 2, tile = CP * TB_ROW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const DwSmem L = dw_smem(CP, nslot);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* gfull = bars + 3 * nslot;
+  uint64_t* gempty = gfull + TD_G_STAGES;
+  const int tid = threadIdx.x, s = blockIdx.x;
+  const RowRing ring{s * ups, min(n_units, (s + 1) * ups), H, nslot,
+                     bars, bars + nslot, bars + 2 * nslot};
+  if (tid == 0) {
+    init_ring(ring, 12, TD_SHIFTERS);
+    for (int i = 0; i < TD_G_STAGES; ++i) {
+      hopper::mbar_init(&gfull[i], 1);
+      hopper::mbar_init(&gempty[i], 12);  // one arrival a consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 384) {  // warp 12 copies, the warps after it shift
+    if (tid == 384) {
+      int v = 0;
+      for (int u = ring.u0; u < ring.u1; ++u) {
+        load_x_rows(ring, u, v, &xmap, &hmap, smem, CP, nwc);
+        const int i = u - ring.u0, st = i % TD_G_STAGES;
+        const int col = u / H, h = u - col * H, b = col / nwc, w0 = (col - b * nwc) * TB_W;
+        if (i >= TD_G_STAGES)
+          hopper::mbar_wait(&gempty[st], (unsigned)(i / TD_G_STAGES & 1) ^ 1u);
+#ifdef K2_NO_LOADS
+        hopper::mbar_arrive(&gfull[st]);
+#else
+        hopper::mbar_arrive_expect_tx(&gfull[st], TD_G_TILE);
+        hopper::tma_load_4d(smem + L.g + st * TD_G_TILE, &gmap, &gfull[st], w0, h, 0, b);
+#endif
+      }
+    } else if (tid >= 416) {
+      shift_rows<TD_SHIFTERS>(ring, smem, CP, tid - 416);
+    }
+    return;
+  }
+  const int ky = __shfl_sync(0xffffffffu, tid >> 7, 0), warp = (tid >> 5) & 3, lane = tid & 31;
+  float tot[3][R], acc[R];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int i = 0; i < R; ++i) tot[kx][i] = 0.f;
+  int rel = 0;
+  for (int u = ring.u0; u < ring.u1; ++u) {
+    const int i = u - ring.u0, st = i % TD_G_STAGES, v = ring.vbase(u) + ky;
+    hopper::mbar_wait(&ring.ready[ring.slot(v)], ring.round(v));
+    hopper::mbar_wait(&gfull[st], (unsigned)(i / TD_G_STAGES) & 1u);
+    const uint8_t* xr = smem + ring.slot(v) * slot_bytes(CP);
+    const uint8_t* gt = smem + L.g + st * TD_G_TILE;
+    // Group kx: the 64 pixels' 4 wgmma into acc, from zero, then added to the totals.
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      hopper::fence_operand(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t a = hopper::gmma_desc(gt + 32 * kk, 16, 1024, hopper::LAYOUT_SW128);
+        const uint64_t b = hopper::gmma_desc(xr + kx * tile + 32 * kk, 16, 1024,
+                                             hopper::LAYOUT_SW128);
+        if (K2_PRODUCTS) hopper::Wgmma<CP, 0>::mma(acc, a, b, kk);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
+#pragma unroll
+      for (int q = 0; q < R; ++q) tot[kx][q] += acc[q];
+    }
+    if (lane == 0) {
+      hopper::mbar_arrive(&gempty[st]);
+      release_rows(ring, rel, u + 1 < ring.u1 ? ring.vbase(u + 1) + ky : ring.events());
+    }
+    __syncwarp();
+  }
+  if (lane == 0) release_rows(ring, rel, ring.events());
+
+  // The partial of split s, [9][Co][C]: tot[kx][4 j + q] is output channel 16 warp + lane
+  // / 4 + 8 (q / 2), input channel 8 j + 2 (lane % 4) + q % 2, tap 3 ky + kx.
+  float* dst = part + (size_t)s * 9 * Co * C;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int j = 0; j < CP / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int co = 16 * warp + (lane >> 2) + 8 * (q >> 1), ci = 8 * j + 2 * (lane & 3) + (q & 1);
+        if (co < Co && ci < C) dst[((size_t)(3 * ky + kx) * Co + co) * C + ci] = tot[kx][4 * j + q];
+      }
+}
+
+// dW[co][ci][tap] = sum over splits k of part[k][tap][co][ci], in a fixed order (four
+// interleaved sums of the splits in order, then added pairwise), so deterministic; with
+// round_bf16 each sum is rounded to bf16 (and kept in fp32: the gradient that a bf16
+// weight's cast back to its fp32 parameter would give).
+__global__ void dw_sum_taps(const float* __restrict__ part, float* __restrict__ out, int S,
+                            int Co, int C, int round_bf16) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x, n = 9 * Co * C;
+  if (i >= n) return;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};  // splits k = 4 m + r summed in a[r], in order of m
+  int k = 0;
+#pragma unroll 4
+  for (; k + 4 <= S; k += 4)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] += part[(size_t)(k + r) * n + i];
+  for (; k < S; ++k) a[k & 3] += part[(size_t)k * n + i];
+  float v = (a[0] + a[1]) + (a[2] + a[3]);
+  if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+  const int tap = i / (Co * C), co = i / C % Co, ci = i % C;
+  out[((size_t)co * C + ci) * 9 + tap] = v;
+}
+
 // out[i] = sum over splits k of part[k][i], in split order.
 __global__ void dw_sum_splits(const float* __restrict__ part, float* __restrict__ out, int S,
                            int N) {
@@ -832,6 +1266,66 @@ int bad_shape(int B, int C, int Co, int H, int W) {
   return B <= 0 || C <= 0 || Co <= 0 || H <= 0 || W <= 0;
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda at build).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a bf16 NCHW tensor [B, Cn, H, W] for K2's tiles: box {box_w pixels, 1 row,
+// rows channels, 1 image}, zero fill out of bounds; the 128-byte swizzle for a 64-pixel
+// tile, none for a halo box.
+int tile_map(CUtensorMap* map, const void* p, int B, int Cn, int H, int W, int rows,
+             int box_w = TB_W) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)Cn, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 2, (cuuint64_t)H * W * 2,
+                                 (cuuint64_t)Cn * H * W * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_w, 1, (cuuint32_t)rows, 1}, step[4] = {1, 1, 1, 1};
+  auto run = [&] {
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides,
+                  box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  box_w == TB_W ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = run();
+  int dev;
+  // A driver call needs a current context, which the runtime binds to a thread only at
+  // its first call that needs one: on a thread that made none yet (autograd's backward
+  // worker, a new Python thread), bind the device's primary context and encode again.
+  if (r == CUDA_ERROR_INVALID_CONTEXT && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaSetDevice(dev) == cudaSuccess)
+    r = run();
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Can the TMA/wgmma kernels take these tensors?  TMA needs rows of a multiple of 16
+// bytes and 16-byte aligned bases; the weights and accumulators hold 64 channels a side.
+bool tma_shape(int B, int C, int Co, int H, int W, const void* a, const void* b) {
+  return !bad_shape(B, C, Co, H, W) && W % 8 == 0 && C <= 64 && Co <= 64 &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
 // One case per count of 8-channel input blocks of dW.
 #define DW_CHANNEL_BLOCKS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 // One case per (16-channel column blocks, 16-byte copies, flip) of K2a.
@@ -840,6 +1334,12 @@ int bad_shape(int B, int C, int Co, int H, int W) {
   X(3, 0, 0) X(3, 0, 1) X(3, 1, 0) X(3, 1, 1) X(4, 0, 0) X(4, 0, 1) X(4, 1, 0) X(4, 1, 1)
 // One case per count of 16-channel column blocks of K2a-bf16.
 #define FW_B_TILES(X) X(1) X(2) X(3) X(4)
+// One case per output-channel width (wgmma's N) of K2a-bf16 on TMA and wgmma: Co rounded
+// up to 24 (HRNet-W18's 18), 48 (W48's) or 64.
+#define FW_TMA_WIDTHS(X) X(24) X(48) X(64)
+// One case per input-channel width (wgmma's N) of K2b-bf16 on TMA and wgmma: C rounded up
+// to 32, 48 or 64.
+#define DW_TMA_CHANNELS(X) X(32) X(48) X(64)
 
 }  // namespace
 
@@ -906,6 +1406,17 @@ int conv3x3_init() {
                                     fw_b_smem_bytes(nj));
   FW_B_TILES(K2_FWD_BF16_INIT)
 #undef K2_FWD_BF16_INIT
+#define K2_TMA_INIT(kernel)                                                              \
+  if (!err)                                                                              \
+    err = (int)cudaFuncSetAttribute((const void*)kernel,                                 \
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM);
+#define K2_FWD_TMA_INIT(n) K2_TMA_INIT(conv3x3_fwd_bf16_wgmma<n>)
+  FW_TMA_WIDTHS(K2_FWD_TMA_INIT)
+#define K2_DW_TMA_INIT(c) K2_TMA_INIT(conv3x3_dw_bf16_wgmma<c>)
+  DW_TMA_CHANNELS(K2_DW_TMA_INIT)
+#undef K2_DW_TMA_INIT
+#undef K2_FWD_TMA_INIT
+#undef K2_TMA_INIT
   return err;
 }
 
@@ -993,6 +1504,71 @@ int conv3x3_dw(const float* x, const float* g, float* part, float* dw, int B, in
   if (err) return err;
   const int N = Co * C * 9;
   dw_sum_splits<<<(N + 255) / 256, 256, 0, st>>>(part, dw, S, N);
+  return (int)cudaGetLastError();
+}
+
+// K2a-bf16 on TMA and wgmma.  x [B, C, H, W] and y [B, Co, H, W] bf16, W % 8 == 0, C and
+// Co <= 64, x and y 16-byte aligned; w [Co, C, 3, 3] (or [C, Co, 3, 3] with flip), bf16,
+// or fp32 (w_fp32) rounded to bf16 as it is loaded.  At most `blocks` blocks (the SMs).
+int conv3x3_fwd_bf16_tma(const void* x, const void* w, int w_fp32, void* y, int B, int C,
+                         int Co, int H, int W, int flip, int blocks, void* stream) {
+  if (!tma_shape(B, C, Co, H, W, x, y) || blocks <= 0) return (int)cudaErrorInvalidValue;
+  const int cp = cdiv(C, 16) * 16, n = Co <= 24 ? 24 : Co <= 48 ? 48 : 64;
+  int nslot = TB_MAX_SLOTS;
+  while (nslot > 4 && fwd_smem(cp, n, nslot).total > TB_SMEM) --nslot;
+  CUtensorMap xmap, hmap, ymap;
+  int err = tile_map(&xmap, x, B, C, H, W, cp);
+  if (!err) err = tile_map(&hmap, x, B, C, H, W, cp, TB_HALO);
+  if (!err) err = tile_map(&ymap, y, B, Co, H, W, n);
+  if (err) return err;
+  // At most `blocks` blocks, each ceil(n_units / blocks) row segments.
+  const int nwc = cdiv(W, TB_W), n_units = B * H * nwc, ups = cdiv(n_units, blocks);
+  const int grid = cdiv(n_units, ups);
+  const size_t bytes = fwd_smem(cp, n, nslot).total;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n) {
+#define K2_FWD_TMA(nn)                                                                     \
+  case nn:                                                                                 \
+    conv3x3_fwd_bf16_wgmma<nn><<<grid, TF_THREADS, bytes, st>>>(                           \
+        xmap, hmap, ymap, w, w_fp32, flip, C, Co, H, nwc, n_units, ups, nslot);           \
+    break;
+    FW_TMA_WIDTHS(K2_FWD_TMA)
+#undef K2_FWD_TMA
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2b-bf16 on TMA and wgmma.  x [B, C, H, W] and g [B, Co, H, W] bf16 (shapes as
+// conv3x3_fwd_bf16_tma); part [S, 9, Co, C] fp32 scratch, S = the blocks, each
+// ceil(n_units / S) row segments of 64 pixels (n_units = B H ceil(W / 64)); dw [Co, C, 3,
+// 3] fp32, each value rounded to bf16 with round_bf16.
+int conv3x3_dw_bf16_tma(const void* x, const void* g, float* part, float* dw, int B, int C,
+                        int Co, int H, int W, int S, int round_bf16, void* stream) {
+  if (!tma_shape(B, C, Co, H, W, x, g) || S <= 0) return (int)cudaErrorInvalidValue;
+  const int cp = C <= 32 ? 32 : C <= 48 ? 48 : 64;
+  int nslot = TB_MAX_SLOTS;
+  while (nslot > 4 && dw_smem(cp, nslot).total > TB_SMEM) --nslot;
+  CUtensorMap xmap, hmap, gmap;
+  int err = tile_map(&xmap, x, B, C, H, W, cp);
+  if (!err) err = tile_map(&hmap, x, B, C, H, W, cp, TB_HALO);
+  if (!err) err = tile_map(&gmap, g, B, Co, H, W, 64);
+  if (err) return err;
+  const int nwc = cdiv(W, TB_W), n_units = B * H * nwc, ups = cdiv(n_units, S);
+  const size_t bytes = dw_smem(cp, nslot).total;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cp) {
+#define K2_DW_TMA(c)                                                                       \
+  case c:                                                                                  \
+    conv3x3_dw_bf16_wgmma<c><<<S, TD_THREADS, bytes, st>>>(xmap, hmap, gmap, part, C, Co, H, \
+                                                          nwc, n_units, ups, nslot);       \
+    break;
+    DW_TMA_CHANNELS(K2_DW_TMA)
+#undef K2_DW_TMA
+  }
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const int n = 9 * Co * C;
+  dw_sum_taps<<<cdiv(n, 256), 256, 0, st>>>(part, dw, S, Co, C, round_bf16);
   return (int)cudaGetLastError();
 }
 

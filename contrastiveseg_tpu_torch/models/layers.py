@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from contrastiveseg_tpu_torch.ops.conv import supported
-from contrastiveseg_tpu_torch.ops.conv_cuda import conv3x3
+from contrastiveseg_tpu_torch.ops.conv_cuda import conv3x3, traced
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_half_pixel_nchw
 
 BN_MOMENTUM = 0.1
@@ -104,10 +104,13 @@ class PallasConv3x3(nn.Conv2d):
     ``supported()`` holds for its input, the JAX package's predicate (3x3,
     stride 1, undilated, C <= 64, H % 8 == 0), and through cuDNN otherwise.
     The parameter is the usual ``weight``.  Inside ``bf16_compute`` the
-    input and the weight are cast to the autocast dtype before K2, as the
-    JAX layer casts both to its ``dtype`` (``layers.py:67-68``): autocast
-    does not reach a custom op.  K2's dW then comes back rounded to bf16,
-    and the cast's backward returns it in fp32 to the parameter."""
+    input is cast to the autocast dtype before K2, and the weight is
+    rounded to it, as the JAX layer casts both to its ``dtype``
+    (``layers.py:67-68``): autocast does not reach K2.  Eagerly, K2 takes
+    the fp32 weight and rounds it to bf16 as it loads it, and returns dW
+    rounded to bf16 in fp32 to the parameter (no cast launches); traced for
+    export, the weight is cast here and the custom op computes in its
+    dtype, with the same numbers."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not supported(x.shape, self.kernel_size[0], self.stride[0], self.dilation[0]):
@@ -115,7 +118,9 @@ class PallasConv3x3(nn.Conv2d):
         w = self.weight
         if torch.is_autocast_enabled(x.device.type):
             dtype = torch.get_autocast_dtype(x.device.type)
-            x, w = x.to(dtype), w.to(dtype)
+            x = x.to(dtype)
+            if dtype != torch.bfloat16 or traced(x):
+                w = w.to(dtype)
         return conv3x3(x, w)
 
 

@@ -59,6 +59,7 @@ class CudaLibrary:
         self.defines = tuple(defines)
         self._lib: ctypes.CDLL | None = None
         self._ready: set[int] = set()
+        self._fns: dict[tuple[str, int], object] = {}
 
     def library_path(self) -> Path:
         """Named by the hash of the source, the headers of ``csrc/`` and the
@@ -133,7 +134,13 @@ class CudaLibrary:
         return lib
 
     def launch(self, fn_name: str, device: torch.device, *args) -> None:
-        err = getattr(self.ready(device.index), fn_name)(*args)
+        """Call entry point ``fn_name`` (pointers and the stream as ints or
+        ``c_void_p``) once the library is ready on ``device``; raise on a
+        non-zero return."""
+        fn = self._fns.get((fn_name, device.index))
+        if fn is None:
+            fn = self._fns[fn_name, device.index] = getattr(self.ready(device.index), fn_name)
+        err = fn(*args)
         if err != 0:
             self._raise(f"{fn_name} failed to launch", err)
 
@@ -170,8 +177,18 @@ def require_cuda(name: str, x: torch.Tensor) -> torch.device:
     return x.device
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the int its handle is."""
+    return _raw_stream(device.index)
+
+
+def _public_raw_stream(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# PyTorch's own accessor of the stream handle (what its Triton launchers
+# call): no Stream object a call.  The public API where it is missing.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or _public_raw_stream
 
 
 def ptrs(*xs: torch.Tensor) -> list[ctypes.c_void_p]:

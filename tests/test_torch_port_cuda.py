@@ -15,7 +15,8 @@ cuDNN's fp32 ``conv2d_weight`` itself rounds past that tolerance at some
 shapes); K3 in bf16 within 2 bf16 steps of the output (both round y1 and
 the output at the same places; a value near a rounding boundary may land
 one step apart).  K2 in bf16: the forward and dX within 1 bf16 ulp of the
-plain version, dW (fp32 sums of exact products) within rtol 1e-5.
+plain version, dW (fp32 sums of exact products) within rtol 1e-5, on each
+of its two routes (the TMA and wgmma kernels, PR 16's for other shapes).
 """
 
 from __future__ import annotations
@@ -136,19 +137,26 @@ def test_k2_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
     dw = torch.nn.grad.conv2d_weight(x.double(), w.shape, gy.double(), padding=1)
     torch.testing.assert_close(conv_cuda.conv3x3_dw(x, gy).double(), dw, rtol=1e-4,
                                atol=1e-6 * float(dw.abs().max()) + 1e-4)
-    assert conv_cuda.launch_counts() == {"conv3x3_fwd": 2, "conv3x3_dw": 1,
-                                         "conv3x3_fwd_bf16": 0, "conv3x3_dw_bf16": 0}
+    assert conv_cuda.launch_counts() == {**dict.fromkeys(conv_cuda.KERNELS, 0),
+                                         "conv3x3_fwd": 2, "conv3x3_dw": 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,C,Co,H,W", [(2, 48, 48, 32, 256), (2, 48, 48, 16, 40),
                                         (1, 3, 18, 8, 16), (2, 12, 70, 16, 24),
-                                        # C = 64; W % 8 != 0: dW's 2-byte loads
+                                        # C = 64; W % 8 != 0: PR 16's kernels, dW's
+                                        # 2-byte loads
                                         (2, 64, 40, 24, 70),
                                         # odd W: K2a-bf16's 2-byte pixel loads; ragged
                                         # tiles; dX with 70 input channels; C = Co = 64
                                         (1, 48, 48, 18, 33), (2, 16, 70, 10, 34),
-                                        (1, 64, 64, 13, 35), (1, 20, 36, 8, 300)])
+                                        (1, 64, 64, 13, 35), (1, 20, 36, 8, 300),
+                                        # the TMA kernels: HRNet-W18's branch 0 (C = 18:
+                                        # the channel tail past C, wgmma's N = 24 and a
+                                        # padded K), C = Co = 64, ss_test's branch 0 of
+                                        # HRNet-W48 at 1024x2048; a width they cannot take
+                                        (2, 18, 18, 16, 64), (2, 64, 64, 16, 128),
+                                        (1, 48, 48, 256, 512), (2, 48, 48, 16, 36)])
 def test_k2_bf16_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
     """K2's bf16 kernels: the forward and dX within 1 bf16 ulp of the plain
     version (``chip_smoke.bf16_ulps``: the fp32 sums differ only in order, and
@@ -156,7 +164,10 @@ def test_k2_bf16_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
     of its largest entry of the plain formula in fp64 (products of bf16
     values are exact; the kernel and cuDNN's fp32 ``conv2d_weight``, the
     plain version on the card, differ by up to 4.3e-6 of the largest entry
-    at [2, 48, 16, 40] on an H100, so the yardstick is fp64)."""
+    at [2, 48, 16, 40] on an H100, so the yardstick is fp64).  Each shape
+    goes the route ``conv_cuda.tma_route`` gives it (the TMA and wgmma
+    kernels where W % 8 == 0 and C, Co <= 64, else PR 16's), which the
+    launch counts show; an fp32 weight gives the bf16 weight's outputs."""
     from chip_smoke import bf16_ulps
 
     torch.backends.cudnn.allow_tf32 = False
@@ -174,8 +185,42 @@ def test_k2_bf16_kernels_match_plain_on_card(cuda_device, B, C, Co, H, W):
     assert dw.dtype == torch.float32
     torch.testing.assert_close(dw.double(), want, rtol=1e-5,
                                atol=1e-6 * float(want.abs().max()))
-    assert conv_cuda.launch_counts() == {"conv3x3_fwd": 0, "conv3x3_dw": 0,
-                                         "conv3x3_fwd_bf16": 2, "conv3x3_dw_bf16": 1}
+    sfx = "" if W % 8 == 0 and C <= 64 and Co <= 64 else "_ragged"
+    assert conv_cuda.tma_route(x, C, Co, gy) == (sfx == "")
+    assert conv_cuda.launch_counts() == {**dict.fromkeys(conv_cuda.KERNELS, 0),
+                                         f"conv3x3_fwd_bf16{sfx}": 2,
+                                         f"conv3x3_dw_bf16{sfx}": 1}
+    assert torch.equal(conv_cuda.conv3x3_fwd(x, w.float()), y)
+    assert torch.equal(conv_cuda.conv3x3_fwd(gy, w.float(), True), dx)
+    assert torch.equal(conv_cuda.conv3x3_dw(x, gy, round_bf16=True), dw.to(torch.bfloat16).float())
+
+
+@pytest.mark.cuda
+def test_k2_bf16_layer_routes_on_card(cuda_device):
+    """A bf16 ``PallasConv3x3``'s eager route (``conv_cuda.Conv3x3`` on the
+    fp32 weight) and its custom-op route (the weight cast to bf16, as an
+    exported net runs it) launch the same kernels and give the same output
+    and gradients, bit for bit."""
+    from contrastiveseg_tpu_torch.models.layers import PallasConv3x3, bf16_compute
+
+    torch.manual_seed(4)
+    layer = PallasConv3x3(48, 48, 3, padding=1, bias=False).to(cuda_device)
+    x0 = torch.randn(2, 48, 32, 64, device=cuda_device).to(torch.bfloat16)
+    gy = torch.randn(2, 48, 32, 64, device=cuda_device).to(torch.bfloat16)
+    out = {}
+    for route in ("eager", "op"):
+        layer.weight.grad = None
+        x = x0.clone().requires_grad_(True)
+        conv_cuda.reset_launch_counts()
+        with bf16_compute(True, x):
+            y = layer(x) if route == "eager" else conv_cuda.conv3x3_op(
+                x, layer.weight.to(torch.bfloat16), False)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        out[route] = (y, x.grad, layer.weight.grad, conv_cuda.launch_counts())
+    for a, b in zip(out["eager"], out["op"]):
+        assert a == b if isinstance(a, dict) else torch.equal(a, b)
+    assert out["eager"][3]["conv3x3_fwd_bf16"] == 2 and out["eager"][3]["conv3x3_dw_bf16"] == 1
 
 
 @pytest.mark.cuda
@@ -209,21 +254,23 @@ def test_k2_bf16_autograd_and_export_on_card(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
-def test_k2_dw_is_deterministic_on_card(cuda_device):
-    """dW's split partials are added in split order, with no float atomics."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_dw_is_deterministic_on_card(cuda_device, dtype):
+    """dW's split partials are added in a fixed order, with no float atomics."""
     g = torch.Generator().manual_seed(7)
-    x = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device)
-    gy = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device)
+    x = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device, dtype)
+    gy = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device, dtype)
     assert torch.equal(conv_cuda.conv3x3_dw(x, gy), conv_cuda.conv3x3_dw(x, gy))
 
 
 @pytest.mark.cuda
-def test_k2_fwd_is_deterministic_on_card(cuda_device):
-    """Each output of K2a (forward and dX) is one block's sum in one order:
-    no split-K, no atomics."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_fwd_is_deterministic_on_card(cuda_device, dtype):
+    """Each output of K2a (forward and dX) is one block's (one warpgroup's)
+    sum in one order: no split-K, no atomics."""
     g = torch.Generator().manual_seed(8)
-    x = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device)
-    w = (torch.randn(48, 48, 3, 3, generator=g) * 0.1).to(cuda_device)
+    x = torch.randn(2, 48, 128, 256, generator=g).to(cuda_device, dtype)
+    w = (torch.randn(48, 48, 3, 3, generator=g) * 0.1).to(cuda_device, dtype)
     for flip in (False, True):
         assert torch.equal(conv_cuda.conv3x3_fwd(x, w, flip), conv_cuda.conv3x3_fwd(x, w, flip))
 
@@ -240,7 +287,9 @@ def test_k2_autograd_and_checks_on_card(cuda_device):
     with pytest.raises(ValueError, match="dtype"):
         conv_cuda.conv3x3_fwd(x.detach().double(), w.detach())
     with pytest.raises(ValueError, match="dtype"):
-        conv_cuda.conv3x3_fwd(x.detach().bfloat16(), w.detach())
+        conv_cuda.conv3x3_fwd(x.detach().bfloat16(), w.detach().double())
+    with pytest.raises(ValueError, match="dtype"):
+        conv_cuda.conv3x3_fwd(x.detach(), w.detach().bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         conv_cuda.conv3x3_fwd(x.detach().transpose(2, 3), w.detach())
     with pytest.raises(ValueError, match="C <= 64"):
