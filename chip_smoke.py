@@ -39,9 +39,10 @@ Phases (any failure raises, so the run exits non-zero):
      ``gtFine/val/<city>/*_gtFine_labelIds.png``), then 3 steps of the
      headline at the recipe's batch 8 from it through the data pipeline (the preset's
      transforms, ``data.workers`` and pinned prefetch), validation over the
-     4 val frames at 2048x1024; >= 3 launches of each K1 kernel, the first
-     device batch bit-identical to the pipeline's host batch, segdata loaded
-     from ``build/segdata/`` with no fallback; each step's time and data
+     4 val frames at 2048x1024 at batch 2 (``DIRECTORY_VAL_BATCH``); >= 3
+     launches of each K1 kernel, the first device batch bit-identical to
+     the pipeline's host batch, segdata loaded from ``build/segdata/`` with
+     no fallback; each step's time and data
      wait, the pipeline's host seconds a batch alone at 1 and 4 workers,
      val images/s and the peak memory;
  10. the plain phase: ``cityscapes_hrnet_w48`` (no projection head, CE on
@@ -264,7 +265,22 @@ Phases (any failure raises, so the run exits non-zero):
      fp32 peak of phases 15-19, and ``cityscapes_segfix_hrnet``'s
      ``--phase val`` in bf16 at batch 2; its lines carry ``[bf16 phase +N
      s]``;
- 22. a JSON line of the eight kernels, the card line, and the result line.
+ 22. the dist phase, multi-GPU training at world size 1 on NCCL (the card's
+     machine has one GPU): (a) ``cityscapes_hrnet_w48_mem`` at full width
+     and batch 8 of 512x1024 from phase 9's tree on fixed device batches,
+     step 1 on one process and under a world-1 process group through the
+     ``DistributedDataParallel`` wrapper, from the same seed, batch and
+     anchor scores: losses within rtol 1e-4, parameters atol 5e-3, the banks
+     bit for bit, K1 once a step; ``DIST_STEPS`` timed steps of each, their
+     medians and ratio, the peak memory; (c) one step of the bf16 headline
+     with ``network.pallas_conv`` under the wrapper, K2-bf16 launched as on
+     one process (``K2_BF16_A_STEP``); (b) ``python -m torch.distributed.run
+     --standalone --nproc_per_node 1 tools/train_torch.py --preset
+     cityscapes_hrnet_w48_mem`` from the tree at batch 2 for 2 steps with
+     validation and ``latest`` (started beside phase 21 (c),
+     ``start_torchrun``): exit 0, ``latest`` restored into one process bit
+     for bit; its lines carry ``[dist phase +N s]``;
+ 23. a JSON line of the eight kernels, the card line, and the result line.
 
 Phases 10-21 print their step times (or seconds an image), peak memory and
 wall time.  Phases 14-17 train each preset 2 steps (``CUT_STEPS``; 3 before
@@ -280,7 +296,15 @@ RMI and LIP nets, phase 17's ResNeSt FCN and phase 19's MS-OCR, SETR-PUP
 and Semantic-FPN train one step too (``ONE_STEP``, ``steps_of``), phase
 18's presets one step fewer (``JPEG_PRESETS``), and phase
 21 reuses the trees of phases 9, 15, 16 (LIP) and 18 and runs its one-step
-nets at batch 2.
+nets at batch 2.  To make room for phase 22, phase 9 validates at batch 2
+(``DIRECTORY_VAL_BATCH``), the pipeline alone is timed over 2 epochs of
+the train frames at 1 worker (4 at 4 workers, ``pipeline_seconds``), the
+exports of phases 13 and 21 (and 21's fresh process) run as processes of
+their own beside their phase's later work (``Background``; in phase 21 held
+stopped while its steps are timed), phase 22 (b)'s ``torchrun`` run starts
+beside phase 21 (c), and the trainings of phases 10-22 from the trees read
+them with 4 data workers (``SMOKE_WORKERS``; the raw headline of phase 16
+with the preset's 1, as before); every check stays.
 
 The slices read their batches through the port's data pipeline
 (``data/pipeline.py``): the synthetic ones get the preset's train
@@ -307,8 +331,10 @@ import collections
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import time
@@ -371,6 +397,83 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+class Background:
+    """``commands`` run one after another, each its own process group from
+    the checkout's root, on a thread, while the caller goes on: ``wait()``
+    returns each one's ``CompletedProcess`` and wall seconds (it stops at
+    the first failure); ``paused()`` holds the group stopped (SIGSTOP)
+    while the caller times something; ``stop()`` (also at exit) ends the
+    group running (SIGTERM, which torchrun passes on to its workers, then
+    SIGKILL)."""
+
+    def __init__(self, commands: list[list[str]], timeout: float = 900):
+        import atexit
+        import threading
+
+        atexit.register(self.stop)  # no process outlives the script
+        self.results, self.proc, self.stopped = [], None, False
+        self.lock, self.running = threading.Lock(), threading.Event()
+        self.running.set()
+        self.thread = threading.Thread(target=self._run, args=(commands, timeout), daemon=True)
+        self.thread.start()
+
+    def _run(self, commands, timeout) -> None:
+        for cmd in commands:
+            self.proc = None
+            while self.proc is None:
+                self.running.wait()  # not while held
+                with self.lock:
+                    if self.stopped:
+                        return
+                    if self.running.is_set():
+                        t0 = time.perf_counter()
+                        self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True,
+                                                     start_new_session=True)
+            try:
+                out, err = self.proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self._signal(signal.SIGKILL)
+                out, err = self.proc.communicate()
+            done = subprocess.CompletedProcess(cmd, self.proc.returncode, out, err)
+            self.results.append((done, time.perf_counter() - t0))
+            if done.returncode != 0:
+                return
+
+    def _signal(self, sig) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, sig)
+
+    @contextlib.contextmanager
+    def paused(self):
+        with self.lock:
+            self.running.clear()
+            self._signal(signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            with self.lock:
+                self._signal(signal.SIGCONT)
+                self.running.set()
+
+    def wait(self) -> list:
+        self.thread.join()
+        return self.results
+
+    def stop(self) -> None:
+        with self.lock:
+            self.stopped = True
+            self._signal(signal.SIGCONT)  # a held group must run to exit
+            self._signal(signal.SIGTERM)  # torchrun stops its workers, then itself
+        self.running.set()
+        self.thread.join(timeout=60)
+        if self.thread.is_alive():
+            with self.lock:
+                self._signal(signal.SIGKILL)
+            self.thread.join()
 
 
 def time_ms(fn, reps: int = 5, inner: int = 10) -> float:
@@ -613,9 +716,16 @@ def check_k2(device) -> dict:
     return {"errs": errs, "rows": rows, "b8": b8}
 
 
+PROFILER_TRIES = 3
+EVENTS_KEY = "CUDA events (torch.profiler saw no device activity)"
+
+
 def device_us(fn, calls: int = 20) -> dict[str, float]:
     """Device time of each kernel that ``fn`` launches, per call, in us, under
-    ``torch.profiler`` (CUDA activity), after a warm-up call."""
+    ``torch.profiler`` (CUDA activity), after a warm-up call.  CUPTI now and
+    then records no device activity for a whole profile; the profile is then
+    taken again, and after ``PROFILER_TRIES`` empty ones the time per call
+    comes from CUDA events (``time_ms``), under ``EVENTS_KEY``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -623,14 +733,19 @@ def device_us(fn, calls: int = 20) -> dict[str, float]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = collections.Counter()
-    for name, s, t in device_intervals(prof):
-        out[name] += (t - s) / calls
-    return dict(out)
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = collections.Counter()
+        for name, s, t in device_intervals(prof):
+            out[name] += (t - s) / calls
+        if sum(out.values()) > 0:
+            return dict(out)
+    print(f"torch.profiler recorded no device activity in {PROFILER_TRIES} profiles; "
+          "timing with CUDA events instead")
+    return {EVENTS_KEY: time_ms(fn, inner=calls) * 1e3}
 
 
 # Phase 21 (a): K2-bf16's cases, (B, C, H, W): the main path's batch 2, a width the
@@ -1082,16 +1197,21 @@ def write_dataset(root: Path, n_train: int = 8, n_val: int = 4, hw=(1024, 2048),
     each_frame(frame, n_train + n_val)
 
 
-def pipeline_seconds(cfg, workers: int, repeat: int = 4) -> float:
+# Phase 9 validates at batch 2: at the preset's 4 cuDNN picks FFT convolutions,
+# 0.17-0.25 images/s (PERF.md section 5), ~20 s of the phase.
+DIRECTORY_VAL_BATCH = 2
+
+
+def pipeline_seconds(cfg, workers: int) -> float:
     """Host seconds a batch of the train pipeline alone, over one epoch of
-    the train frames listed ``repeat`` times (so that workers >= 2 have
-    batches to overlap)."""
+    the train frames listed 4 times (so that workers >= 2 have batches to
+    overlap), twice for one worker (a mean of sequential batches)."""
     from contrastiveseg_tpu_torch.data.datasets import build_dataset
     from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
 
     cfg = cfg.updated("data.workers", workers)
     dataset = build_dataset(cfg, "train")
-    dataset.items = dataset.items * repeat
+    dataset.items = dataset.items * (2 if workers == 1 else 4)
     pipe = build_pipeline(cfg, "train", dataset=dataset)
     t0 = time.perf_counter()
     n = sum(1 for _ in pipe.epoch_iter(0))
@@ -1122,7 +1242,8 @@ def run_directory_slice(device) -> dict:
     cfg = build_config("cityscapes_hrnet_w48_mem", None, [
         "data.synthetic=False", f"data.data_dir={data_dir}", "contrast.warmup_iters=0",
         "solver.max_iters=3", "solver.display_iter=1", "solver.test_interval=0",
-        "checkpoints.save_iters=0", f"checkpoints.checkpoints_dir={ckpt_dir}"])
+        "checkpoints.save_iters=0", f"checkpoints.checkpoints_dir={ckpt_dir}",
+        f"val.batch_size={DIRECTORY_VAL_BATCH}"])
     if (cfg.get("train.batch_size"), cfg.get("train_trans.random_crop.crop_size"),
             cfg.get("train_trans.random_resize.scale_range")) != (8, [1024, 512], [0.5, 2.0]):
         raise AssertionError("the directory slice must run the recipe's batch 8, crop and scales")
@@ -1160,7 +1281,8 @@ def run_directory_slice(device) -> dict:
     scores = trainer.validate()
     if not (0.0 <= scores["miou"] <= 1.0):
         raise AssertionError(f"directory validation gave no mIoU in [0, 1]: {scores}")
-    print(f"directory slice validation (4 frames of 1024x2048, batch 4): mIoU "
+    print(f"directory slice validation (4 frames of 1024x2048, batch "
+          f"{DIRECTORY_VAL_BATCH}): mIoU "
           f"{scores['miou']:.4f} pixel_acc {scores['pixel_acc']:.4f}, "
           f"{scores['images_per_sec']:.3f} val images/s")
 
@@ -1188,13 +1310,22 @@ def run_directory_slice(device) -> dict:
             "host_seconds": host_s, "data_dir": data_dir, "latest": latest}
 
 
-def directory_config(preset: str, data_dir: Path, ckpt_dir: Path, extra: list[str]):
+# Data workers of the trainings from the phases' trees: the presets' 1 makes the first
+# batch of each of ~45 trainers wait 1-2 s on the host.  The raw headline (phase 16) keeps
+# the preset's 1 (``workers=None``); phases 9, 16 and 18 time the pipeline alone at 1 and
+# 4 workers (``pipeline_seconds``).
+SMOKE_WORKERS = 4
+
+
+def directory_config(preset: str, data_dir: Path, ckpt_dir: Path, extra: list[str],
+                     workers: int | None = SMOKE_WORKERS):
     from tools.train_torch import build_config
 
     return build_config(preset, None, [
         "data.synthetic=False", f"data.data_dir={data_dir}", "solver.display_iter=1",
         "solver.test_interval=0", "checkpoints.save_iters=0",
-        f"checkpoints.checkpoints_dir={ckpt_dir}"] + extra)
+        f"checkpoints.checkpoints_dir={ckpt_dir}"]
+        + ([f"data.workers={workers}"] if workers else []) + extra)
 
 
 def train_phase(trainer, device, what: str) -> tuple[list, dict, int]:
@@ -1947,7 +2078,8 @@ def run_raw_headline(device, root: Path, say) -> dict:
         labels = sorted(root.glob("*/label/*.png"))
         ms_image, ms_label = decode_ms(images, True), decode_ms(labels, False)
         cfg = directory_config("cityscapes_hrnet_w48_mem", root, root / "ckpt", [
-            "contrast.warmup_iters=0", f"solver.max_iters={CUT_STEPS}", "val.batch_size=2"])
+            "contrast.warmup_iters=0", f"solver.max_iters={CUT_STEPS}", "val.batch_size=2"],
+            workers=None)
         if (cfg.get("train.batch_size"), cfg.get("train_trans.random_crop.crop_size"),
                 cfg.get("data.workers")) != (8, [1024, 512], 1):
             raise AssertionError("the raw headline must run the recipe's batch 8, crop and "
@@ -3303,7 +3435,7 @@ def k2_host_us(device, calls: int = 10, depth: int = 4) -> dict[str, float]:
 
 
 def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
-                   fp32_peaks: dict) -> dict:
+                   fp32_peaks: dict, also_start=None) -> dict:
     """Phase 21 (b) and (c): (b) ``cityscapes_hrnet_w48_mem`` with
     ``network.bf16`` and ``network.pallas_conv`` at batch 8 from phase 9's
     tree, 2 steps: K2's bf16 kernels launched (the forward and dX twice a
@@ -3320,26 +3452,22 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
     with as many K2-bf16 launches.  (c) one bf16 step at batch 2 of a preset of
     each family (``BF16_NETS``), finite losses, fp32 parameters, the step
     time and the peak below the preset's fp32 peak (``fp32_peaks``: name ->
-    (peak, batch)); SegFix's ``--phase val`` at batch 2 in bf16."""
+    (peak, batch)); SegFix's ``--phase val`` at batch 2 in bf16.  The export
+    (``tools/export_torch.py``) and the fresh process run in the background
+    from (b)'s ``latest`` on, held stopped while (b)'s steps are timed
+    (``_bf16_headline_rest``); ``also_start()`` (``main``: phase 22 (b)'s
+    torchrun run) starts once they are timed, beside (c)."""
     import gc
-    import subprocess
     import sys
 
     import numpy as np
     import torch
 
     from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
-    from contrastiveseg_tpu_torch.engine.prefetch import device_batches
-    from contrastiveseg_tpu_torch.engine.tester import Tester
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
-    from contrastiveseg_tpu_torch.models import layers
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
-    from contrastiveseg_tpu_torch.ops import conv_cuda
-    from tools.export_torch import export_artifact
-    from tools.train_torch import run
 
     t_phase = time.perf_counter()
-    pallas_forward = layers.PallasConv3x3.forward
 
     def say(msg: str) -> None:
         print(f"[bf16 phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
@@ -3390,27 +3518,16 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
         + ", ".join(f"{k} {history[0][k]:.6f} vs {ref[k]:.6f} ({rel[k]:.2e})" for k in rel)
         + f" (bound {BF16_LOSS_RTOL}); parameters and bank fp32")
     res = {"history": history, "peak": peak, "launches": launches, "step1_rel": rel}
-    res.update(infer_from_latest(trainer, cfg, device, run, say))
-    for phase in ("val", "ss_test"):
-        if res[phase]["launches"]["conv3x3_fwd_bf16"] == 0 or res[phase]["launches"][
-                "conv3x3_fwd"]:
-            raise AssertionError(f"(b) {phase}: launches {res[phase]['launches']}")
-        total.update(res[phase]["launches"])
+    # The --scope ss export of its latest and the artifact's run in a fresh process, in the
+    # background (their processes spend most of their time on the host), held stopped while
+    # the steps are timed; checked at the end of the phase.
     latest = trainer.ckpt._path("latest")
-    model = trainer.state.model.eval()
     tc = (cfg.updated("test.test_dir", str(data_dir / "val" / "image"))
           .updated("test.batch_size", 1).updated("test.mode", "ss_test"))
     frame = next(build_pipeline(tc, "test").epoch_iter(0))["image"]
     hw = tuple(frame.shape[1:3])
     art = root / "w48_bf16_k2"
-    t0 = time.perf_counter()
-    export_artifact(cfg, str(art), "ss", hw, 1, False, latest, str(device))
-    export_s = time.perf_counter() - t0
     np.save(root / "frame.npy", frame)
-    reset_counts()
-    with torch.no_grad():
-        live = Tester(tc, model, device).ss_test(torch.from_numpy(frame).to(device)).cpu()
-    live_k2 = read_counts()["conv3x3_fwd_bf16"]
     script = (
         "import sys, numpy as np, torch; sys.path.insert(0, sys.argv[1]); "
         "from tools.export_torch import load_artifact; "
@@ -3420,15 +3537,27 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
         "conv_cuda.reset_launch_counts(); torch.set_grad_enabled(False); "
         "np.save(sys.argv[4], m(x).cpu().numpy()); "
         "print(conv_cuda.launch_counts()['conv3x3_fwd_bf16'])")
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", script, str(ROOT), str(art),
-                          str(root / "frame.npy"), str(root / "logits.npy")],
-                         capture_output=True, text=True, timeout=600)
-    load_s = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"(b) the artifact did not load and run in a fresh process:\n"
-                             f"{out.stderr[-4000:]}")
-    artifact_k2 = int(out.stdout.strip().splitlines()[-1])
+    commands = [
+        [sys.executable, "tools/export_torch.py", "--preset", "cityscapes_hrnet_w48_mem",
+         "--checkpoint", latest, "--input-size", f"{hw[0]}x{hw[1]}", "--batch", "1",
+         "--scope", "ss", "--out", str(art), "--device", str(device), "network.bf16=True",
+         "network.pallas_conv=True"],
+        [sys.executable, "-c", script, str(ROOT), str(art), str(root / "frame.npy"),
+         str(root / "logits.npy")]]
+    background = Background(commands, timeout=600)
+    try:
+        results.update(_bf16_headline_rest(
+            res, trainer, cfg, tc, frame, device, say, total, release, fp32_state, trees,
+            fp32_peaks, root, background.paused, also_start or (lambda: None)))
+        (export, export_s), (loaded, load_s) = (background.wait() + [(None, 0.0)] * 2)[:2]
+    finally:
+        background.stop()
+    for what, done in (("exported", export), ("loaded and run in a fresh process", loaded)):
+        if done is None or done.returncode != 0:
+            raise AssertionError(f"(b) the artifact was not {what}:\n"
+                                 f"{'' if done is None else done.stderr[-4000:]}")
+    live, live_k2 = res.pop("live"), res.pop("live_k2")
+    artifact_k2 = int(loaded.stdout.strip().splitlines()[-1])
     got = torch.from_numpy(np.load(root / "logits.npy"))
     rel = float((got - live).norm() / live.norm()) if got.shape == live.shape else math.inf
     same = float((got.argmax(-1) == live.argmax(-1)).float().mean()) if rel < math.inf else 0.0
@@ -3438,14 +3567,50 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
                              f"equal on {same} of the pixels (bound {ARTIFACT_LABELS}); K2-bf16 "
                              f"launched {artifact_k2} times in it, {live_k2} in the Tester")
     size = (root / "w48_bf16_k2.pt2").stat().st_size
-    say(f"(b) export --scope ss of it, batch 1, {hw[0]}x{hw[1]}: {size / 2**20:.1f} MiB in "
-        f"{export_s:.1f} s; loaded and run in a fresh process in {load_s:.1f} s, K2-bf16 "
-        f"launched {artifact_k2} times there as in the Tester; on a val frame its logits are "
+    say(f"(b) export --scope ss of it (tools/export_torch.py), batch 1, {hw[0]}x{hw[1]}: "
+        f"{size / 2**20:.1f} MiB in {export_s:.1f} s; loaded and run in a fresh process in "
+        f"{load_s:.1f} s (both processes beside this phase's other work), K2-bf16 launched "
+        f"{artifact_k2} times there as in the Tester; on a val frame its logits are "
         f"{rel:.3e} from the Tester's ss_test (relative L2, bound {ARTIFACT_REL_L2}) and its "
         f"labels equal on {same:.6f} of the pixels (bound {ARTIFACT_LABELS})")
     res.update({"export_s": export_s, "load_s": load_s, "artifact_bytes": size,
                 "artifact_rel_l2": rel, "artifact_labels": same})
-    del live
+    shutil.rmtree(root, ignore_errors=True)
+    results["launches"] = dict(total)
+    return results
+
+
+def _bf16_headline_rest(res, trainer, cfg, tc, frame, device, say, total, release,
+                        fp32_state, trees, fp32_peaks, root, quiet, also_start) -> dict:
+    """Phase 21 past the headline's training: (b) its restore, ``--phase val``
+    and ``ss_test``, the live ``Tester``'s logits on ``frame`` (``res['live']``),
+    its timed steps and host times with the background held (``quiet()``);
+    then ``also_start()`` and (c).  Returns the phase's results but the
+    artifact's."""
+    import torch
+
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.prefetch import device_batches
+    from contrastiveseg_tpu_torch.engine.tester import Tester
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.models import layers
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from contrastiveseg_tpu_torch.ops import conv_cuda
+    from tools.train_torch import run
+
+    results = {}
+    pallas_forward = layers.PallasConv3x3.forward
+    res.update(infer_from_latest(trainer, cfg, device, run, say))
+    for phase in ("val", "ss_test"):
+        if res[phase]["launches"]["conv3x3_fwd_bf16"] == 0 or res[phase]["launches"][
+                "conv3x3_fwd"]:
+            raise AssertionError(f"(b) {phase}: launches {res[phase]['launches']}")
+        total.update(res[phase]["launches"])
+    model = trainer.state.model.eval()
+    reset_counts()
+    with torch.no_grad():
+        res["live"] = Tester(tc, model, device).ss_test(torch.from_numpy(frame).to(device)).cpu()
+    res["live_k2"] = read_counts()["conv3x3_fwd_bf16"]
 
     # (b) Its train steps with K2 and without (its 64 K2 convs run as the nn.Conv2d they
     # subclass: cuDNN under autocast, what a net without network.pallas_conv runs), on
@@ -3455,25 +3620,26 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
     batches = [next(pipe) for _ in range(2)]
     pipe.close()
     timed = {}
-    for name in ("plain", "k2"):
-        if name == "plain":
-            layers.PallasConv3x3.forward = torch.nn.Conv2d.forward
-        try:
-            ms, counts = fixed_batch_steps(trainer, batches, HEADLINE_STEPS)
-        finally:
-            layers.PallasConv3x3.forward = pallas_forward
-        total.update(counts)
-        per_step = {"conv3x3_fwd_bf16": 2 * 64, "conv3x3_dw_bf16": 64} if name == "k2" else {}
-        if (any(counts[n] != per_step.get(n, 0) * HEADLINE_STEPS for n in conv_cuda.KERNELS)
-                or any(counts[n] != HEADLINE_STEPS for n in k1.KERNELS)):
-            raise AssertionError(f"(b) timed steps {name}: launches {counts}")
-        timed[name] = ms
-    results["headline"] = res
-    del model, batches
-    release(trainer)
-    shutil.rmtree(root / "headline", ignore_errors=True)
+    with quiet():  # nothing else runs while the steps and host times are taken
+        for name in ("plain", "k2"):
+            if name == "plain":
+                layers.PallasConv3x3.forward = torch.nn.Conv2d.forward
+            try:
+                ms, counts = fixed_batch_steps(trainer, batches, HEADLINE_STEPS)
+            finally:
+                layers.PallasConv3x3.forward = pallas_forward
+            total.update(counts)
+            per_step = ({"conv3x3_fwd_bf16": 2 * 64, "conv3x3_dw_bf16": 64} if name == "k2"
+                        else {})
+            if (any(counts[n] != per_step.get(n, 0) * HEADLINE_STEPS for n in conv_cuda.KERNELS)
+                    or any(counts[n] != HEADLINE_STEPS for n in k1.KERNELS)):
+                raise AssertionError(f"(b) timed steps {name}: launches {counts}")
+            timed[name] = ms
+        results["headline"] = res
+        del model, batches
+        release(trainer)
+        host = k2_host_us(device)
     medians = {k: statistics.median(v) for k, v in timed.items()}
-    host = k2_host_us(device)
     say(f"(b) the headline's train step in bf16 at batch 8 on two fixed device batches, "
         f"{HEADLINE_STEPS} steps after a warm-up: with K2 {[round(t, 1) for t in timed['k2']]} "
         f"ms (median {medians['k2']:.1f}; 128 forward/dX and 64 dW launches of K2-bf16 a step, "
@@ -3481,6 +3647,7 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
         f"{medians['plain']:.1f}): {medians['k2'] / medians['plain']:.3f}x; host us a branch-0 "
         "conv's forward and backward: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
     res.update({"timed_ms": timed, "medians_ms": medians, "host_us": host})
+    also_start()
 
     # (c) One bf16 step of a preset of each family, at batch 2.
     for family, preset, extra, tree in BF16_NETS:
@@ -3531,9 +3698,249 @@ def run_bf16_phase(device, data_dir: Path, trees: dict, bf16_run: dict,
         + f", {scores['images_per_sec']:.3f} images/s, peak {peak / 2**30:.3f} GiB (fp32 at "
         f"batch {SEGFIX_VAL_BATCH}, phase 17: {fp32_peak / 2**30:.3f} GiB), wall {wall:.1f} s")
     release(out.pop("trainer"))
-    shutil.rmtree(root, ignore_errors=True)
-    results["launches"] = dict(total)
     return results
+
+
+# Phase 22: timed steps of the headline with and without the DDP wrapper (after a
+# warm-up step each), on fixed device batches.
+DIST_STEPS = 4
+# K2-bf16's launches a step of the bf16 headline on one process (phase 21 (b)'s
+# timed steps hold them): the forward and dX of its 64 branch-0 convs, and their dW.
+K2_BF16_A_STEP = {"conv3x3_fwd_bf16": 2 * 64, "conv3x3_dw_bf16": 64}
+
+
+TORCHRUN_CKPT = ROOT / "build" / "chip_smoke_torchrun"
+
+
+def start_torchrun(data_dir: Path, device) -> Background:
+    """Phase 22 (b)'s run, in the background: ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1 tools/train_torch.py --preset
+    cityscapes_hrnet_w48_mem`` from ``data_dir`` at batch 2, 2 steps, validation
+    of the 4 val frames at batch 1 and ``latest`` in ``TORCHRUN_CKPT``."""
+    import sys
+
+    shutil.rmtree(TORCHRUN_CKPT, ignore_errors=True)
+    overrides = [
+        "data.synthetic=False", f"data.data_dir={data_dir}", "train.batch_size=2",
+        "val.batch_size=1", "solver.max_iters=2", "solver.test_interval=2",
+        "checkpoints.save_iters=0", "solver.display_iter=1", "contrast.warmup_iters=0",
+        f"checkpoints.checkpoints_dir={TORCHRUN_CKPT}"]
+    return Background([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node", "1", "tools/train_torch.py", "--preset",
+                        "cityscapes_hrnet_w48_mem", "--device", device.type] + overrides],
+                      timeout=600)
+
+
+@contextlib.contextmanager
+def world_of_one(device):
+    """A world-1 NCCL process group in this process (``parallel.init_from_env``
+    from torchrun's variables, set here and removed after), destroyed at the
+    end."""
+    import socket
+
+    import torch
+
+    from contrastiveseg_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if parallel.init_from_env(device.type) != device:
+            raise AssertionError(f"init_from_env gave another device than {device}")
+        yield
+    finally:
+        if parallel.distributed():
+            torch.distributed.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_dist_phase(device, data_dir: Path, torchrun: Background | None = None) -> dict:
+    """Phase 22, multi-GPU training at world size 1 on NCCL.  (a) the headline
+    at full width (the 190k-row bank, contrast live) at batch 8 of 512x1024
+    from phase 9's tree on fixed device batches: step 1 on one process
+    without a process group, then under a world-1 group through the DDP
+    wrapper, from the same seed, batch and anchor scores (the state's rng):
+    losses within rtol 1e-4, parameters atol 5e-3, the banks bit for bit, K1
+    once a step; ``DIST_STEPS`` timed steps of each, their medians and ratio
+    (DDP's cost on one card), the peak memory; (c) one step of the bf16
+    headline with ``network.pallas_conv`` under the wrapper, K2-bf16
+    launched as on one process (``K2_BF16_A_STEP``); (b) ``torchrun
+    --standalone --nproc_per_node 1 tools/train_torch.py --preset
+    cityscapes_hrnet_w48_mem`` at batch 2 for 2 steps from the tree, with
+    validation and ``latest``: exit 0, and ``latest`` restored into a
+    single-process trainer bit for bit.  ``torchrun``: (b)'s run, started
+    earlier (``start_torchrun``: ``main`` starts it beside phase 21 (c));
+    without it (b) starts it here."""
+    import gc
+
+    import torch
+
+    from contrastiveseg_tpu_torch import parallel
+    from contrastiveseg_tpu_torch.data.pipeline import build_pipeline
+    from contrastiveseg_tpu_torch.engine.prefetch import device_batches
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+
+    t_phase = time.perf_counter()
+
+    def say(msg: str) -> None:
+        print(f"[dist phase +{time.perf_counter() - t_phase:.1f} s] {msg}", flush=True)
+
+    root = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(root, ignore_errors=True)
+    total, res = collections.Counter(), {}
+    beside = torchrun is not None
+    if beside:  # done before (a) times its steps
+        torchrun.wait()
+
+    def release(trainer) -> None:
+        trainer.state = trainer.evaluator = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) One step and DIST_STEPS timed steps of the headline, without and with DDP.
+    cfg = directory_config("cityscapes_hrnet_w48_mem", data_dir, root / "ckpt",
+                           ["contrast.warmup_iters=0"])
+    pipe = device_batches(build_pipeline(cfg, "train").iter_from(0), device)
+    batches = [next(pipe) for _ in range(2)]
+    pipe.close()
+    runs = {}
+    for name in ("plain", "ddp"):
+        with world_of_one(device) if name == "ddp" else contextlib.nullcontext():
+            trainer = Trainer(cfg, device)
+            if (trainer.state.ddp is not None) != (name == "ddp"):
+                raise AssertionError(f"(a) {name}: DDP wrapper {trainer.state.ddp}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            metrics = {k: float(v) for k, v in trainer.train_step(trainer.state,
+                                                                   batches[0]).items()}
+            launches = read_counts()
+            bank = trainer.state.bank
+            runs[name] = {"metrics": metrics, "launches": launches,
+                          "params": {k: v.clone() for k, v in
+                                     trainer.state.model.state_dict().items()},
+                          # the queues (not the trash row of dead writes, which nothing reads)
+                          "bank": (bank.queues.clone(), bank.segment_ptr.clone(),
+                                   bank.pixel_ptr.clone())}
+            ms, counts = fixed_batch_steps(trainer, batches, DIST_STEPS)
+            torch.cuda.synchronize()
+            runs[name].update(ms=ms, counts=counts,
+                              peak=torch.cuda.max_memory_allocated(device))
+            total.update(launches)
+            total.update(counts)
+            if (any(launches[n] != 1 for n in k1.KERNELS)
+                    or any(counts[n] != DIST_STEPS for n in k1.KERNELS)):
+                raise AssertionError(f"(a) {name}: K1 launches {launches} in step 1, {counts} in "
+                                     f"{DIST_STEPS} timed steps; once a step expected")
+            if not (all(math.isfinite(v) for v in metrics.values())
+                    and metrics["loss_contrast"] > 0):
+                raise AssertionError(f"(a) {name} step 1: {metrics}")
+            release(trainer)
+    plain, ddp = runs["plain"], runs["ddp"]
+    rel = {k: abs(ddp["metrics"][k] - plain["metrics"][k]) / abs(plain["metrics"][k])
+           for k in ("loss", "loss_seg", "loss_contrast")}
+    param_err = max(float((ddp["params"][k].double() - v.double()).abs().max())
+                    for k, v in plain["params"].items() if v.is_floating_point())
+    same_bank = all(torch.equal(a, b) for a, b in zip(ddp["bank"], plain["bank"]))
+    moved = int((plain["bank"][1] != 0).sum())
+    if max(rel.values()) > 1e-4 or param_err > 5e-3 or not same_bank:
+        raise AssertionError(f"(a) step 1 under DDP against one process: losses {rel} (rtol "
+                             f"1e-4), parameters {param_err:.3e} (atol 5e-3), banks equal "
+                             f"{same_bank}")
+    medians = {k: statistics.median(runs[k]["ms"]) for k in runs}
+    say(f"(a) cityscapes_hrnet_w48_mem at batch 8, step 1 under DDP (world 1, NCCL) against "
+        f"one process: losses " + ", ".join(f"{k} {ddp['metrics'][k]:.6f} vs "
+                                            f"{plain['metrics'][k]:.6f} ({rel[k]:.2e})"
+                                            for k in rel)
+        + f" (rtol 1e-4); parameters {param_err:.3e} apart at most (atol 5e-3); banks equal bit "
+        f"for bit ({moved} classes' segment pointers moved); K1 once a step in both")
+    say(f"(a) {DIST_STEPS} steps on fixed device batches after a warm-up: one process "
+        f"{[round(t, 1) for t in plain['ms']]} ms (median {medians['plain']:.1f}), DDP "
+        f"{[round(t, 1) for t in ddp['ms']]} ms (median {medians['ddp']:.1f}): "
+        f"{medians['ddp'] / medians['plain']:.3f}x; peak {plain['peak'] / 2**30:.3f} GiB one "
+        f"process, {ddp['peak'] / 2**30:.3f} GiB DDP; {card_line()}")
+    res["a"] = {"rel": rel, "param_err": param_err, "medians_ms": medians,
+                "ms": {k: runs[k]["ms"] for k in runs},
+                "peak": {k: runs[k]["peak"] for k in runs}}
+    del runs, plain, ddp
+
+    # (c) The bf16 headline with K2 under the wrapper: K2-bf16 as on one process.
+    bcfg = cfg.updated("network.bf16", True).updated("network.pallas_conv", True)
+    with world_of_one(device):
+        trainer = Trainer(bcfg, device)
+        trainer.train_step(trainer.state, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        metrics = {k: float(v) for k, v in trainer.train_step(trainer.state, batches[1]).items()}
+        torch.cuda.synchronize()
+        launches = read_counts()
+        total.update(launches)
+        release(trainer)
+    want = {**{n: 0 for n in K2_OTHER_ROUTES}, **K2_BF16_A_STEP, **{n: 1 for n in k1.KERNELS}}
+    if any(launches[n] != v for n, v in want.items()) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"(c) the bf16 headline with K2 under DDP: launches {launches}, "
+                             f"expected {want}; metrics {metrics}")
+    say(f"(c) cityscapes_hrnet_w48_mem in bf16 with network.pallas_conv under DDP (world 1): "
+        f"loss {metrics['loss']:.6f}; K2-bf16 launches a step forward/dX "
+        f"{launches['conv3x3_fwd_bf16']}, dW {launches['conv3x3_dw_bf16']} (one process: "
+        f"{K2_BF16_A_STEP}), K1 {launches['infonce_pass1']} each")
+    res["c"] = {"launches": launches, "metrics": metrics}
+    del batches
+
+    # (b) The entry point under torchrun, then its latest in one process.
+    if torchrun is None:
+        torchrun = start_torchrun(data_dir, device)
+    (out, wall), = torchrun.wait() or [(None, 0.0)]
+    log = "" if out is None else out.stdout + out.stderr
+    lines = [ln for ln in log.splitlines() if re.search(r"iter \d+/2|val: mIoU", ln)]
+    ckpt = TORCHRUN_CKPT
+    latest = ckpt / "seg_cityscapes_latest.pt"
+    if out is None or out.returncode != 0 or len(lines) != 3 or not latest.is_file():
+        raise AssertionError(f"(b) torchrun tools/train_torch.py: exit "
+                             f"{None if out is None else out.returncode}, {latest} written "
+                             f"{latest.is_file()}:\n{log[-6000:]}")
+    tree = torch.load(latest, map_location=device, weights_only=True)
+    restored = Trainer(directory_config("cityscapes_hrnet_w48_mem", data_dir, ckpt, [
+        f"network.resume={latest}", "train.batch_size=2"]), device)
+    st = restored.state
+    sd = st.model.state_dict()
+    osd, want = st.optimizer.state_dict()["state"], tree["optimizer"]["state"]
+    exact = (st.ddp is None and st.step == tree["step"] == 2
+             and sd.keys() == tree["model"].keys()
+             and all(torch.equal(sd[k], tree["model"][k]) for k in sd)
+             and all(torch.equal(getattr(st.bank, k), tree["bank"][k])
+                     for k in ("storage", "segment_ptr", "pixel_ptr"))
+             and osd.keys() == want.keys()
+             and all(torch.equal(osd[i]["momentum_buffer"], want[i]["momentum_buffer"])
+                     for i in want))
+    release(restored)
+    if not exact:
+        raise AssertionError(f"(b) {latest} did not restore bit for bit into one process")
+    size = latest.stat().st_size
+    say(f"(b) torchrun --standalone --nproc_per_node 1 tools/train_torch.py --preset "
+        f"cityscapes_hrnet_w48_mem, batch 2, 2 steps, validation of the 4 val frames: exit 0 "
+        f"in {wall:.1f} s of wall time{' (beside phase 21 (c))' if beside else ''}; "
+        + " | ".join(ln.split(" ", 2)[-1] for ln in lines)
+        + f"; latest ({size / 2**20:.1f} MiB) restored into one process bit for bit (step, "
+        "weights, BN statistics, momenta, bank)")
+    res["b"] = {"wall": wall, "log": lines, "latest_bytes": size}
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(TORCHRUN_CKPT, ignore_errors=True)
+    res["launches"] = dict(total)
+    if parallel.distributed():
+        raise AssertionError("phase 22 left a process group behind")
+    return res
 
 
 def cudnn_sweep(tester, images, say=print) -> list[dict]:
@@ -3585,7 +3992,6 @@ def run_test_phase(device, data_dir: Path, checkpoint: str) -> dict:
     from contrastiveseg_tpu_torch.metrics.cityscapes_official import evaluate_dirs, find_pairs
     from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
     from contrastiveseg_tpu_torch.utils.png import read_png
-    from tools.export_torch import export_artifact
     from tools.serve_torch import make_server
     from tools.train_torch import run
 
@@ -3605,6 +4011,15 @@ def run_test_phase(device, data_dir: Path, checkpoint: str) -> dict:
                                "test.crop_size=[1024,512]"])
     say(f"val.batch_size and test.batch_size {TEST_BATCH} (at the preset's 4, and at 2 for "
         "ms_test's 1.25 scale, cuDNN picks FFT convolutions, PERF.md section 5)")
+    # The export (tools/export_torch.py, a process of its own, mostly host work) runs
+    # beside the validation and the tests; served at the end.
+    art = out_root / "w48_ss"
+    hw = tuple(next(build_pipeline(cfg.updated("test.batch_size", 1), "test")
+                    .epoch_iter(0))["image"].shape[1:3])
+    export = Background([[sys.executable, "tools/export_torch.py", "--preset",
+                          "cityscapes_hrnet_w48_mem", "--checkpoint", checkpoint,
+                          "--input-size", f"{hw[0]}x{hw[1]}", "--batch", "1", "--scope", "ss",
+                          "--out", str(art), "--device", str(device)]])
 
     def measured(c, phase):
         torch.cuda.synchronize()
@@ -3699,17 +4114,18 @@ def run_test_phase(device, data_dir: Path, checkpoint: str) -> dict:
     full = torch.from_numpy(next(build_pipeline(cfg.updated("test.batch_size", 2), "test")
                                  .epoch_iter(0))["image"]).to(device)
     sweep = cudnn_sweep(keep["tester"], full, say)
-    hw = tuple(full.shape[1:3])
+    if tuple(full.shape[1:3]) != hw:
+        raise AssertionError(f"the test frames are {tuple(full.shape[1:3])}, exported for {hw}")
     del full, images, off_logits, on_logits
 
-    # Export the same model and serve it.
-    art = out_root / "w48_ss"
-    t0 = time.perf_counter()
-    export_artifact(cfg, str(art), "ss", hw, 1, False, checkpoint, str(device))
-    export_s = time.perf_counter() - t0
+    # Serve the export of the same model.
+    (done, export_s), = export.wait() or [(None, 0.0)]
+    if done is None or done.returncode != 0:
+        raise AssertionError(f"tools/export_torch.py failed:\n"
+                             f"{'' if done is None else done.stderr[-4000:]}")
     size = (art.parent / "w48_ss.pt2").stat().st_size
-    say(f"export: --scope ss, batch 1, {hw[0]}x{hw[1]}: {size / 2**20:.1f} MiB in "
-          f"{export_s:.1f} s")
+    say(f"export: tools/export_torch.py --scope ss, batch 1, {hw[0]}x{hw[1]}: "
+        f"{size / 2**20:.1f} MiB in {export_s:.1f} s (beside the tests above)")
     t0 = time.perf_counter()
     httpd = make_server(str(art), 0)
     load_s = time.perf_counter() - t0
@@ -3854,11 +4270,16 @@ def main() -> None:
         fp32_peaks[name] = (tf["nets"][name]["peak"], tf["nets"][name]["batch"])
     fp32_peaks["segfix_hrnet"] = (sp["nets"]["cityscapes_segfix_hrnet"]["peak_val"],
                                   SEGFIX_VAL_BATCH)
+    torchrun = []  # phase 22 (b)'s run, started beside phase 21 (c)
     bp = run_bf16_phase(device, dr["data_dir"], {
         "cityscapes": cp["tree"], "data": dr["data_dir"], "lip": rp["lip_tree"],
         "pascal_context": jp["root"] / "pascal_context", "ade20k": jp["root"] / "ade20k"},
-        ex["bf16"], fp32_peaks)
+        ex["bf16"], fp32_peaks,
+        also_start=lambda: torchrun.append(start_torchrun(dr["data_dir"], device)))
     print(f"bf16 phase wall time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dp = run_dist_phase(device, dr["data_dir"], torchrun[0])
+    print(f"dist phase wall time {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(cp["tree"].parent, ignore_errors=True)
     shutil.rmtree(rp["lip_tree"], ignore_errors=True)
     shutil.rmtree(jp["root"], ignore_errors=True)
@@ -3953,6 +4374,14 @@ def main() -> None:
               if isinstance(r, dict) and "history" in r and n != "headline")
           + f"; segfix_hrnet val in bf16 peak {bp['segfix_hrnet']['peak'] / 2**30:.3f} GiB "
           f"(fp32 {bp['segfix_hrnet']['fp32_peak'] / 2**30:.3f} GiB) (same call)")
+    da = dp["a"]
+    med = da["medians_ms"]
+    print(f"dist phase: the headline at batch 8, {DIST_STEPS} steps on fixed device batches: "
+          f"one process median {med['plain']:.1f} ms, DDP at world 1 (NCCL) "
+          f"{med['ddp']:.1f} ms ({med['ddp'] / med['plain']:.3f}x), "
+          f"peak {da['peak']['plain'] / 2**30:.3f} / {da['peak']['ddp'] / 2**30:.3f} GiB; step 1 "
+          f"losses within {max(da['rel'].values()):.2e}, parameters {da['param_err']:.3e}, "
+          f"banks bit for bit; torchrun entry {dp['b']['wall']:.1f} s (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():
@@ -3997,6 +4426,8 @@ def main() -> None:
             "library_ms_events": b8["library_ms_events"],
             "shape": "x [8,48,128,256] bf16, w [48,48,3,3] bf16 (phase 21 (b)'s branch 0); ms and "
                      "library_ms: device time a call (torch.profiler), every kernel of the call",
+            "events_fallback": [k for k in ("kernels_us", "library_kernels_us")
+                                if EVENTS_KEY in b8[k]],
             "max_bf16_ulps": max(k2b["ulps"].values()) if "fwd" in name else None,
             "launches_val": bp["headline"]["val"]["launches"][name],
             "launches_ss_test": bp["headline"]["ss_test"]["launches"][name],
@@ -4040,6 +4471,7 @@ def main() -> None:
         row["launches_transformer_phase"] = tf["launches"].get(row["name"], 0)
         row["launches_extras_phase"] = ex["launches"].get(row["name"], 0)
         row["launches_bf16_phase"] = bp["launches"].get(row["name"], 0)
+        row["launches_dist_phase"] = dp["launches"].get(row["name"], 0)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -5,8 +5,14 @@ to the device is the trainer's (``engine/prefetch.py``).
 The port's copy of ``contrastiveseg_tpu/data/pipeline.py``, which replaces
 the reference's torch DataLoader + DistributedSampler
 (lib/datasets/data_loader.py:81-146).  Rank and world size come from
-``torch.distributed`` when it is initialised (0 and 1 otherwise): each rank
-makes its contiguous slice of every global batch.
+``torch.distributed`` when it is initialised (0 and 1 otherwise,
+``parallel.rank_and_world``): each rank makes its contiguous slice of every
+global batch or, with ``microbatches`` A > 1 (``solver.grad_accum_steps``),
+its slice of each of the A microbatches of the global batch, so that the
+ranks' microbatch i together are the JAX step's rows [i*G/A, (i+1)*G/A).
+Every sample of a split counts exactly once over the ranks: a training
+epoch drops the samples past the last full global batch, and an evaluation
+epoch deals them out one a rank in turn.
 
 Parallelism (`data.workers`, the reference's DataLoader num_workers): a
 thread pool, not processes.  The hot aug kernels (bicubic window resize,
@@ -32,6 +38,7 @@ import numpy as np
 from contrastiveseg_tpu_torch.data.collate import collate
 from contrastiveseg_tpu_torch.data.datasets import build_dataset
 from contrastiveseg_tpu_torch.data.transforms import Compose, Normalizer, build_train_transforms
+from contrastiveseg_tpu_torch.parallel import rank_and_world
 
 
 def in_background(items: Iterable, maxsize: int) -> Iterator:
@@ -94,6 +101,7 @@ class DataPipeline:
         shard_index: int = 0,
         prefetch: int = 2,
         num_workers: int = 0,
+        microbatches: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -112,9 +120,22 @@ class DataPipeline:
         self.shard_index = shard_index
         self.prefetch = prefetch
         self.num_workers = max(0, min(int(num_workers), 32))
+        self.microbatches = microbatches
+        if batch_size % microbatches:
+            raise ValueError(f"a rank's batch of {batch_size} does not split into "
+                             f"{microbatches} microbatches")
+
+    def _shard_len(self) -> int:
+        """The number of samples ``_epoch_indices`` gives this shard."""
+        G = self.batch_size * self.num_shards
+        full, rest = divmod(len(self.dataset), G)
+        n = full * self.batch_size
+        if not self.drop_last:
+            n += len(range(self.shard_index, rest, self.num_shards))
+        return n
 
     def __len__(self) -> int:
-        n = len(self.dataset) // self.num_shards
+        n = self._shard_len()
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -133,11 +154,14 @@ class DataPipeline:
         # Per-batch CONTIGUOUS rank slices: global batch b is
         # idx[b*G:(b+1)*G] and rank p owns rows [p*L:(p+1)*L] of it, so the
         # ranks' batches stacked in rank order are the single-process stream.
-        L, S = self.batch_size, self.num_shards
+        # With A microbatches rank p owns rows [p*L/A:(p+1)*L/A] of each.
+        L, S, A = self.batch_size, self.num_shards, self.microbatches
         G = L * S
         nb = len(idx) // G
-        head = idx[: nb * G].reshape(nb, S, L)[:, self.shard_index].reshape(-1)
-        # Remainder (only reachable with drop_last=False): strided split.
+        head = idx[: nb * G].reshape(nb, A, S, L // A)[:, :, self.shard_index].reshape(-1)
+        if self.drop_last:  # every rank takes the same number of batches
+            return head
+        # The rest, one a rank in turn: each sample once over the ranks.
         tail = idx[nb * G :][self.shard_index :: S]
         return np.concatenate([head, tail])
 
@@ -229,15 +253,6 @@ class DataPipeline:
             epoch, b = epoch + 1, 0
 
 
-def rank_and_world() -> tuple[int, int]:
-    """(rank, world size) of ``torch.distributed``, or (0, 1) outside it."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def build_pipeline(cfg, split: str = "train", dataset=None) -> DataPipeline:
     dataset = dataset or build_dataset(cfg, split)
     section = "train" if split == "train" else split
@@ -279,4 +294,6 @@ def build_pipeline(cfg, split: str = "train", dataset=None) -> DataPipeline:
         num_shards=world,
         shard_index=rank,
         num_workers=workers // world if world > 1 else workers,
+        microbatches=(cfg.get("solver.grad_accum_steps", default=1)
+                      if split == "train" else 1),
     )

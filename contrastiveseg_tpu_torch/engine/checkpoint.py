@@ -13,6 +13,11 @@ reference's (module_runner.py:186-214): ``latest`` always, plus
 The on-disk format is the port's own: one ``torch.save`` file
 ``{dir}/{name}_{tag}.pt``, written to a temporary name and then renamed,
 plus the config as ``{dir}/{name}_{tag}.pt.config.json``.
+
+Under a process group every rank holds the same state (the parameters
+after DDP's mean, the global BN statistics, one global bank), so rank 0
+alone writes, as the JAX package's process 0 does (:50, 58), and every rank
+waits at a barrier until the file is there; every rank restores.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from contrastiveseg_tpu_torch.engine.state import TrainState
+from contrastiveseg_tpu_torch.parallel import barrier, is_main
 
 
 def state_dict(state: TrainState) -> dict:
@@ -85,12 +91,15 @@ class CheckpointManager:
         return os.path.join(self.dir, f"{self.name}_{tag}.pt")
 
     def save(self, state: TrainState, tag: str = "latest") -> str:
+        """Write the ``tag`` checkpoint (rank 0; the others wait for it)."""
         path = self._path(tag)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state_dict(state), tmp)
-        os.replace(tmp, path)
-        with open(path + ".config.json", "w") as f:
-            json.dump(self.config_dict, f, indent=2)
+        if is_main():
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(state_dict(state), tmp)
+            os.replace(tmp, path)
+            with open(path + ".config.json", "w") as f:
+                json.dump(self.config_dict, f, indent=2)
+        barrier()
         return path
 
     def save_by_mode(self, state: TrainState, save_mode: str,

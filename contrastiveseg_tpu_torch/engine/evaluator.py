@@ -17,7 +17,14 @@ and MLDirectionTask, segmentor/tools/evaluator/tasks.py:47-246) take the
 the labels' size, and their argmax: ``SegFixEvaluator`` scores the
 boundary mask and the directions on the device, ``MLDirectionEvaluator``
 (``val.evaluator=ml_dir``) the multi-label directions of ``ml_dir_label``
-on the host.  Not ported: the mesh padding of short batches (one device).
+on the host.
+
+Under a process group each rank scores its shard of the val split
+(``data/pipeline.py`` deals every frame to one rank) with the model
+unwrapped, in eval mode, so no collective runs per batch and the ranks may
+take different numbers of batches; the confusion matrices (and the counts)
+are summed over the ranks at the end, which is the JAX evaluator's mesh
+step over padded batches (:80-99, 129-130) without the padding.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from contrastiveseg_tpu_torch.metrics.counters import MultiLabelRunningScore
 from contrastiveseg_tpu_torch.metrics.running_score import RunningScore
 from contrastiveseg_tpu_torch.ops.confusion import confusion_matrix
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from contrastiveseg_tpu_torch.parallel import all_reduce_sum, distributed
 
 
 def _swap_channels(seg: torch.Tensor, pairs: Sequence[tuple[int, int]]) -> torch.Tensor:
@@ -83,12 +91,24 @@ class Evaluator:
             for batch in device_batches(batches, device):
                 total += self.confusion(batch["image"], batch["label"])
                 n_images += batch["image"].shape[0]
+            (total,), n_images = _summed([total], n_images)
             self.score.update_confusion(total)  # syncs the device
         finally:
             self.model.train(was_training)
         scores = self.score.get_scores()
         scores["images_per_sec"] = n_images / max(time.perf_counter() - t0, 1e-9)
         return scores
+
+
+def _summed(totals: list[torch.Tensor], n_images: int) -> tuple[list[torch.Tensor], int]:
+    """``totals`` and ``n_images`` summed over the ranks, in one all-reduce;
+    as they are without a process group."""
+    if not distributed():
+        return totals, n_images
+    summed = all_reduce_sum(torch.cat([t.reshape(-1) for t in totals]
+                                      + [totals[0].new_tensor([n_images])]))
+    parts = summed[:-1].split([t.numel() for t in totals])
+    return [p.view_as(t) for p, t in zip(parts, totals)], int(summed[-1])
 
 
 class _OffsetEvaluator:
@@ -155,6 +175,7 @@ class SegFixEvaluator(_OffsetEvaluator):
             totals[1] += confusion_matrix(dir_pred, torch.where(boundary, gt_dir, -1), d)
             totals[2] += confusion_matrix(torch.where(boundary, dir_pred, d), gt_dir, d + 1)
             n_images += batch["image"].shape[0]
+        totals, n_images = _summed(totals, n_images)
         for score, total in zip((self.mask_score, self.dir_mask_score, self.dir_gt_score),
                                 totals):
             score.update_confusion(total)
@@ -208,6 +229,11 @@ class MLDirectionEvaluator(_OffsetEvaluator):
                 self.score_gt.update(dir_pred.reshape(-1), gt_ml[b].reshape(-1, 8),
                                      ((gt_mask[b] == 1) & valid_gt).reshape(-1))
             n_images += mask_pred.shape[0]
+        counts = torch.tensor([self.score_mask.correct, self.score_mask.total,
+                               self.score_gt.correct, self.score_gt.total], device=device)
+        (counts,), n_images = _summed([counts], n_images)
+        (self.score_mask.correct, self.score_mask.total, self.score_gt.correct,
+         self.score_gt.total) = counts.tolist()
         scores = {"ml_dir_acc_mask": self.score_mask.get_mean_acc(),
                   "ml_dir_acc_gt": self.score_gt.get_mean_acc()}
         scores["miou"] = scores["ml_dir_acc_gt"]  # the headline (tasks.py:171)

@@ -34,6 +34,9 @@ class TrainState:
     device: torch.device
     step: int = 0
     key_params: Optional[dict[str, torch.Tensor]] = None  # contrast.momentum_encoder
+    # The model's DistributedDataParallel wrapper under a process group
+    # (``parallel.data_parallel``); the train step's query forward runs it.
+    ddp: Optional[nn.Module] = None
 
 
 def split(generator: torch.Generator, n: int) -> list[int]:

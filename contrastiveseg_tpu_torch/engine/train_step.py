@@ -32,10 +32,36 @@ global generator is left as it was.  Anchor sampling and the enqueue draw
 from their own device generators.  ``draws`` replaces those two with given
 uniform scores, one ``Draws`` a microbatch (the parity tests pass the JAX
 package's draws).
+
+Under a process group (``parallel``; ``torchrun`` and the trainer start it)
+each rank holds its rows of the global batch, and the step computes what
+the JAX package's global-view step computes on the whole of it:
+
+* the query forward runs through ``state.ddp``, the model's
+  ``DistributedDataParallel`` wrapper, whose mean of the ranks' gradients
+  the losses are scaled for (``losses/ce.py``,
+  ``ops/contrast.global_anchor_sample``); every BatchNorm normalises over
+  the global batch, the key encoder's gradient-free forward too
+  (``models/layers.GlobalBatchNorm``);
+* with ``grad_accum_steps`` > 1 every microbatch but the last runs under
+  ``no_sync()``; a rank's microbatch i is its share of the global
+  microbatch i (``data/pipeline.py``);
+* the anchor and enqueue draws are global ([B_global, C, N], ``draws``
+  carries those) and the same on every rank, since every rank's state rng
+  is seeded alike; dropout's differ by rank (its seed plus the rank);
+* the keys and strided labels of the global batch are gathered in rank
+  order and enqueued on every rank with the global scores, so the ranks'
+  banks stay equal bit for bit;
+* the metrics are the ranks' mean, the global batch's.
+
+DDP's ``find_unused_parameters`` is off: a net whose loss leaves a
+parameter without a gradient (CE2P's edge branch under ``fs_auxce_loss``)
+raises under it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -45,6 +71,12 @@ from contrastiveseg_tpu_torch.engine.state import TrainState, device_generator, 
 from contrastiveseg_tpu_torch.losses.contrast import AnchorScores
 from contrastiveseg_tpu_torch.ops.queue import enqueue
 from contrastiveseg_tpu_torch.ops.resize import subsample_stride
+from contrastiveseg_tpu_torch.parallel import (
+    all_gather_cat,
+    all_reduce_sum,
+    distributed,
+    rank_and_world,
+)
 
 
 class Draws(NamedTuple):
@@ -108,8 +140,10 @@ def make_train_step(
         seeds = split(state.generator, 3 * A)
         with_embed = state.step >= warmup_iters
         model = state.model
-        set_train_mode(model, freeze_bn)
+        net = state.ddp if state.ddp is not None else model
+        set_train_mode(net, freeze_bn)
         devices = [state.device] if state.device.type == "cuda" else []
+        rank, world = rank_and_world()
         # The EMA fires once a step; the single-program JAX step updates the
         # key parameters only where it has a bank (:104), the microbatched
         # one always (:161-165).
@@ -121,12 +155,16 @@ def make_train_step(
         pending, metrics = [], []
         for i, (img, lab) in enumerate(zip(images.chunk(A), labels.chunk(A))):
             s_drop, s_sample, s_queue = seeds[3 * i:3 * i + 3]
+            s_drop += rank
             d = draws[i] if draws is not None else None
-            out = forward(model, img, s_drop, devices)
-            loss, m = loss_fn(out, lab, with_embed, state.bank,
-                              scores=d.anchor if d is not None else None,
-                              generator=device_generator(s_sample, state.device))
-            loss.backward()
+            sync = (state.ddp.no_sync() if state.ddp is not None and i < A - 1
+                    else contextlib.nullcontext())
+            with sync:
+                out = forward(net, img, s_drop, devices)
+                loss, m = loss_fn(out, lab, with_embed, state.bank,
+                                  scores=d.anchor if d is not None else None,
+                                  generator=device_generator(s_sample, state.device))
+                loss.backward()
             metrics.append({k: v.detach() for k, v in m.items()})
             if state.bank is not None:
                 # Reference _dequeue_and_enqueue (trainer_contrastive.py:102-138):
@@ -140,8 +178,11 @@ def make_train_step(
             del out, loss, m
         for keys, lab, s_queue, d in pending:
             b, h, w, D = keys.shape
-            lab_s = subsample_stride(lab, network_stride)[:, :h, :w]
-            enqueue(state.bank, keys.reshape(b, h * w, D), lab_s.reshape(b, -1),
+            lab_s = subsample_stride(lab, network_stride)[:, :h, :w].reshape(b, -1)
+            keys = keys.reshape(b, h * w, D)
+            if distributed():  # the global batch's, in rank order
+                keys, lab_s = all_gather_cat(keys), all_gather_cat(lab_s.contiguous())
+            enqueue(state.bank, keys, lab_s,
                     pixel_update_freq=pixel_update_freq,
                     include_class0=queue_include_class0,
                     scores=d.queue if d is not None else None,
@@ -151,6 +192,10 @@ def make_train_step(
             # fs_auxce_loss) still takes its weight decay and momentum, as
             # every parameter does in the JAX step; torch's SGD would skip it.
             if p.grad is None and p.requires_grad:
+                if state.ddp is not None:  # DDP's reducer would fail at the next step
+                    raise NotImplementedError(
+                        "under DistributedDataParallel every parameter must be reached by "
+                        "the loss (find_unused_parameters is off): ROADMAP §1 item 4")
                 p.grad = torch.zeros_like(p)
             elif A > 1 and p.grad is not None:
                 p.grad.div_(A)  # the mean gradient, summed first as in JAX (:220)
@@ -158,8 +203,11 @@ def make_train_step(
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        if A == 1:
-            return metrics[0]
-        return {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+        out = {k: torch.stack([m[k] for m in metrics]).mean() if A > 1 else metrics[0][k]
+               for k in metrics[0]}
+        if distributed():  # the ranks' mean: the global batch's metrics
+            mean = all_reduce_sum(torch.stack(list(out.values()))) / world
+            out = dict(zip(out, mean.unbind()))
+        return out
 
     return train_step

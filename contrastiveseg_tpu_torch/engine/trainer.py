@@ -1,4 +1,4 @@
-"""Trainer of the port: train steps, validation and checkpoints on one device.
+"""Trainer of the port: train steps, validation and checkpoints.
 
 Counterpart of ``Trainer`` in ``contrastiveseg_tpu/engine/trainer.py``
 (``__init__`` :31-172, ``request_stop`` and the preemption handlers
@@ -20,7 +20,8 @@ pipeline at epoch 0 instead (ROADMAP §3).  The step's metrics stay on the
 device and are read in one sync every ``solver.display_iter`` steps, at the
 end and on a stop.  ``train.preempt_signals`` (SIGTERM and SIGINT by
 default) ask for a stop: ``latest`` is saved at the next step boundary and
-``train`` returns.
+``train`` returns (under a process group at the end of the display window,
+every rank together).
 
 The train step hands the loss the label map alone, as the JAX trainer does
 (``engine/trainer.py:232``): SegFix's loss needs its offset targets, so a
@@ -36,8 +37,19 @@ re-estimated over 20 train batches (``engine/swa.reestimate_bn``, JAX
 :345-382) and the model validated (:335-341).  Under ``lr.lr_policy=plateau``
 each validation's mIoU steps a ``PlateauController`` whose scale
 multiplies the LR (:141-146, 316-324).  A run that stops early (a preempt
-signal) saves without the swap.  Multi-GPU (ROADMAP §1 item 4) is not
-ported.
+signal) saves without the swap.
+
+On more GPUs (``torchrun``; ``tools/train_torch.py`` starts the process
+group, ``parallel.init_from_env``) the trainer is the JAX trainer on its
+device mesh (:40): every rank builds and restores the same state, wraps the
+model in ``DistributedDataParallel`` (``state.ddp``) and trains on its
+slice of each global batch, the step computing the global batch's step
+(``engine/train_step.py``); validation scores each rank's shard with the
+unwrapped model and sums the confusions, so the mIoU that saves by
+performance and steps the plateau controller is the global one; SWA's BN
+re-estimation normalises over the global batch; rank 0 alone logs and
+writes checkpoints, the others waiting at a barrier
+(``engine/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -67,8 +79,20 @@ from contrastiveseg_tpu_torch.engine.swa import (
 from contrastiveseg_tpu_torch.engine.train_step import make_train_step
 from contrastiveseg_tpu_torch.losses.manager import build_loss
 from contrastiveseg_tpu_torch.models.nets import build_model
+from contrastiveseg_tpu_torch.parallel import (
+    all_reduce_sum,
+    data_parallel,
+    distributed,
+    is_main,
+)
 
 log = logging.getLogger(__name__)
+
+
+def _info(*args) -> None:
+    """``log.info`` on rank 0 (or the one process)."""
+    if is_main():
+        log.info(*args)
 
 
 def check_supported(cfg) -> None:
@@ -90,6 +114,8 @@ class Trainer:
         check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        if distributed() and self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.max_iters = cfg.get("solver.max_iters", default=40000)
         self.loss_fn = build_loss(cfg)
         self.ckpt = CheckpointManager(
@@ -105,7 +131,7 @@ class Trainer:
                       else cfg.get("network.pretrained", default=None))
         self.state = create_train_state(cfg, build_model(cfg), self.device, pretrained)
         if pretrained:
-            log.info("loaded pretrained weights from %s", pretrained)
+            _info("loaded pretrained weights from %s", pretrained)
         self.train_step = make_train_step(
             self.loss_fn,
             warmup_iters=cfg.get("contrast.warmup_iters", default=0),
@@ -126,10 +152,12 @@ class Trainer:
         self._stop_signal: Optional[str] = None
         if resume:
             self.ckpt.restore(self.state, path=resume)
-            log.info("resumed from %s at step %d", resume, self.state.step)
+            _info("resumed from %s at step %d", resume, self.state.step)
         elif resume_latest:
             self.ckpt.restore(self.state)
-            log.info("resumed latest at step %d", self.state.step)
+            _info("resumed latest at step %d", self.state.step)
+        if distributed():
+            self.state.ddp = data_parallel(self.state.model, self.device)
 
     def request_stop(self, why: str = "request_stop") -> None:
         """Ask the train loop to stop at the next step boundary.  Safe to
@@ -150,6 +178,18 @@ class Trainer:
                     getattr(signal, name),
                     lambda signum, frame, name=name: self.request_stop(name))
                 for name in names}
+
+    def _stopping(self, window_end: bool) -> bool:
+        """Whether to stop after this step: at once on a stop request, or
+        under a process group at the end of a display window where some rank
+        had one, all ranks together (one all-reduce at the window's sync;
+        a rank that stopped alone would leave the others in a collective)."""
+        if not distributed():
+            return self._stop_signal is not None
+        if not window_end:
+            return False
+        flag = torch.tensor([self._stop_signal is not None], device=self.device)
+        return bool(all_reduce_sum(flag.int()).item())
 
     def train(self, max_iters: Optional[int] = None) -> list[dict[str, float]]:
         """Run the steps; returns one row a step: its losses, and the wall
@@ -179,7 +219,7 @@ class Trainer:
                 row["data_seconds"] = t_data / len(rows)
             history.extend(rows)
             last = rows[-1]
-            log.info(
+            _info(
                 "iter %d/%d loss %.4f seg %.4f contrast %.4f (%.2f img/s, data %.3f s, "
                 "step %.3f s)", len(history) + step0, max_iters, last["loss"],
                 last.get("loss_seg", 0.0), last.get("loss_contrast", 0.0),
@@ -198,12 +238,14 @@ class Trainer:
                 t_data += time.perf_counter() - td
                 window.append(self.train_step(self.state, batch))
                 images += batch["image"].shape[0]
-                if (it + 1) % display_iter == 0 or it + 1 == max_iters or self._stop_signal:
+                window_end = (it + 1) % display_iter == 0 or it + 1 == max_iters
+                stop = self._stopping(window_end)
+                if window_end or stop:
                     flush()
                 tp = time.perf_counter()
                 if swa is not None and swa_due(it + 1, max_iters):
                     update_swa(swa, self.state.model)
-                    log.info("SWA update %d at iter %d", swa.n_averaged, it + 1)
+                    _info("SWA update %d at iter %d", swa.n_averaged, it + 1)
                 if save_iters and (it + 1) % save_iters == 0:
                     self.ckpt.save(self.state, "latest")
                 if test_interval and (it + 1) % test_interval == 0:
@@ -212,11 +254,11 @@ class Trainer:
                         set_plateau_scale(self.state.scheduler,
                                           self.plateau.step(scores["miou"]))
                 t0 += time.perf_counter() - tp  # the window times steps only
-                if self._stop_signal:
+                if stop:
                     self.ckpt.save(self.state, "latest")
-                    log.info("%s received: full state saved at iter %d; restart with "
-                             "network.resume_continue=true to resume",
-                             self._stop_signal, it + 1)
+                    _info("%s received: full state saved at iter %d; restart with "
+                          "network.resume_continue=true to resume",
+                          self._stop_signal or "a stop on another rank", it + 1)
                     return history
             if swa is not None and swa.n_averaged:
                 # swap_swa_sgd + bn_update (trainer_contrastive.py:422-425).
@@ -235,7 +277,7 @@ class Trainer:
         if self._val_pipe is None:
             self._val_pipe = build_pipeline(self.cfg, "val")
         scores = self.evaluator.run(self._val_pipe.epoch_iter(0), self.device)
-        log.info("val: mIoU %.4f pixel_acc %.4f (%.2f img/s)", scores["miou"],
+        _info("val: mIoU %.4f pixel_acc %.4f (%.2f img/s)", scores["miou"],
                  scores["pixel_acc"], scores["images_per_sec"])
         self.ckpt.save_by_mode(self.state, "performance", performance=scores["miou"])
         self.last_scores = scores

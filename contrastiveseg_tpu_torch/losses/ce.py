@@ -5,6 +5,13 @@ and FSAuxCELoss, loss_helper.py:169-313): per-class weights with the mean
 taken over the sum of the contributing weights, ``ignore_index`` pixels
 dropped from numerator and denominator.  Logits are NHWC [B, H, W, C],
 labels [B, H, W].
+
+Under a process group the mean is the global batch's, as in the JAX
+package's global-view step: each rank returns its own weighted sum over the
+all-reduced sum of the weights, times the world size, so that the ranks'
+mean is the global CE and DDP's mean of their gradients its gradient (a
+rank's count of ignored pixels differs from another's).  OHEM's threshold
+is a global order statistic: it raises at world size > 1.
 """
 
 from __future__ import annotations
@@ -16,6 +23,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from contrastiveseg_tpu_torch.ops.resize import align_corners_matrix, scale_target_nearest
+from contrastiveseg_tpu_torch.parallel import (
+    all_reduce_sum,
+    distributed,
+    refuse_beyond_one_rank,
+    world_size,
+)
 
 
 def _weights(safe: torch.Tensor, valid: torch.Tensor,
@@ -23,6 +36,14 @@ def _weights(safe: torch.Tensor, valid: torch.Tensor,
     w = (class_weight[safe] if class_weight is not None
          else torch.ones(safe.shape, dtype=torch.float32, device=safe.device))
     return torch.where(valid, w, 0.0)
+
+
+def _mean(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / den``, the weighted mean; under a process group the rank's
+    share of the global batch's (module docstring)."""
+    if distributed():
+        return num * world_size() / all_reduce_sum(den).clamp(min=1e-12)
+    return num / den.clamp(min=1e-12)
 
 
 def _class_weight(class_weight, device) -> Optional[torch.Tensor]:
@@ -46,7 +67,7 @@ def cross_entropy(
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     w = _weights(safe, valid, _class_weight(class_weight, logits.device))
-    return (nll * w).sum() / w.sum().clamp(min=1e-12)
+    return _mean((nll * w).sum(), w.sum())
 
 
 def ohem_cross_entropy(
@@ -66,6 +87,7 @@ def ohem_cross_entropy(
     from a full sort indexed by a device tensor (no host sync); its value,
     and so the kept set, does not depend on how ties are ordered.
     """
+    refuse_beyond_one_rank("OHEM cross-entropy")
     if logits.shape[1:3] != labels.shape[1:3]:
         labels = scale_target_nearest(labels, (logits.shape[1], logits.shape[2]))
     C = logits.shape[-1]
@@ -142,4 +164,4 @@ def upsampled_cross_entropy(
             _block_loss, seg_t, a_h[r0:r0 + row_block], a_w,
             labels[:, r0:r0 + row_block], cw, ignore_index,
             use_reentrant=False)
-    return total[0] / total[1].clamp(min=1e-12)
+    return _mean(total[0], total[1])

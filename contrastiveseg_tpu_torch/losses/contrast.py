@@ -8,7 +8,9 @@ Counterpart of ``contrastiveseg_tpu/losses/contrast.py``:
   logits (:95-101); with ``seg_loss_kind`` "rmi" (``contrast.use_rmi``) the
   RMI loss of the upsampled seg logits, plus the aux CE with ``use_aux``
   (:73-88), and with "lovasz" (``contrast.use_lovasz``) CE + Lovasz of the
-  upsampled seg logits (:89-94).  The contrast term samples hard anchors and scores them
+  upsampled seg logits (:89-94).  The contrast term samples hard anchors (those
+  of the global batch under a process group, ``ops/contrast.global_anchor_sample``,
+  with the CE's mean the global batch's too, ``losses/ce.py``) and scores them
   against the memory bank through K1 (``ops/contrast_cuda.py``, whose
   wrappers launch the CUDA kernels for CUDA tensors and take the plain
   version for CPU tensors), or, with no bank, against each other in the
@@ -35,7 +37,7 @@ from contrastiveseg_tpu_torch.losses.lovasz import ce_lovasz_loss
 from contrastiveseg_tpu_torch.losses.rmi import rmi_loss
 from contrastiveseg_tpu_torch.ops.contrast import (
     ContrastSpec,
-    hard_anchor_sample,
+    global_anchor_sample,
     pixel_contrast_loss,
 )
 from contrastiveseg_tpu_torch.ops.contrast_cuda import cuda_contrastive_loss
@@ -106,7 +108,7 @@ class ContrastCELoss:
             q_f, q_l, q_v = bank_as_contrast_set(bank, self.include_class0)
             B, H, W, D = embed.shape
             labels_s = scale_target_nearest(targets, (H, W)).reshape(B, H * W)
-            anchors = hard_anchor_sample(
+            anchors = global_anchor_sample(
                 embed.reshape(B, H * W, D), labels_s, predict.reshape(B, H * W),
                 self.spec, scores=scores, generator=generator)
             contrast = cuda_contrastive_loss(

@@ -19,6 +19,7 @@ import torch
 
 from contrastiveseg_tpu_torch.losses.ce import cross_entropy
 from contrastiveseg_tpu_torch.ops.resize import scale_target_nearest
+from contrastiveseg_tpu_torch.parallel import refuse_beyond_one_rank
 
 
 def _lovasz_grad(fg_sorted: torch.Tensor) -> torch.Tensor:
@@ -57,7 +58,9 @@ def ce_lovasz_loss(logits: torch.Tensor, labels: torch.Tensor,
                    class_weight: Optional[Sequence[float]] = None,
                    ignore_index: int = -1) -> torch.Tensor:
     """FSCELOVASZLoss (loss_helper.py:77-130): CE plus the Lovasz-Softmax
-    over the present classes, the labels resized (nearest) to the logits."""
+    over the present classes, the labels resized (nearest) to the logits.
+    Raises at world size > 1 (``parallel``)."""
+    refuse_beyond_one_rank("the Lovasz-Softmax loss")
     if logits.shape[1:3] != labels.shape[1:3]:
         labels = scale_target_nearest(labels, (logits.shape[1], logits.shape[2]))
     ce = cross_entropy(logits, labels, class_weight, ignore_index)

@@ -26,6 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from contrastiveseg_tpu_torch.parallel import refuse_beyond_one_rank
+
 _CLIP_MIN = 1e-6
 _POS_ALPHA = 1e-3
 
@@ -86,7 +88,8 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int, radiu
     """The masked sigmoid BCE (sum over the valid pixels / (their count +
     1)) and the RMI bound, mixed by ``weight_lambda`` (``lambda_way`` 1:
     ``l * bce + (1 - l) * rmi``; 0: ``bce + l * rmi``), times
-    ``loss_weight``."""
+    ``loss_weight``.  Raises at world size > 1 (``parallel``)."""
+    refuse_beyond_one_rank("the RMI loss")
     valid = (labels >= 0) & (labels < num_classes)
     safe = labels.clamp(0, num_classes - 1).long()
     mask = valid[..., None].float()

@@ -7,7 +7,10 @@ names that ``contrastiveseg_tpu.utils.torch_import`` maps.
 
 BatchNorm uses torch's defaults (eps 1e-5, momentum 0.1), as the JAX
 package does, and updates ``running_var`` with the *biased* batch variance,
-as flax does (torch's own BatchNorm uses the unbiased one).
+as flax does (torch's own BatchNorm uses the unbiased one).  Under a process
+group of more than one rank a train-mode BatchNorm normalises with the
+statistics of the global batch (``GlobalBatchNorm``), as the JAX package's
+global-view step does whatever ``bn_type`` says.
 
 ``pallas=True`` routes the eligible 3x3 convs (``ops/conv.supported``)
 through K2, the CUDA counterpart of the JAX package's Pallas conv, under
@@ -32,14 +35,65 @@ from torch import nn
 from contrastiveseg_tpu_torch.ops.conv import supported
 from contrastiveseg_tpu_torch.ops.conv_cuda import conv3x3, traced
 from contrastiveseg_tpu_torch.ops.resize import resize_bilinear_half_pixel_nchw
+from contrastiveseg_tpu_torch.parallel import all_reduce_sum, world_size
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of every rank, in fp32:
+    ``(y, mean, var)`` from ``(x, weight, bias, eps)``, ``var`` biased.
+
+    Two passes, as the exact BN of one process: an all-reduce of each
+    channel's sum and count gives the mean, a second one of the sum of
+    squared deviations from it the variance (not E[x^2] - E[x]^2, whose
+    cancellation a randomly initialised HRNet shows).  The backward
+    all-reduces each channel's sum of dy and of dy * x_hat, so that dX is
+    the global batch's; dweight and dbias are the rank's own sums, which
+    DDP's mean over the ranks makes the global gradient's.  Plain PyTorch:
+    ``nn.SyncBatchNorm`` refuses CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0, *range(2, x.dim())]
+        xf = x.float()
+        stats = all_reduce_sum(torch.cat([xf.sum(dims), xf.new_full((1,), xf.numel()
+                                                                     // xf.shape[1])]))
+        n, mean = stats[-1], stats[:-1] / stats[-1]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xc = xf - mean.view(shape)
+        var = all_reduce_sum((xc * xc).sum(dims)) / n
+        invstd = torch.rsqrt(var + eps)
+        y = xc * invstd.view(shape)
+        if weight is not None:
+            y = y * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dims = [0, *range(2, x.dim())]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dyf = dy.float()
+        x_hat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        local = torch.cat([dyf.sum(dims), (dyf * x_hat).sum(dims)])
+        sum_dy, sum_dy_xhat = all_reduce_sum(local).chunk(2)
+        scale = invstd if weight is None else invstd * weight
+        dx = scale.view(shape) * (dyf - (sum_dy / n).view(shape)
+                                  - x_hat * (sum_dy_xhat / n).view(shape))
+        d_bias, d_weight = local.chunk(2)
+        if weight is None:
+            d_weight = d_bias = None
+        return dx.to(x.dtype), d_weight, d_bias, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose running variance takes the biased batch
-    variance, as flax's does.
+    variance, as flax's does, and whose train-mode statistics are the
+    global batch's under more than one rank (``GlobalBatchNorm``).
 
     cuDNN's batch norm updates ``running_var`` with the unbiased variance
     n/(n-1)·v, n = B·H·W.  Scaling the buffer by n/(n-1) before the call and
@@ -47,16 +101,29 @@ class BatchNorm2d(nn.BatchNorm2d):
     of a C-length buffer, no extra pass over the activations.  They go
     through ``.data``: the op records ``running_var`` for its backward,
     which in train mode never reads it, and a version bump would fail it.
+    Eval mode, ``freeze_bn`` (eval mode too) and one rank keep that call.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if world_size() > 1:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         self.running_var.data.mul_(n / (n - 1))
         out = super().forward(x)
         self.running_var.data.mul_((n - 1) / n)
         return out
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            m = (self.momentum if self.momentum is not None
+                 else 1.0 / float(self.num_batches_tracked))  # swa.reestimate_bn
+            self.running_mean.lerp_(mean, m)
+            self.running_var.lerp_(var, m)
+        return y
 
 
 def bf16_compute(enabled: bool, x: torch.Tensor):

@@ -11,6 +11,10 @@ replacement ranks member pixels by uniform scores with an exact top-k.
 The scores are an optional argument; by default they are drawn from a
 ``torch.Generator``.  Tests pass the JAX package's own draws, so both
 packages pick the same pixels.
+
+Under a process group the anchors are those of the global batch, as in the
+JAX package's global-view step, where ``total_classes`` and the ``[:M]`` cut
+span every device (``global_anchor_sample``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from contrastiveseg_tpu_torch.ops.resize import scale_target_nearest
+from contrastiveseg_tpu_torch.parallel import all_gather_cat, distributed, rank_and_world
 
 _NEG_INF = -1e30
 
@@ -59,8 +64,53 @@ def hard_anchor_sample(
     they come from ``torch.rand`` on ``generator``.
     """
     B, N, D = embed.shape
+    sel_idx, sel_valid, sel_label = _select(labels, predict, spec, scores, generator)
+    feats = embed.reshape(B * N, D)[sel_idx]
+    feats = torch.where(sel_valid[:, None], feats, 0.0)
+    return AnchorSet(feats=feats, labels=sel_label, valid=sel_valid)
+
+
+def global_anchor_sample(
+    embed: torch.Tensor,  # [B, N, D] this rank's rows of the global batch
+    labels: torch.Tensor,  # [B, N]
+    predict: torch.Tensor,  # [B, N]
+    spec: ContrastSpec,
+    scores: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> AnchorSet:
+    """``hard_anchor_sample`` of the global batch, the ranks' rows in rank
+    order; ``hard_anchor_sample`` itself without a process group.
+
+    Every rank gathers the labels and predictions, and makes the same
+    selection from the same global scores ([B_global, C, N]: given, or drawn
+    from ``generator``, seeded alike on every rank).  Each rank fills the
+    anchor rows it holds and zeros the others; a gather with gradients
+    summed over the ranks gives every rank the global [M, D] anchors, bit
+    for bit those of one process.  The loss of them is then the same on
+    every rank, and the gather's backward sums the ranks' equal gradients:
+    DDP's mean over the ranks leaves the global gradient."""
+    if not distributed():
+        return hard_anchor_sample(embed, labels, predict, spec, scores, generator)
+    rank, world = rank_and_world()
+    B, N, D = embed.shape
+    sel_idx, sel_valid, sel_label = _select(all_gather_cat(labels), all_gather_cat(predict),
+                                            spec, scores, generator)
+    local = sel_idx - rank * B * N
+    mine = sel_valid & (local >= 0) & (local < B * N)
+    feats = embed.reshape(B * N, D)[local.clamp(0, B * N - 1)]
+    feats = torch.where(mine[:, None], feats, 0.0)
+    feats = all_gather_cat(feats, grad=True).view(world, -1, D).sum(0)
+    return AnchorSet(feats=feats, labels=sel_label, valid=sel_valid)
+
+
+def _select(labels: torch.Tensor, predict: torch.Tensor, spec: ContrastSpec,
+            scores: Optional[tuple[torch.Tensor, torch.Tensor]],
+            generator: Optional[torch.Generator]):
+    """The anchors' flat pixel indices into [B * N], validity and labels,
+    each [M]."""
+    B, N = labels.shape
     C, V, M = spec.num_classes, spec.max_views, spec.max_samples
-    dev = embed.device
+    dev = labels.device
 
     cls = torch.arange(C, device=dev, dtype=labels.dtype)
     member = labels[:, None, :] == cls[None, :, None]  # [B, C, N]
@@ -116,13 +166,7 @@ def hard_anchor_sample(
     flat_label = cls[None, :, None].expand(B, C, V).permute(2, 0, 1).reshape(-1)
 
     order = torch.argsort((~flat_valid).to(torch.int8), stable=True)[:M]
-    sel_valid = flat_valid[order]
-    sel_idx = flat_idx[order]
-    sel_label = flat_label[order].to(torch.int32)
-
-    feats = embed.reshape(B * N, D)[sel_idx]
-    feats = torch.where(sel_valid[:, None], feats, 0.0)
-    return AnchorSet(feats=feats, labels=sel_label, valid=sel_valid)
+    return flat_idx[order], flat_valid[order], flat_label[order].to(torch.int32)
 
 
 def contrastive_loss(
@@ -180,11 +224,12 @@ def pixel_contrast_loss(
     scores: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Label downscale -> sample -> InfoNCE of the anchors against each
-    other (``PixelContrastLoss.forward``, loss_contrast.py:130-147)."""
+    """Label downscale -> sample (the global batch's anchors under a process
+    group) -> InfoNCE of the anchors against each other
+    (``PixelContrastLoss.forward``, loss_contrast.py:130-147)."""
     B, H, W, D = embed.shape
     labels_s = scale_target_nearest(labels, (H, W)).reshape(B, H * W)
-    anchors = hard_anchor_sample(embed.reshape(B, H * W, D), labels_s,
-                                 predict.reshape(B, H * W), spec,
-                                 scores=scores, generator=generator)
+    anchors = global_anchor_sample(embed.reshape(B, H * W, D), labels_s,
+                                   predict.reshape(B, H * W), spec,
+                                   scores=scores, generator=generator)
     return contrastive_loss(anchors, spec)

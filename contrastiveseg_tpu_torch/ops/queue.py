@@ -20,6 +20,15 @@ backward, so no saved tensor still reads the old rows.  Dead writes (ring
 collisions within one batch) go to the trash row, so live row indices are
 unique -- index assignment with duplicate indices has no defined order on
 CUDA, as in XLA.
+
+One global bank under a process group: the train step gathers the keys
+and strided labels of the global batch in rank order and every rank
+enqueues them with the same global scores, so every rank makes the same
+writes in the same order and the ranks' banks stay equal bit for bit (the
+reference's per-rank banks drift apart).  ``parallel.shard_queue`` changes where the JAX package
+stores its bank, not what it holds; the 19 x 2 x 5000 x 256 fp32 bank
+(195 MB) fits each card, so the port keeps it replicated under either
+value.
 """
 
 from __future__ import annotations

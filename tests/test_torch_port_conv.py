@@ -6,6 +6,11 @@ On the CPU the K2 wrappers take their plain versions (``F.conv2d`` and
 as ``tests/test_conv_pallas.py`` does, compiled with most of XLA's
 optimizations off (``unoptimized_jax_compiles``).  Inputs come from one
 numpy seed, NHWC/HWIO for JAX and transposed to NCHW/OIHW for the port.
+The forward, dX and dW at the four shapes of ``tests/test_conv_pallas.py``
+hold the port against the JAX kernel at the main path's C = 48
+(``KERNEL_SHAPE``) and against the JAX package's XLA reference conv, to
+which that file holds the kernel, at the other three (each interpret-mode
+shape costs 5-18 s of the tier-1 run).
 
 Tolerances: atol/rtol 1e-4 on the forward, dX and dW (fp32 sums in another
 order; dW sums B·H·W products); the model at the model test's atol/rtol
@@ -44,6 +49,7 @@ SHAPES = [  # tests/test_conv_pallas.py:27-31 (B, H, W, C, Co)
     (1, 32, 16, 48, 48),
     (1, 8, 16, 3, 18),
 ]
+KERNEL_SHAPE = (1, 32, 16, 48, 48)  # HRNet-W48's branch-0 channels, two row blocks
 
 
 def _nchw(a):
@@ -75,10 +81,17 @@ def _shared_quick_compiles():
 def test_conv3x3_forward_dx_dw_match_jax(shape):
     x, w, tgt = _inputs(shape, seed=sum(shape))
 
-    def loss(x, w):
-        return ((jconv.conv3x3(x, w, True) - tgt) ** 2).sum()
+    def conv(x, w):  # the Pallas kernel, or the reference it is held to
+        if shape == KERNEL_SHAPE:
+            return jconv.conv3x3(x, w, True)
+        return jax.lax.conv_general_dilated(x, w, (1, 1), "SAME",
+                                            dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                                            precision=jax.lax.Precision.HIGHEST)
 
-    want_y = jconv.conv3x3(jnp.asarray(x), jnp.asarray(w), True)
+    def loss(x, w):
+        return ((conv(x, w) - tgt) ** 2).sum()
+
+    want_y = conv(jnp.asarray(x), jnp.asarray(w))
     want_dx, want_dw = jax.grad(loss, (0, 1))(jnp.asarray(x), jnp.asarray(w))
 
     xt = _nchw(x).requires_grad_(True)

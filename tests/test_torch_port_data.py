@@ -281,13 +281,24 @@ def test_build_dataset_refuses_what_is_not_ported(tree):
 
 @pytest.mark.parametrize("drop_last", [True, False])
 def test_two_shards_take_the_jax_slices(drop_last):
+    """The JAX slices of every full global batch; past the last one, with
+    ``drop_last`` (training) nothing, so that both ranks take the same number
+    of batches (the JAX pipeline's strided rest gave rank 0 one batch more
+    than rank 1 here), and without it (evaluation) the JAX strided rest."""
     data = list(range(23))
+    taken = []
     for shard in (0, 1):
         pipe = DataPipeline(data, 4, num_shards=2, shard_index=shard, drop_last=drop_last)
         jpipe = JDataPipeline(data, 4, num_shards=2, shard_index=shard, drop_last=drop_last)
         assert len(pipe) == len(jpipe)
         for epoch in (0, 1):
-            np.testing.assert_array_equal(pipe._epoch_indices(epoch), jpipe._epoch_indices(epoch))
+            want = jpipe._epoch_indices(epoch)
+            got = pipe._epoch_indices(epoch)
+            np.testing.assert_array_equal(got, want[:len(pipe) * 4] if drop_last else want)
+            # epoch_iter's count of batches
+            assert (len(got) // 4 if drop_last else -(-len(got) // 4)) == len(pipe)
+        taken += list(pipe._epoch_indices(0))
+    assert len(set(taken)) == len(taken) == (16 if drop_last else len(data))
 
 
 @pytest.fixture(scope="module")

@@ -73,6 +73,8 @@ def test_port_files_found():
     for module in ("models/vit.py", "models/pvt.py", "models/backbone_selector.py"):
         assert ROOT / "contrastiveseg_tpu_torch" / module in PORT_FILES
     assert ROOT / "contrastiveseg_tpu_torch" / "engine" / "swa.py" in PORT_FILES
+    for module in ("parallel/__init__.py", "parallel/distributed.py"):
+        assert ROOT / "contrastiveseg_tpu_torch" / module in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

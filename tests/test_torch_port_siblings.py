@@ -2,16 +2,18 @@
 
 ``cityscapes_hrnet_w48`` (the plain net, CE only) and
 ``cityscapes_hrnet_w48_contrast`` (CE plus the InfoNCE of the anchors
-against each other, no bank), cut to hrnet18 with the presets' 19 classes,
-on batch 2 of 64x64 synthetic scenes, the size of
+against each other, no bank), cut to a shallow hrnet18
+(``torch_port_helpers.shallow_hrnet18``: the W18 widths and every fuse, one
+block a stage) with the presets' 19 classes, on batch 2 of 64x64 synthetic scenes, the size of
 ``tests/test_torch_port_slice.py``.  Dropout is 0 and sampling exact.  The
 contrast term is live from step 0 (``contrast.warmup_iters=0``), and
 ``contrast.max_views`` is 12 instead of 100: a class qualifies for anchors
 with more than ``max_views`` pixels of an image on the stride-4 grid, and
 the 16x16 grid of a 64x64 crop gives no class 100 (the classes here have
-0-33 each, so some qualify and some do not).  The JAX steps run eagerly
-(``jax.disable_jit``) under ``exact_fp32_reference``; both packages start
-from the same numpy weights and get the same anchor draws.
+0-33 each, so some qualify and some do not).  The JAX step and forward are
+jitted whole and compiled unoptimized (``unoptimized_jax_compiles``) under
+``exact_fp32_reference``; both packages start from the same numpy weights
+and get the same anchor draws.
 
 Tolerances: the plain model's forward atol 1e-3 / rtol 1e-3; losses rtol
 1e-4 and post-step parameters atol 5e-4, as in the slice test; each
@@ -21,7 +23,9 @@ the BN backward of a randomly initialised HRNet cancels more of each weight
 gradient: against an fp64 run of the port, the contrast step's fp32 updates
 are off by up to 3.3e-2 to 3.5e-2 (the port, on 1 and 8 torch threads) and
 3.1e-2 (the JAX step) in relative norm on the worst tensors (BN biases),
-and the two fp32 steps differ by up to 4.1e-2.  A wrong term in the update
+and the two fp32 steps differ by up to 4.1e-2 (readings on the whole
+hrnet18).  On the shallow net the updates differ by up to 2.7e-4 and the
+forward by 1.2e-5 of its largest value 3.1.  A wrong term in the update
 moves it to order 1.
 
 Also: a save/resume round trip of the plain preset's state, and the
@@ -61,12 +65,13 @@ from contrastiveseg_tpu_torch.utils.jax_weights import (
 )
 
 from torch_port_helpers import (
-    compiled,
     exact_fp32_reference,
     one_torch_thread,
     random_variables,
+    shallow_hrnet18,
     shared_jax_compiles,
     tiny_hrnet,
+    unoptimized_jax_compiles,
     write_tree,
 )
 
@@ -83,6 +88,15 @@ def _one_thread():
     workers of a parallel run from oversubscribing the cores."""
     with one_torch_thread():
         yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shallow():
+    """Both packages build hrnet18 as ``shallow_hrnet18`` for the module."""
+    mp = pytest.MonkeyPatch()
+    shallow_hrnet18(mp)
+    yield
+    mp.undo()
 
 
 def _config(preset, get=get_preset):
@@ -108,17 +122,16 @@ def _batch(cfg):
 def jax_runs():
     """Per preset: the numpy weights, the batch, the JAX step's new state,
     metrics and anchor draws; and the JAX plain model's train-mode forward.
-    Run once, eagerly, all at the same shapes (the later calls reuse the
-    blocks the first compiled)."""
+    Each JAX program is jitted whole and compiled unoptimized."""
     mp = pytest.MonkeyPatch()
-    exact_fp32_reference(mp)
+    exact_fp32_reference(mp, compiled_blocks=False)
     runs = {}
     try:
         # One eval_shape: the plain net's variables are the contrast net's
         # less the projection head.
         full = random_variables(jbuild_model(_config("cityscapes_hrnet_w48_contrast",
                                                      jget_preset)), (1, H, W, 3), seed=2)
-        with shared_jax_compiles(), jax.disable_jit():
+        with shared_jax_compiles(), unoptimized_jax_compiles():
             for preset in PRESETS:
                 cfg = _config(preset, jget_preset)
                 batch = _batch(cfg)
@@ -134,18 +147,15 @@ def jax_runs():
                     step=jnp.zeros((), jnp.int32), params=variables["params"],
                     batch_stats=variables["batch_stats"],
                     opt_state=tx.init(variables["params"]), bank=None, rng=rng, tx=tx)
-                jstep = jmake_train_step(jmodel, compiled(jbuild_loss(cfg)), warmup_iters=0,
+                jstep = jmake_train_step(jmodel, jbuild_loss(cfg), warmup_iters=0,
                                          network_stride=4, donate=False,
                                          exact_sampling=True)
                 s1, metrics = jstep(s0, jbatch)
                 if preset == "cityscapes_hrnet_w48":
-                    # The forward as the step linearizes it (jax.vjp with
-                    # respect to the parameters), so it reuses the step's
-                    # compiled blocks; the backward is never run.
-                    seg, _ = jax.vjp(lambda p: jmodel.apply(
-                        {"params": p, "batch_stats": variables["batch_stats"]},
-                        jbatch["image"], train=True, mutable=["batch_stats"],
-                        rngs={"dropout": jax.random.key(0)})[0]["seg"], variables["params"])
+                    seg = jax.jit(lambda v, x: jmodel.apply(
+                        v, x, train=True, mutable=["batch_stats"],
+                        rngs={"dropout": jax.random.key(0)})[0]["seg"])(
+                            variables, jbatch["image"])
                     runs["forward"] = (variables, batch, np.asarray(seg))
                 _, _, r_sample, _ = jax.random.split(rng, 4)
                 khard, keasy = jax.random.split(r_sample)

@@ -56,22 +56,6 @@ def exact_fp32_reference(monkeypatch, compiled_blocks: bool = True) -> None:
         compiled_hrnet_blocks(monkeypatch)
 
 
-def compiled(fn):
-    """``fn`` under ``jax.jit``, with jit on even inside ``jax.disable_jit()``:
-    an eager JAX step can call its loss through it, so that the forward of
-    the loss's many small ops (anchor sampling, top-k, the InfoNCE) is one
-    compiled call instead of one dispatch (and, the first time, one
-    compile) each; its backward still runs op by op.  The values are the
-    same to fp32 rounding."""
-    jitted = jax.jit(fn)
-
-    def call(*args, **kwargs):
-        with jax.disable_jit(False):
-            return jitted(*args, **kwargs)
-
-    return call
-
-
 _BLOCK_FNS: dict = {}
 
 
@@ -444,14 +428,19 @@ def shallow_resnet(monkeypatch) -> None:
                             mod.ResNetSpec((1, 1, 2, 2), deep_base=False, dilate_scale=8))
 
 
+def tiny_hrnet_spec():
+    """The port's ``HRNetSpec`` of ``tiny_hrnet``."""
+    from contrastiveseg_tpu_torch.models.hrnet import HRNetSpec, StageSpec
+
+    return HRNetSpec(16, 1, 16, StageSpec(1, 1, (8, 16)), StageSpec(1, 1, (8, 16, 32)),
+                     StageSpec(1, 1, (8, 16, 32, 64)))
+
+
 def tiny_hrnet(monkeypatch) -> None:
     """Build the port's hrnet18 as a tiny HRNet: the same topology (four
     stages, every fuse) at one block a stage and widths 8-64, for tests
     whose cost grows with the number of ops (``torch.export`` traces it in
     seconds) and that compare the port with itself."""
     from contrastiveseg_tpu_torch.models import hrnet
-    from contrastiveseg_tpu_torch.models.hrnet import HRNetSpec, StageSpec
 
-    monkeypatch.setitem(hrnet.HRNET_SPECS, "hrnet18", HRNetSpec(
-        16, 1, 16, StageSpec(1, 1, (8, 16)), StageSpec(1, 1, (8, 16, 32)),
-        StageSpec(1, 1, (8, 16, 32, 64))))
+    monkeypatch.setitem(hrnet.HRNET_SPECS, "hrnet18", tiny_hrnet_spec())

@@ -29,7 +29,8 @@ Loading such an artifact needs the op registered: ``load_artifact`` imports
 ``ops/conv_cuda.py`` (not the model code) before ``torch.export.load``.
 
 Refused (ROADMAP 6): ``--weights sidecar`` (a weight-free program; the
-artifact always carries its weights).
+artifact always carries its weights).  It runs on one device, as the JAX
+package's exporter does: under ``torchrun`` at world size > 1 it raises.
 """
 
 from __future__ import annotations
@@ -178,6 +179,9 @@ def run_artifact(path: str, batch: int = 1) -> tuple:
 
 
 def main() -> None:
+    from contrastiveseg_tpu_torch.parallel import require_one_process
+
+    require_one_process("tools/export_torch.py")
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--preset", default=None)

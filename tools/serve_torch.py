@@ -24,7 +24,8 @@ Endpoints:
                        labels returned at artifact size)
 
 The server is stdlib-only (``http.server``); the point is the artifact
-contract, not a web framework.
+contract, not a web framework.  It serves from one device: under
+``torchrun`` at world size > 1 it raises.
 """
 
 from __future__ import annotations
@@ -133,6 +134,9 @@ def make_server(artifact: str, port: int, host: str = "127.0.0.1"):
 
 
 def main():
+    from contrastiveseg_tpu_torch.parallel import require_one_process
+
+    require_one_process("tools/serve_torch.py")
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--artifact", required=True,

@@ -21,6 +21,19 @@ from a Cityscapes-layout directory (``data.data_dir=...``, holding
 ``{split}/image`` and ``{split}/label``; PNGs decode through PIL unless
 their ``.npy_cache`` sidecars are fresh) or, with ``data.synthetic=true``,
 from synthetic scenes.
+
+On N GPUs of one machine, launch it through ``torchrun``:
+
+    torchrun --standalone --nproc_per_node N tools/train_torch.py \
+        --preset cityscapes_hrnet_w48_mem [key.path=value ...]
+
+Each rank joins the process group (``parallel.init_from_env``: NCCL on
+``cuda:$LOCAL_RANK``; gloo with ``--device cpu``) and trains its slice of
+every global batch (``train.batch_size`` is the global batch), as the JAX
+trainer trains its device mesh; ``--phase val`` scores each rank's shard of
+the val split and sums the confusions.  ``--phase test`` runs on one device,
+as the JAX tester does: at world size > 1 it raises.  Without torchrun's
+environment no process group is made.
 """
 
 from __future__ import annotations
@@ -63,9 +76,12 @@ def run(cfg, phase: str, device) -> dict:
     from contrastiveseg_tpu_torch.engine.tester import Tester, check_supported
     from contrastiveseg_tpu_torch.engine.trainer import Trainer
 
+    from contrastiveseg_tpu_torch.parallel import require_one_process
+
     if phase not in ("train", "val", "test"):
         raise ValueError(f"unknown phase {phase!r}")
     if phase == "test":
+        require_one_process("--phase test")
         check_supported(cfg)  # before the trainer restores a checkpoint
     trainer = Trainer(cfg, device)
     if phase == "train":
@@ -92,16 +108,26 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("overrides", nargs="*", help="key.path=value overrides")
     args = ap.parse_args(argv)
 
+    from contrastiveseg_tpu_torch import parallel
+
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = build_config(args.preset, args.config, args.overrides)
-    device = require_device(args.device)
+    device = (parallel.init_from_env(args.device) if parallel.launched()
+              else require_device(args.device))
 
     import torch
 
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    out = run(cfg, args.phase, device)
+    main_rank = parallel.is_main()
+    try:
+        out = run(cfg, args.phase, device)
+    finally:
+        if parallel.distributed():
+            torch.distributed.destroy_process_group()
+    if not main_rank:
+        return out
     if args.phase == "val":
         print(f"val mIoU: {out['scores']['miou']:.4f}")
     elif args.phase == "test":
