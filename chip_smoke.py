@@ -274,7 +274,21 @@ Phases (any failure raises, so the run exits non-zero):
      bit for bit, K1 once a step; ``DIST_STEPS`` timed steps of each, their
      medians and ratio, the peak memory; (c) one step of the bf16 headline
      with ``network.pallas_conv`` under the wrapper, K2-bf16 launched as on
-     one process (``K2_BF16_A_STEP``); (b) ``python -m torch.distributed.run
+     one process (``K2_BF16_A_STEP``); (d) two steps of each of
+     ``DIST_LOSS_CASES`` at full width and batch 2 on fixed device batches,
+     under the wrapper (step 2 under the wrapper that step 1 settles), each
+     held to one process's step from the same state, seed, batch and draws:
+     ``cityscapes_hrnet_w48_ocr_ohem`` at 512x1024 (its kept count and
+     threshold; OHEM's selection's device time at batch 2 and 8), the headline
+     with ``contrast.use_lovasz``, ``network.bf16`` and
+     ``network.pallas_conv`` (the bytes of the Lovasz gather; K1 and
+     K2-bf16 launched as on one process), ``coco_stuff_hrnet_w48_ocr_rmi`` at
+     520x520 (171 classes) and ``lip_ce2p_ocrnet`` at 473x473 (its edge
+     branch out of the settled wrapper's reducer, zero gradients, equal to
+     the one-process steps); losses within rtol 1e-4, parameters atol
+     5e-3, the
+     losses' global branches counted under the group and not without it
+     (``parallel.global_calls``); (b) ``python -m torch.distributed.run
      --standalone --nproc_per_node 1 tools/train_torch.py --preset
      cityscapes_hrnet_w48_mem`` from the tree at batch 2 for 2 steps with
      validation and ``latest`` (started beside phase 21 (c),
@@ -329,6 +343,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -3710,6 +3725,17 @@ K2_BF16_A_STEP = {"conv3x3_fwd_bf16": 2 * 64, "conv3x3_dw_bf16": 64}
 
 
 TORCHRUN_CKPT = ROOT / "build" / "chip_smoke_torchrun"
+# Phase 22 (d): steps of presets whose loss takes a global branch under a process
+# group, on one process and under DDP: (what, preset, overrides, crop [h, w]).
+# Step 1 runs under the first wrapper, step 2 under the one it settles.
+DIST_LOSS_STEPS = 2
+DIST_LOSS_CASES = (
+    ("OHEM", "cityscapes_hrnet_w48_ocr_ohem", [], (512, 1024)),
+    ("Lovasz in bf16 with K2", "cityscapes_hrnet_w48_mem",
+     ["contrast.use_lovasz=True", "network.bf16=True", "network.pallas_conv=True"], (512, 1024)),
+    ("RMI", "coco_stuff_hrnet_w48_ocr_rmi", [], (520, 520)),
+    ("unreached parameters", "lip_ce2p_ocrnet", [], (473, 473)),
+)
 
 
 def start_torchrun(data_dir: Path, device) -> Background:
@@ -3763,6 +3789,229 @@ def world_of_one(device):
                 os.environ[k] = v
 
 
+def fixed_device_batch(device, n_classes: int, hw: tuple[int, int], seed: int = 0) -> dict:
+    """A batch of 2 on ``device``: N(0, 1) images and labels of random
+    classes in 8x8 blocks, a tenth of the blocks ignored (-1)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, w = hw
+    blocks = torch.randint(0, n_classes, (2, h // 8 + 1, w // 8 + 1), generator=g,
+                           device=device)
+    blocks[torch.rand(blocks.shape, generator=g, device=device) < 0.1] = -1
+    labels = blocks.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w]
+    return {"image": torch.randn(2, h, w, 3, generator=g, device=device),
+            "label": labels.contiguous()}
+
+
+def ohem_selection_us(logits, labels, thresh: float, min_kept: int) -> dict[str, float]:
+    """Device us of each kernel that ``losses/ce.ohem_selection`` launches,
+    per call, under the process group (its global branch): ``device_us``,
+    device activity only, so the host's gaps between the launches are not
+    counted."""
+    from contrastiveseg_tpu_torch.losses.ce import ohem_selection
+
+    return device_us(lambda: ohem_selection(logits, labels, thresh, min_kept), calls=10)
+
+
+def top_kernels(us: dict[str, float], n: int = 3) -> str:
+    return ", ".join(f"{k[:48]} {v:.1f} us" for k, v in sorted(us.items(), key=lambda kv: -kv[1])[:n])
+
+
+def dist_loss_steps(device, root: Path, say, total: collections.Counter) -> dict:
+    """Phase 22 (d): for each of ``DIST_LOSS_CASES`` at full width, batch 2
+    on fixed device batches, ``DIST_LOSS_STEPS`` steps under a world-1 NCCL
+    group through the DDP wrapper, each held to one process's step from the
+    same state (one trainer, restored before each run), batch and draws:
+    losses within rtol 1e-4 and parameters atol 5e-3; the loss's global
+    branch taken under the group only, once a step
+    (``parallel.global_calls``).  Step 1 runs under the first wrapper, step
+    2 under the one it settles (``parallel.exclude_unreached``), whose
+    reducer every later step runs.  OHEM: the kept count and threshold of
+    both runs, and the selection's device time at batch 2 and 8; Lovasz: the
+    bytes its gather moves, K1 once a step and K2-bf16's launches a step as
+    on one process (``K2_BF16_A_STEP``); CE2P: the parameters the loss never
+    reaches (its edge branch) out of the settled wrapper's reducer, with
+    zero gradients in both steps, equal to the one-process steps' bit for
+    bit."""
+    import torch
+
+    from contrastiveseg_tpu_torch import parallel
+    from contrastiveseg_tpu_torch.engine.checkpoint import load_state_dict, state_dict
+    from contrastiveseg_tpu_torch.engine.trainer import Trainer
+    from contrastiveseg_tpu_torch.losses import contrast as closs
+    from contrastiveseg_tpu_torch.losses.ce import ohem_selection
+    from contrastiveseg_tpu_torch.ops import contrast_cuda as k1
+    from tools.train_torch import build_config
+
+    S = DIST_LOSS_STEPS
+    want_calls = {"OHEM": {"global_kth_smallest": S},
+                  "Lovasz in bf16 with K2": {"lovasz": S}, "RMI": {"rmi": S},
+                  "unreached parameters": {}}
+    out, seen = {}, []
+    real_ohem = closs.ohem_cross_entropy
+
+    def stashing(logits, labels, thresh, min_kept, *args):  # PlainSegLoss's call
+        seen.append((logits.detach(), labels, thresh, min_kept, args[1]))
+        return real_ohem(logits, labels, thresh, min_kept, *args)
+
+    closs.ohem_cross_entropy = stashing
+    try:
+        for what, preset, extra, hw in DIST_LOSS_CASES:
+            t0 = time.perf_counter()
+            cfg = build_config(preset, None, [
+                "data.synthetic=true", "train.batch_size=2", "contrast.warmup_iters=0",
+                f"solver.max_iters={S}", "checkpoints.save_iters=0",
+                f"checkpoints.checkpoints_dir={root / 'ckpt_d'}"] + extra)
+            batches = [fixed_device_batch(device, cfg.get("data.num_classes"), hw, seed=i)
+                       for i in range(S)]
+            trainer = Trainer(cfg, device)
+            # One process's step 1 from the start, the DDP steps 1-2 from it, then one
+            # process's step 2 from the DDP state after step 1: each step is held to one
+            # from the same state (a random-init net's fp32 gradients part by percents
+            # from states 1e-7 apart, so two runs' step 2 would not tell DDP's error).
+            start = copy.deepcopy(state_dict(trainer.state))
+            seconds = {"set-up": time.perf_counter() - t0}
+            runs = {n: {"steps": [], "launches": collections.Counter(), "calls": {}}
+                    for n in ("plain", "ddp")}
+            for name, first, last in (("plain", 0, 1), ("ddp", 0, S), ("plain", 1, S)):
+                t1 = time.perf_counter()
+                seen.clear()
+                run = runs[name]
+                with world_of_one(device) if name == "ddp" else contextlib.nullcontext():
+                    load_state_dict(trainer.state, start)
+                    state = trainer.state
+                    # the wrapper as Trainer makes it
+                    state.ddp = (parallel.data_parallel(state.model, device) if name == "ddp"
+                                 else None)
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    parallel.reset_global_calls()
+                    for i in range(first, last):
+                        metrics = {k: float(v) for k, v in
+                                   trainer.train_step(state, batches[i]).items()}
+                        step = {"metrics": metrics, "params": {
+                            k: v.clone() for k, v in state.model.state_dict().items()}}
+                        if name == "ddp":  # the settled wrapper's
+                            params = dict(state.model.named_parameters())
+                            step["ignored"] = sorted(state.ddp.parameters_to_ignore)
+                            step["ignored_grads_zero"] = all(not params[n].grad.any()
+                                                             for n in step["ignored"])
+                            if i == 0:
+                                after_1 = copy.deepcopy(state_dict(state))
+                        run["steps"].append(step)
+                    torch.cuda.synchronize()
+                    run["launches"].update(read_counts())
+                    run["calls"] = {**run["calls"], **parallel.global_calls()}
+                    if seen and first == 0:  # OHEM's selection on step 1's logits
+                        keep, threshold, kept = ohem_selection(*seen[0][:4], seen[0][4])
+                        run["ohem"] = (float(threshold), int(kept))
+                        logits, labels, thresh, min_kept, _ = seen[0]
+                        run["ohem_us"] = {2: ohem_selection_us(logits, labels, thresh, min_kept)}
+                        if name == "ddp":
+                            g = torch.Generator(device=device).manual_seed(1)
+                            big = torch.randn((8,) + tuple(logits.shape[1:]), generator=g,
+                                              device=device)
+                            run["ohem_us"][8] = ohem_selection_us(big, labels.repeat(4, 1, 1),
+                                                                  thresh, min_kept)
+                            del big
+                        del keep
+                    total.update(read_counts())
+                    state.ddp = None
+                    del state
+                if name == "ddp":
+                    start = after_1
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t1
+            seen.clear()
+            trainer.state = trainer.evaluator = None
+            del trainer, start, after_1
+            gc_collect()
+            plain, ddp = runs["plain"], runs["ddp"]
+            rel = [{k: abs(d["metrics"][k] - v) / abs(v) for k, v in p["metrics"].items()}
+                   for p, d in zip(plain["steps"], ddp["steps"])]
+            param_err = [max(float((d["params"][k].double() - v.double()).abs().max())
+                             for k, v in p["params"].items() if v.is_floating_point())
+                         for p, d in zip(plain["steps"], ddp["steps"])]
+            fails = []
+            if not all(math.isfinite(v) for r in runs.values() for st in r["steps"]
+                       for v in st["metrics"].values()):
+                fails.append("non-finite losses")
+            if max(max(r.values()) for r in rel) > 1e-4 or max(param_err) > 5e-3:
+                fails.append(f"losses {rel} (rtol 1e-4), parameters {param_err} (atol 5e-3)")
+            if plain["calls"] or any(ddp["calls"].get(k, 0) != v
+                                     for k, v in want_calls[what].items()):
+                fails.append(f"global branches: one process {plain['calls']}, DDP "
+                             f"{ddp['calls']}, expected {want_calls[what]} under DDP")
+            if plain["launches"] != ddp["launches"]:
+                fails.append(f"launches: one process {plain['launches']}, DDP {ddp['launches']}")
+            line = ""
+            if what == "OHEM":
+                us = ddp["ohem_us"]
+                ms = {b: sum(v.values()) / 1e3 for b, v in us.items()}
+                solo = plain["ohem_us"][2]
+                line = (f"; kept {ddp['ohem'][1]} pixels below {ddp['ohem'][0]:.6f} in step 1 (one "
+                        f"process: {plain['ohem'][1]} below {plain['ohem'][0]:.6f}); the "
+                        f"selection under the group {ms[2]:.4f} ms of device time at batch 2 "
+                        f"({top_kernels(us[2])}), {ms[8]:.4f} ms at batch 8 "
+                        f"({top_kernels(us[8])}); on one process {sum(solo.values()) / 1e3:.4f} "
+                        f"ms at batch 2 ({top_kernels(solo)})")
+            elif what.startswith("Lovasz"):
+                want = {**{n: S * v for n, v in K2_BF16_A_STEP.items()},
+                        **{n: S for n in k1.KERNELS}}
+                if any(ddp["launches"][n] != v for n, v in want.items()):
+                    fails.append(f"launches {ddp['launches']}, expected {want}")
+                P, C = 2 * hw[0] * hw[1], cfg.get("data.num_classes")
+                line = (f"; the Lovasz gather moves {P * C * 4 / 1e6:.1f} MB of errors and "
+                        f"{P * 8 / 1e6:.1f} MB of labels a rank a step at batch 2 (world 1); "
+                        f"K2-bf16 {ddp['launches']['conv3x3_fwd_bf16']} forward/dX and "
+                        f"{ddp['launches']['conv3x3_dw_bf16']} dW launches and K1 "
+                        f"{ddp['launches']['infonce_pass1']} each in {S} steps, as on one process")
+            elif what == "unreached parameters":
+                ignored = ddp["steps"][0]["ignored"]
+                same = all(torch.equal(d["params"][n], p["params"][n]) for n in ignored
+                           for p, d in zip(plain["steps"], ddp["steps"]))
+                zero = [st["ignored_grads_zero"] for st in ddp["steps"]]
+                if not (ignored and all(zero) and same
+                        and all(st["ignored"] == ignored for st in ddp["steps"])):
+                    fails.append(f"unreached parameters {ddp['steps']}: zero gradients {zero}, "
+                                 f"equal to one process {same}")
+                line = (f"; {len(ignored)} parameters out of the settled wrapper's reducer "
+                        f"({sorted({n.split('.')[0] for n in ignored})}), zero gradients in "
+                        f"both steps, moved by weight decay and momentum as on one process, "
+                        "bit for bit")
+            if fails:
+                raise AssertionError(f"(d) {what} ({preset}): " + "; ".join(fails))
+            say(f"(d) {what}: {preset} at batch 2 of {hw[0]}x{hw[1]}, {S} steps under DDP (world 1) "
+                "against one process: " + "; ".join(
+                    f"step {i + 1} " + ", ".join(
+                        f"{k} {ddp['steps'][i]['metrics'][k]:.6f} vs {v:.6f} ({r[k]:.2e})"
+                        for k, v in plain["steps"][i]["metrics"].items())
+                    + f", parameters {param_err[i]:.3e} apart at most"
+                    for i, r in enumerate(rel))
+                + f" (rtol 1e-4, atol 5e-3); global branches under DDP {ddp['calls']}, one "
+                f"process {plain['calls']}{line}; "
+                + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+            out[what] = {"rel": {k: max(r[k] for r in rel) for k in rel[0]},
+                         "param_err": max(param_err), "calls": ddp["calls"],
+                         "seconds": seconds,
+                         **{k: ddp[k] for k in ("ohem", "ohem_us") if k in ddp},
+                         "plain_ohem": plain.get("ohem"), "plain_ohem_us": plain.get("ohem_us"),
+                         "ignored": ddp["steps"][0].get("ignored")}
+            del runs, plain, ddp
+    finally:
+        closs.ohem_cross_entropy = real_ohem
+    return out
+
+
+def gc_collect() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_dist_phase(device, data_dir: Path, torchrun: Background | None = None) -> dict:
     """Phase 22, multi-GPU training at world size 1 on NCCL.  (a) the headline
     at full width (the 190k-row bank, contrast live) at batch 8 of 512x1024
@@ -3773,8 +4022,10 @@ def run_dist_phase(device, data_dir: Path, torchrun: Background | None = None) -
     once a step; ``DIST_STEPS`` timed steps of each, their medians and ratio
     (DDP's cost on one card), the peak memory; (c) one step of the bf16
     headline with ``network.pallas_conv`` under the wrapper, K2-bf16
-    launched as on one process (``K2_BF16_A_STEP``); (b) ``torchrun
-    --standalone --nproc_per_node 1 tools/train_torch.py --preset
+    launched as on one process (``K2_BF16_A_STEP``); (d) two steps of the
+    presets of ``DIST_LOSS_CASES`` (OHEM, Lovasz, RMI, CE2P's unreached
+    parameters) on one process and under the wrapper (``dist_loss_steps``);
+    (b) ``torchrun --standalone --nproc_per_node 1 tools/train_torch.py --preset
     cityscapes_hrnet_w48_mem`` at batch 2 for 2 steps from the tree, with
     validation and ``latest``: exit 0, and ``latest`` restored into a
     single-process trainer bit for bit.  ``torchrun``: (b)'s run, started
@@ -3897,6 +4148,8 @@ def run_dist_phase(device, data_dir: Path, torchrun: Background | None = None) -
         f"{K2_BF16_A_STEP}), K1 {launches['infonce_pass1']} each")
     res["c"] = {"launches": launches, "metrics": metrics}
     del batches
+
+    res["d"] = dist_loss_steps(device, root, say, total)
 
     # (b) The entry point under torchrun, then its latest in one process.
     if torchrun is None:
@@ -4381,7 +4634,10 @@ def main() -> None:
           f"{med['ddp']:.1f} ms ({med['ddp'] / med['plain']:.3f}x), "
           f"peak {da['peak']['plain'] / 2**30:.3f} / {da['peak']['ddp'] / 2**30:.3f} GiB; step 1 "
           f"losses within {max(da['rel'].values()):.2e}, parameters {da['param_err']:.3e}, "
-          f"banks bit for bit; torchrun entry {dp['b']['wall']:.1f} s (same call)")
+          f"banks bit for bit; torchrun entry {dp['b']['wall']:.1f} s; {DIST_LOSS_STEPS} steps of "
+          + ", ".join(f"{what} {max(r['rel'].values()):.2e} (losses) {r['param_err']:.3e} "
+                      "(parameters)" for what, r in dp["d"].items())
+          + " from one process under DDP (same call)")
 
     rows = []
     for name, (_, _, replaces) in contrast_cuda.KERNELS.items():

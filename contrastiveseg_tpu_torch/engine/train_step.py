@@ -54,14 +54,23 @@ the JAX package's global-view step computes on the whole of it:
   banks stay equal bit for bit;
 * the metrics are the ranks' mean, the global batch's.
 
-DDP's ``find_unused_parameters`` is off: a net whose loss leaves a
-parameter without a gradient (CE2P's edge branch under ``fs_auxce_loss``)
-raises under it.
+DDP's ``find_unused_parameters`` stays off, since it walks the autograd
+graph every step.  Instead the step decides once, at its first call under
+the wrapper, which parameters the loss never reaches (CE2P's edge branch
+under ``fs_auxce_loss``): that step's backward runs under ``no_sync()``,
+its gradients are averaged over the ranks as DDP's reducer averages them,
+and a parameter left without a gradient on every rank stays out of the
+wrapper's reducer from then on (``parallel.exclude_unreached``).  As in
+the JAX step, such a parameter takes a zero gradient and with it its
+weight decay and momentum, the same on every rank.  The set is static: the
+contrast term is computed before warmup too, multiplied by 0
+(``losses/contrast.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -75,6 +84,7 @@ from contrastiveseg_tpu_torch.parallel import (
     all_gather_cat,
     all_reduce_sum,
     distributed,
+    exclude_unreached,
     rank_and_world,
 )
 
@@ -119,6 +129,7 @@ def make_train_step(
     are detached 0-d tensors (no host sync).
     """
     A = grad_accum_steps
+    settled = weakref.WeakSet()  # the wrappers that a first step has settled
 
     def forward(model, images, seed, devices, params=None):
         with torch.random.fork_rng(devices=devices):
@@ -151,13 +162,17 @@ def make_train_step(
         if keyed and (A > 1 or state.bank is not None):
             ema_update(state.key_params, model, encoder_momentum)
 
+        # The first step under the wrapper reduces its gradients itself
+        # (``exclude_unreached``, after the backward).
+        first = state.ddp is not None and state.ddp not in settled
+
         state.optimizer.zero_grad(set_to_none=True)
         pending, metrics = [], []
         for i, (img, lab) in enumerate(zip(images.chunk(A), labels.chunk(A))):
             s_drop, s_sample, s_queue = seeds[3 * i:3 * i + 3]
             s_drop += rank
             d = draws[i] if draws is not None else None
-            sync = (state.ddp.no_sync() if state.ddp is not None and i < A - 1
+            sync = (state.ddp.no_sync() if state.ddp is not None and (first or i < A - 1)
                     else contextlib.nullcontext())
             with sync:
                 out = forward(net, img, s_drop, devices)
@@ -187,15 +202,14 @@ def make_train_step(
                     include_class0=queue_include_class0,
                     scores=d.queue if d is not None else None,
                     generator=device_generator(s_queue, state.device))
+        if first:
+            state.ddp = exclude_unreached(state.ddp)
+            settled.add(state.ddp)
         for p in model.parameters():
             # A parameter the loss does not reach (CE2P's edge branch under
             # fs_auxce_loss) still takes its weight decay and momentum, as
             # every parameter does in the JAX step; torch's SGD would skip it.
             if p.grad is None and p.requires_grad:
-                if state.ddp is not None:  # DDP's reducer would fail at the next step
-                    raise NotImplementedError(
-                        "under DistributedDataParallel every parameter must be reached by "
-                        "the loss (find_unused_parameters is off): ROADMAP §1 item 4")
                 p.grad = torch.zeros_like(p)
             elif A > 1 and p.grad is not None:
                 p.grad.div_(A)  # the mean gradient, summed first as in JAX (:220)

@@ -11,7 +11,8 @@ package's global-view step: each rank returns its own weighted sum over the
 all-reduced sum of the weights, times the world size, so that the ranks'
 mean is the global CE and DDP's mean of their gradients its gradient (a
 rank's count of ignored pixels differs from another's).  OHEM's threshold
-is a global order statistic: it raises at world size > 1.
+is the global batch's order statistic (``parallel.global_kth_smallest``),
+and its mean the global kept count's.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from contrastiveseg_tpu_torch.ops.resize import align_corners_matrix, scale_targ
 from contrastiveseg_tpu_torch.parallel import (
     all_reduce_sum,
     distributed,
-    refuse_beyond_one_rank,
+    global_kth_smallest,
     world_size,
 )
 
@@ -70,6 +71,39 @@ def cross_entropy(
     return _mean((nll * w).sum(), w.sum())
 
 
+@torch.no_grad()  # the threshold selects pixels; no gradient flows through it
+def ohem_selection(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    thresh: float = 0.9,
+    min_kept: int = 100000,
+    ignore_index: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """OHEM's pixels (loss_helper.py:215-261): ``(keep, threshold, kept)``.
+
+    ``keep`` [B, H, W] marks the valid pixels whose probability of the true
+    class is below ``threshold = max(thresh, sorted_p[k])``, ``k =
+    min(min_kept, n_valid - 1)``; ``kept`` is their count.  Ignored pixels
+    get probability 2.0, so they sort last.  The k-th order statistic is
+    indexed by a device tensor (no host sync); its value, and so the kept
+    set, does not depend on how ties are ordered.  Under a process group
+    ``sorted_p``, ``n_valid`` and ``kept`` are the global batch's (JAX
+    ``losses/ce.py:69-107`` on the mesh's global view): ``n_valid`` and
+    ``kept`` all-reduced, ``sorted_p[k]`` from each rank's ``min_kept + 1``
+    smallest (``parallel.global_kth_smallest``); ``keep`` is the rank's
+    own pixels.  Logits and labels at the same size.
+    """
+    C = logits.shape[-1]
+    valid = labels != ignore_index
+    safe = labels.clamp(0, C - 1).long()
+    p_true = torch.gather(F.softmax(logits.float(), dim=-1), -1, safe[..., None])[..., 0]
+    p_masked = torch.where(valid, p_true, 2.0)
+    k = torch.clamp(all_reduce_sum(valid.sum()) - 1, min=0, max=min_kept)
+    threshold = global_kth_smallest(p_masked, k, min_kept, fill=2.0).clamp(min=thresh)
+    keep = valid & (p_masked < threshold)
+    return keep, threshold, all_reduce_sum(keep.sum())
+
+
 def ohem_cross_entropy(
     logits: torch.Tensor,
     labels: torch.Tensor,
@@ -80,14 +114,12 @@ def ohem_cross_entropy(
 ) -> torch.Tensor:
     """FSOhemCELoss (loss_helper.py:215-261): online hard-example mining.
 
-    Keeps the pixels whose probability of the true class is below
-    ``max(thresh, sorted_p[k])``, ``k = min(min_kept, n_valid - 1)``, and
-    takes the *unweighted* mean of their class-weighted CE.  Ignored pixels
-    get probability 2.0, so they sort last.  The k-th order statistic comes
-    from a full sort indexed by a device tensor (no host sync); its value,
-    and so the kept set, does not depend on how ties are ordered.
+    The *unweighted* mean of the class-weighted CE of the pixels that
+    ``ohem_selection`` keeps, over their count clamped at 1 (JAX
+    ``losses/ce.py:107``).  Under a process group the rank's kept sum times
+    the world size over the global kept count, so that the ranks' mean is
+    the global batch's OHEM and DDP's mean of their gradients its gradient.
     """
-    refuse_beyond_one_rank("OHEM cross-entropy")
     if logits.shape[1:3] != labels.shape[1:3]:
         labels = scale_target_nearest(labels, (logits.shape[1], logits.shape[2]))
     C = logits.shape[-1]
@@ -95,15 +127,9 @@ def ohem_cross_entropy(
     safe = labels.clamp(0, C - 1).long()
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    with torch.no_grad():  # the threshold selects pixels; no gradient flows through it
-        p_true = torch.gather(F.softmax(logits.float(), dim=-1), -1, safe[..., None])[..., 0]
-        p_masked = torch.where(valid, p_true, 2.0)
-        sorted_p = torch.sort(p_masked.reshape(-1)).values
-        k = torch.clamp(valid.sum() - 1, min=0, max=min_kept)
-        threshold = sorted_p[k].clamp(min=thresh)
-        keep = valid & (p_masked < threshold)
+    keep, _, kept = ohem_selection(logits, labels, thresh, min_kept, ignore_index)
     w = _weights(safe, valid, _class_weight(class_weight, logits.device))
-    return torch.where(keep, nll * w, 0.0).sum() / keep.sum().clamp(min=1)
+    return torch.where(keep, nll * w, 0.0).sum() * world_size() / kept.clamp(min=1)
 
 
 def aux_cross_entropy(

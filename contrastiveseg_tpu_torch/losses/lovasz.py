@@ -9,6 +9,18 @@ sorts into the zero-error tail where each term of the dot product is 0:
 the same value as the compacted computation, with static shapes.
 
 Inputs are NHWC: probabilities or logits [B, H, W, C], int labels [B, H, W].
+
+Under a process group each class's errors are sorted over the pixels of the
+global batch, as JAX sorts them on the mesh's global view (:44): every rank
+gathers the [P, C] errors of every rank in rank order (with their gradient,
+``parallel.all_gather_cat``) and the labels (the foreground and validity,
+without), and computes the same global Lovasz-Softmax.  Ties resolve in
+global-batch order, as ``jnp.argsort(-errors)`` does, since the sort is
+stable.  The value is returned unscaled: the gather's backward hands each
+rank the sum over the ranks of the gradient of its own errors, W equal
+terms, and DDP's mean over the W ranks gives back the global gradient.  At
+the headline's global batch 8 of 512x1024 (P = 4.19 M, C = 19) the errors
+are 319 MB and the sort's indices 637 MB, on every rank whatever W is.
 """
 
 from __future__ import annotations
@@ -19,7 +31,7 @@ import torch
 
 from contrastiveseg_tpu_torch.losses.ce import cross_entropy
 from contrastiveseg_tpu_torch.ops.resize import scale_target_nearest
-from contrastiveseg_tpu_torch.parallel import refuse_beyond_one_rank
+from contrastiveseg_tpu_torch.parallel import all_gather_cat, count_global, distributed
 
 
 def _lovasz_grad(fg_sorted: torch.Tensor) -> torch.Tensor:
@@ -41,10 +53,15 @@ def lovasz_softmax(probs: torch.Tensor, labels: torch.Tensor, ignore_index: int 
     C = probs.shape[-1]
     p = probs.reshape(-1, C).float()
     y = labels.reshape(-1)
-    valid = y != ignore_index
     classes = torch.arange(C, device=y.device)
+    errors = torch.where((y != ignore_index)[:, None], ((y[:, None] == classes).float() - p).abs(),
+                         0.0)  # [P, C]
+    if distributed():  # the global batch's pixels, in rank order
+        count_global("lovasz")
+        errors, y = all_gather_cat(errors, grad=True), all_gather_cat(y)
+    valid = y != ignore_index
     fg = ((y[None, :] == classes[:, None]) & valid[None, :]).float()  # [C, P]
-    errors = torch.where(valid[None, :], (fg - p.T).abs(), 0.0)
+    errors = errors.T
     errors_sorted, order = torch.sort(errors, dim=-1, descending=True, stable=True)
     fg_sorted = torch.gather(fg, -1, order)
     per_class = (errors_sorted * _lovasz_grad(fg_sorted).detach()).sum(-1)  # [C]
@@ -59,8 +76,8 @@ def ce_lovasz_loss(logits: torch.Tensor, labels: torch.Tensor,
                    ignore_index: int = -1) -> torch.Tensor:
     """FSCELOVASZLoss (loss_helper.py:77-130): CE plus the Lovasz-Softmax
     over the present classes, the labels resized (nearest) to the logits.
-    Raises at world size > 1 (``parallel``)."""
-    refuse_beyond_one_rank("the Lovasz-Softmax loss")
+    Under a process group both terms are the global batch's (the CE's
+    mean, ``losses/ce.py``; the Lovasz term, the module docstring)."""
     if logits.shape[1:3] != labels.shape[1:3]:
         labels = scale_target_nearest(labels, (logits.shape[1], logits.shape[2]))
     ce = cross_entropy(logits, labels, class_weight, ignore_index)

@@ -19,6 +19,16 @@ loss with it.
 
 Inputs are NHWC, as the port's losses take them: logits [N, H, W, C] and
 int labels [N, H, W], ignored where outside [0, C).
+
+Under a process group each rank returns its share of the global batch's
+loss (JAX ``losses/rmi.py`` on the mesh's global view), so that the ranks'
+mean is the global loss and DDP's mean of their gradients its gradient.
+RMI needs no global sort: the BCE is the rank's masked sum times the world
+size over the global valid count + 1 (the 1 added once, globally: JAX
+:121), and the bound is the mean over the rank's images.  The JAX bound is
+the mean over the global batch's images (:94), each image's term its own,
+and with equal shards (``data/pipeline.py``) that is the mean of the
+ranks' means: exact, with no collective.
 """
 
 from __future__ import annotations
@@ -26,7 +36,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from contrastiveseg_tpu_torch.parallel import refuse_beyond_one_rank
+from contrastiveseg_tpu_torch.parallel import (
+    all_reduce_sum,
+    count_global,
+    distributed,
+    world_size,
+)
 
 _CLIP_MIN = 1e-6
 _POS_ALPHA = 1e-3
@@ -88,8 +103,8 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int, radiu
     """The masked sigmoid BCE (sum over the valid pixels / (their count +
     1)) and the RMI bound, mixed by ``weight_lambda`` (``lambda_way`` 1:
     ``l * bce + (1 - l) * rmi``; 0: ``bce + l * rmi``), times
-    ``loss_weight``.  Raises at world size > 1 (``parallel``)."""
-    refuse_beyond_one_rank("the RMI loss")
+    ``loss_weight``.  Under a process group the rank's share (module
+    docstring)."""
     valid = (labels >= 0) & (labels < num_classes)
     safe = labels.clamp(0, num_classes - 1).long()
     mask = valid[..., None].float()
@@ -99,7 +114,9 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int, radiu
     # max(x, 0) - x * z + log1p(exp(-|x|)) in one fused op, which keeps no
     # [N, H, W, C] intermediates for the backward.
     bce = F.binary_cross_entropy_with_logits(logits, onehot, weight=mask, reduction="sum")
-    bce_loss = bce / (valid.sum() + 1.0)
+    if distributed():
+        count_global("rmi")
+    bce_loss = bce * world_size() / (all_reduce_sum(valid.sum()) + 1.0)
     probs = torch.sigmoid(logits) * mask + _CLIP_MIN
     rmi = rmi_lower_bound(onehot.permute(0, 3, 1, 2), probs.permute(0, 3, 1, 2), radius,
                           pool_size, pool_stride, pool_way)

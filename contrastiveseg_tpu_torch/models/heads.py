@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from contrastiveseg_tpu_torch.models.layers import TorchBatchNorm, conv, full_precision
+from contrastiveseg_tpu_torch.parallel import world_size
 
 
 class ClsHead(nn.Sequential):
@@ -73,7 +74,10 @@ class ASPP(nn.Module):
     concat, then the 3x3 ``project``.  No dropout, as in the JAX default.
 
     The image-pool BN normalises B values a channel, so in training it needs
-    B >= 2: torch's BN refuses one value, where flax's returns zeros."""
+    a batch of 2 or more: torch's BN refuses one value, where flax's returns
+    zeros.  Under more than one rank its BN normalises over the global batch
+    (``layers.GlobalBatchNorm``), as the JAX package does on its mesh, so
+    one image a rank trains."""
 
     def __init__(self, in_channels: int, out_channels: int = 512,
                  rates: tuple[int, ...] = (12, 24, 36)):
@@ -87,10 +91,10 @@ class ASPP(nn.Module):
         self.project = conv_bn_relu((len(rates) + 2) * out_channels, out_channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and x.shape[0] < 2:
+        if self.training and x.shape[0] * world_size() < 2:
             raise ValueError(
-                "ASPP's image-pool BatchNorm normalises one value a channel at batch 1 "
-                "and cannot train: use train.batch_size >= 2 with DeepLab-V3")
+                "ASPP's image-pool BatchNorm normalises one value a channel at a global "
+                "batch of 1 and cannot train: use train.batch_size >= 2 with DeepLab-V3")
         h, w = x.shape[2], x.shape[3]
         branches = [getattr(self, f"b{i}")(x) for i in range(self.n_rates + 1)]
         branches.append(self.b4(x).expand(-1, -1, h, w))

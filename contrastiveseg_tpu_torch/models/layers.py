@@ -42,7 +42,8 @@ BN_EPS = 1e-5
 
 
 class GlobalBatchNorm(torch.autograd.Function):
-    """Train-mode batch norm over the global batch of every rank, in fp32:
+    """Train-mode batch norm over the global batch of every rank, in fp32
+    (float64 in a float64 run, ``fp32``):
     ``(y, mean, var)`` from ``(x, weight, bias, eps)``, ``var`` biased.
 
     Two passes, as the exact BN of one process: an all-reduce of each
@@ -57,7 +58,7 @@ class GlobalBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         dims = [0, *range(2, x.dim())]
-        xf = x.float()
+        xf = fp32(x)
         stats = all_reduce_sum(torch.cat([xf.sum(dims), xf.new_full((1,), xf.numel()
                                                                      // xf.shape[1])]))
         n, mean = stats[-1], stats[:-1] / stats[-1]
@@ -77,8 +78,8 @@ class GlobalBatchNorm(torch.autograd.Function):
         x, weight, mean, invstd, n = ctx.saved_tensors
         dims = [0, *range(2, x.dim())]
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        dyf = dy.float()
-        x_hat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dyf = fp32(dy)
+        x_hat = (fp32(x) - mean.view(shape)) * invstd.view(shape)
         local = torch.cat([dyf.sum(dims), (dyf * x_hat).sum(dims)])
         sum_dy, sum_dy_xhat = all_reduce_sum(local).chunk(2)
         scale = invstd if weight is None else invstd * weight

@@ -5,10 +5,16 @@ a CUDA device (``cuda:$LOCAL_RANK``), gloo for the CPU.  Once it exists,
 ``distributed()`` is true and the collectives run, at world size 1 too, so
 that one card runs every collective of the distributed path.  Without a
 group they return their input (or do nothing).
+
+``global_calls()`` counts the calls of the losses' global branches
+(``global_kth_smallest``, RMI's and Lovasz's) since
+``reset_global_calls()``, so that a run can show that it took them.
 """
 
 from __future__ import annotations
 
+import collections
+import math
 import os
 
 import torch
@@ -16,6 +22,21 @@ import torch.distributed as dist
 
 ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+_CALLS: collections.Counter = collections.Counter()
+
+
+def count_global(name: str) -> None:
+    """Count one call of the global branch ``name`` (``global_calls``)."""
+    _CALLS[name] += 1
+
+
+def global_calls() -> dict[str, int]:
+    """The global branches' calls since ``reset_global_calls``, by name."""
+    return dict(_CALLS)
+
+
+def reset_global_calls() -> None:
+    _CALLS.clear()
 
 
 def launched() -> bool:
@@ -76,17 +97,59 @@ def init_from_env(device: torch.device | str = "cuda") -> torch.device:
     return dev
 
 
-def data_parallel(model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+def data_parallel(model: torch.nn.Module, device: torch.device,
+                  ignore: tuple[str, ...] = ()) -> torch.nn.Module:
     """``model``'s ``DistributedDataParallel`` wrapper on ``device``.  It
     broadcasts no buffers: the BN statistics are the global batch's on every
     rank (``models/layers.GlobalBatchNorm``); ``find_unused_parameters`` is
-    off."""
+    off.  The parameters named in ``ignore`` stay out of its reducer: the
+    train step leaves them out once it has seen that the loss never reaches
+    them (``exclude_unreached``)."""
     from torch.nn.parallel import DistributedDataParallel
 
     device = torch.device(device)
+    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(model, list(ignore))
     return DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
         broadcast_buffers=False, find_unused_parameters=False)
+
+
+def exclude_unreached(ddp: torch.nn.Module) -> torch.nn.Module:
+    """After a first step whose backward ran without the reducer
+    (``no_sync``): the ranks' mean of the gradients, as DDP's reducer makes
+    it (each rank's times 1/world, summed), and the wrapper for the later
+    steps.  A parameter that no rank's loss reached keeps no gradient and
+    stays out of the new wrapper's reducer (``data_parallel``'s ``ignore``),
+    whose ``find_unused_parameters`` stays off; where the loss reaches every
+    parameter, ``ddp`` itself.  One host sync, for the names.
+
+    DDP's own ways do not fit: ``static_graph`` refuses ``no_sync()`` in
+    its first step, and never finishes a later step's reduction while the
+    model returns an output that the loss leaves unused (CE2P's edge
+    logits); ``find_unused_parameters`` walks the graph every step, from
+    the model's outputs, so it takes that branch as used and reduces its
+    zero gradients."""
+    model = ddp.module
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    device = params[0][1].device
+    reached = all_reduce_sum(torch.tensor([p.grad is not None for _, p in params],
+                                          dtype=torch.int32, device=device)).tolist()
+    grads = collections.defaultdict(list)
+    for (_, p), hit in zip(params, reached):
+        if hit:
+            if p.grad is None:  # reached on another rank only
+                p.grad = torch.zeros_like(p)
+            grads[p.grad.dtype].append(p.grad)
+    world = world_size()
+    for group in grads.values():
+        flat = torch.cat([g.reshape(-1) for g in group]).mul_(1.0 / world)
+        dist.all_reduce(flat)
+        for g, part in zip(group, flat.split([g.numel() for g in group])):
+            g.copy_(part.view_as(g))
+    unreached = tuple(n for (n, _), hit in zip(params, reached) if not hit)
+    if not unreached:
+        return ddp
+    return data_parallel(model, device, ignore=unreached)
 
 
 def _gather_cat(x: torch.Tensor) -> torch.Tensor:
@@ -131,6 +194,29 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def global_kth_smallest(values: torch.Tensor, k: torch.Tensor, k_max: int,
+                        fill: float = math.inf) -> torch.Tensor:
+    """The ``k``-th smallest (from 0) of every rank's ``values`` put
+    together, bit for bit ``torch.sort(cat over the ranks)[k]``, for a
+    0-d device tensor ``k <= k_max``, with no host sync.
+
+    The k-th smallest of a union lies among each part's k + 1 smallest, so
+    each rank contributes its ``min(k_max + 1, numel)`` smallest, padded
+    with ``fill`` (no smaller than any value that can be the k-th) to
+    ``k_max + 1``: the gather's shape is static and equal on every rank.
+    One all-gather, and one sort of world x (k_max + 1) values.  Without a
+    process group, the k-th smallest of ``values``."""
+    if distributed():
+        count_global("global_kth_smallest")
+    values = values.reshape(-1)
+    m = min(k_max + 1, values.numel())
+    local = torch.topk(values, m, largest=False, sorted=False).values
+    if m < k_max + 1:
+        local = torch.cat([local, local.new_full((k_max + 1 - m,), fill)])
+    pooled = torch.sort(all_gather_cat(local)).values
+    return pooled.gather(0, k.reshape(1).long())[0]
+
+
 def barrier() -> None:
     if distributed():
         dist.barrier()
@@ -144,12 +230,3 @@ def require_one_process(what: str) -> None:
         raise RuntimeError(
             f"{what} runs on one device (the JAX package's has no mesh either); "
             f"run it without torchrun, not at world size {world}")
-
-
-def refuse_beyond_one_rank(what: str) -> None:
-    """Raise ``NotImplementedError`` for ``what`` (a loss that needs a global
-    sort or threshold over the batch) under more than one rank."""
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"{what} over the global batch of {world_size()} ranks is not ported: "
-            "ROADMAP §1 item 4 (OHEM, RMI and Lovász at world size > 1)")
